@@ -1,29 +1,73 @@
 """Carry weights across: JAX parameter trees -> the port's modules.
 
 The JAX package keeps parameters as nested dicts whose paths are the
-reference's torch state_dict keys, in channels-last layouts.
-`mudg_tpu.train.checkpoint.pytree_to_state_dict` (numpy only, no JAX)
-flattens such a tree and applies `jax_to_torch_layout`; the port's modules
-have exactly those keys, so the result loads with `strict=True`. After the
-load every kernel site packs its weights once (`prepare_kernels`).
+reference's torch state_dict keys, in channels-last layouts. This module
+flattens such a tree and puts every leaf back into its torch layout (a copy
+of `mudg_tpu/train/checkpoint.py:pytree_to_state_dict` and
+`jax_to_torch_layout`, in numpy: the port imports nothing of the JAX
+package). The port's modules have exactly those keys, so the result loads
+with `strict=True`. After the load every kernel site packs its weights once
+(`prepare_kernels`).
 """
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
 
 from .kernels import prepare_kernels
 
+# Modules whose '.weight' is an embedding table (kept (vocab, dim), not
+# transposed like a Linear); checkpoint.py:30-32.
+_EMBEDDING_MODULES = ("token_embedding",)
+
+
+def jax_to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
+    """One leaf from the JAX layout back to the torch layout, by rank:
+    Linear (in, out) -> (out, in); Conv1d (k, in, out), Conv2d
+    (kh, kw, in, out) and Conv3d (kt, kh, kw, in, out) -> (out, in, k...);
+    the fused attention in_proj (W, 3W) -> (3W, W); everything else as is."""
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "in_proj_weight":
+        return value.T
+    if leaf != "weight":
+        return value
+    if any(key == s + ".weight" or key.endswith("." + s + ".weight")
+           for s in _EMBEDDING_MODULES):
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 3:
+        return value.transpose(2, 1, 0)
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    if value.ndim == 5:
+        return value.transpose(4, 3, 0, 1, 2)
+    return value
+
+
+def pytree_to_state_dict(tree, *, prefix: str = "") -> dict[str, np.ndarray]:
+    """Flatten a parameter tree into {dotted path: torch-layout array}."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + [k])
+        else:
+            key = ".".join(path)
+            out[prefix + key] = jax_to_torch_layout(key, np.asarray(node))
+
+    walk(tree, [])
+    return out
+
 
 def tree_to_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """A JAX parameter tree (leaves: numpy or JAX arrays, any float dtype)
     -> a torch-layout state dict of float32 tensors."""
-    from mudg_tpu.train.checkpoint import pytree_to_state_dict
-
-    sd = pytree_to_state_dict(tree, prefix=prefix)
     out = {}
-    for k, v in sd.items():
-        a = np.asarray(v)
+    for k, a in pytree_to_state_dict(tree, prefix=prefix).items():
         if a.dtype.kind == "f" or a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
         out[k] = torch.from_numpy(np.ascontiguousarray(a))

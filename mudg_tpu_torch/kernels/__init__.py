@@ -8,7 +8,7 @@ is no fallback from a CUDA tensor to the plain path. Sources and build:
 """
 from __future__ import annotations
 
-from . import mlp, spatial_attn, tconv, temporal_attn
+from . import flash_attention, mlp, spatial_attn, tconv, temporal_attn
 
 # kernel name -> module, in the order of the port's kernel table
 KERNELS = {
@@ -16,6 +16,7 @@ KERNELS = {
     "temporal_attn": temporal_attn,
     "geglu_ff": mlp,
     "gn_silu_tconv": tconv,
+    "flash_attention": flash_attention,
 }
 
 

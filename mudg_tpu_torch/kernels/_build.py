@@ -24,14 +24,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their argument types: pointers and the stream as
-# c_void_p (a c_int would cut a 64-bit pointer), sizes as c_int
+# c_void_p (a c_int would cut a 64-bit pointer), sizes as c_int, element
+# strides as c_longlong
 _SIGNATURES = {
     "mudg_spatial_attn": [_P] * 11 + [_I] * 3 + [_P],
     "mudg_temporal_attn_stage": [_P] * 11 + [_I] * 2 + [_P],
     "mudg_geglu_ff": [_P] * 11 + [_I] * 3 + [_P],
     "mudg_gn_silu_tconv": [_P] * 6 + [_I] * 4 + [_P],
+    "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
 }
 
 _lib = None

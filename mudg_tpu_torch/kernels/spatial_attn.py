@@ -3,8 +3,10 @@
 Computes LN -> q/k/v (C x C, no qkv bias) -> per-head softmax over the whole
 sequence -> P @ V -> out-projection + bias -> + x over tokens (B, L, C), heads
 of d = 64. Replaces `mudg_tpu/kernels/spatial_attn.py:_kernel`
-(fused_self_attention); what bounds it on the H100 and how the CUDA design
-answers that is in the note at the top of the .cu file.
+(fused_self_attention) and its long-L tiers `_stream_kernel` and `_fb_kernel`
+(MDM1024 ds2 and ds1), which compute the same function; what bounds it on
+the H100 and how the CUDA design answers that is in the note at the top of
+the .cu file.
 
 `fused_self_attention` is the wrapper: on a CPU (or meta) tensor it runs
 `plain_self_attention`, the unfused reference math (the JAX `_xla_impl`); on a
@@ -65,7 +67,8 @@ def plain_self_attention(x, norm, attn, heads: int):
     from ..nn import attention as A
     from ..nn import functional as F
 
-    return A.cross_attention(attn, F.layer_norm(norm, x), None, heads=heads) + x
+    return A.cross_attention(attn, F.layer_norm(norm, x), None, heads=heads,
+                             impl="plain") + x
 
 
 def check_packed(p: PackedStage, c: int) -> None:

@@ -38,7 +38,8 @@ def plain_double_self_attn(tokens, stage1, stage2, heads: int):
 
     x = tokens
     for norm, attn in (stage1, stage2):
-        x = A.cross_attention(attn, F.layer_norm(norm, x), None, heads=heads) + x
+        x = A.cross_attention(attn, F.layer_norm(norm, x), None, heads=heads,
+                              impl="plain") + x
     return x
 
 

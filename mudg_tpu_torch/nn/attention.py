@@ -8,7 +8,7 @@ to_k_ip/to_v_ip). Tokens are (B, L, C); attention runs with an fp32 softmax.
 
 `impl` is "auto" (the kernels of `mudg_tpu_torch.kernels` at the sites where
 the JAX dispatch puts its Pallas kernels) or "plain" (PyTorch ops only).
-Relative-position, causal and joint task attention are not ported yet.
+Relative-position and joint task attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,19 +16,74 @@ import torch
 from torch import nn
 
 from . import functional as F
+from ..kernels import flash_attention as FA
 from ..kernels import mlp as M
 from ..kernels import spatial_attn as SP
 from ..kernels import temporal_attn as TA
 
+# Below this sequence length the JAX dispatch keeps attention dense
+# (mudg_tpu/nn/attention.py:28-32).
+FLASH_MIN_SEQ = 512
+# fp32 logits the plain path materialises at once; longer attention loops
+# over chunks of the (batch, head) pairs (MDM1024 ds1 would otherwise build
+# 160 x 9216^2 fp32 logits, 54 GB).
+LOGITS_BUDGET = 2 << 30
 
-def attend(q, k, v):
-    """Scaled dot-product attention, q (B, Lq, H, D), k/v (B, Lk, H, D) ->
-    (B, Lq, H, D). Logits and softmax in fp32, probabilities cast to v's
-    dtype for the P @ V product (attention.py:115-128)."""
+
+def _dense(q, k, v, causal, with_lse):
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        lq, lk = logits.shape[-2:]
+        mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(lk - lq)
+        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return o, (torch.logsumexp(logits, dim=-1) if with_lse else None)
+
+
+def plain_attend(q, k, v, *, causal=False, with_lse=False):
+    """Scaled dot-product attention in plain torch, q (B, Lq, H, D), k/v
+    (B, Lk, H, D) -> (B, Lq, H, D), and with `with_lse` the natural-log
+    logsumexp of each row's logits, (B*H, Lq) fp32. Logits and softmax in
+    fp32, probabilities cast to v's dtype for the P @ V product
+    (attention.py:115-128); the causal mask keeps key j <= query i + Lk - Lq.
+    Each (batch, head) pair is computed on its own, so splitting the pairs
+    into chunks of at most LOGITS_BUDGET bytes of logits gives the same
+    result as one pass."""
+    b, lq, h, _ = q.shape
+    per_pair = lq * k.shape[1] * 4
+    pairs = max(1, LOGITS_BUDGET // per_pair)
+    if pairs >= b * h:
+        o, lse = _dense(q, k, v, causal, with_lse)
+        return (o, lse.reshape(b * h, lq)) if with_lse else o
+    hc = min(h, pairs)
+    bc = max(1, pairs // h) if hc == h else 1
+    rows = []
+    for b0 in range(0, b, bc):
+        parts = [_dense(q[b0:b0 + bc, :, h0:h0 + hc], k[b0:b0 + bc, :, h0:h0 + hc],
+                        v[b0:b0 + bc, :, h0:h0 + hc], causal, with_lse)
+                 for h0 in range(0, h, hc)]
+        rows.append((torch.cat([p[0] for p in parts], dim=2),
+                     torch.cat([p[1] for p in parts], dim=1) if with_lse else None))
+    o = torch.cat([r[0] for r in rows])
+    if not with_lse:
+        return o
+    return o, torch.cat([r[1] for r in rows]).reshape(b * h, lq)
+
+
+def attend(q, k, v, *, causal=False, impl="auto"):
+    """Scaled dot-product attention (attention.py:63-128), q (B, Lq, H, D),
+    k/v (B, Lk, H, D) -> (B, Lq, H, D). With impl="auto", long equal-length
+    non-causal bf16 self-attention (L >= FLASH_MIN_SEQ, L % 64 == 0) goes to
+    kernel 5 (`kernels/flash_attention.py`), as the JAX dispatch sends it to
+    its Pallas flash kernel; everything else is `plain_attend`. The kernel
+    takes head dim 64 only, where the JAX predicate admits any multiple of
+    64: no MuDG site has another head dim at L >= 512."""
+    if (impl == "auto" and not causal and q.shape[1] >= FLASH_MIN_SEQ
+            and FA.eligible(q, k, v)):
+        return FA.flash_attention(q, k, v)[0]
+    return plain_attend(q, k, v, causal=causal)
 
 
 def _split_heads(x, heads):
@@ -62,7 +117,7 @@ class CrossAttention(nn.Module):
 
 
 def cross_attention(m, x, context=None, *, heads, image_cross=False, ip_scale=1.0,
-                    text_len=77):
+                    text_len=77, impl="auto"):
     """CrossAttention forward (attention.py:174-252). x (B, Lq, C); context
     None is self-attention. With `image_cross` the context's tokens past
     `text_len` go through the decoupled image-KV path, added with ip_scale
@@ -77,14 +132,14 @@ def cross_attention(m, x, context=None, *, heads, image_cross=False, ip_scale=1.
         ctx, ctx_img = ctx[:, :text_len], ctx[:, text_len:]
         k = _split_heads(F.linear(m.to_k, ctx), heads)
         v = _split_heads(F.linear(m.to_v, ctx), heads)
-        out = attend(q, k, v)
+        out = attend(q, k, v, impl=impl)
         out_ip = attend(q, _split_heads(F.linear(m.to_k_ip, ctx_img), heads),
-                        _split_heads(F.linear(m.to_v_ip, ctx_img), heads))
+                        _split_heads(F.linear(m.to_v_ip, ctx_img), heads), impl=impl)
     else:
         if not self_attn:
             ctx = ctx[:, :text_len]
         out = attend(q, _split_heads(F.linear(m.to_k, ctx), heads),
-                     _split_heads(F.linear(m.to_v, ctx), heads))
+                     _split_heads(F.linear(m.to_v, ctx), heads), impl=impl)
     out = _merge_heads(out)
     if out_ip is not None:
         out_ip = _merge_heads(out_ip)
@@ -170,10 +225,10 @@ class BasicTransformerBlock(nn.Module):
                                         self.kernel_packs.get("attn1"))
         else:
             x = cross_attention(self.attn1, F.layer_norm(self.norm1, x), None,
-                                heads=self.heads) + x
+                                heads=self.heads, impl=impl) + x
         x = cross_attention(self.attn2, F.layer_norm(self.norm2, x), context,
                             heads=self.heads, image_cross=image_cross,
-                            ip_scale=ip_scale, text_len=text_len) + x
+                            ip_scale=ip_scale, text_len=text_len, impl=impl) + x
         return feed_forward_block(self.ff, self.norm3, x, impl=impl,
                                   packed=self.kernel_packs.get("ff"))
 

@@ -71,7 +71,7 @@ class AttnBlock(nn.Module):
         n, h, w, c = x.shape
         hn = F.group_norm(self.norm, x, eps=1e-6)
         q, k, v = (F.conv2d(m, hn).reshape(n, h * w, 1, c) for m in (self.q, self.k, self.v))
-        return x + F.conv2d(self.proj_out, attend(q, k, v).reshape(n, h, w, c))
+        return x + F.conv2d(self.proj_out, attend(q, k, v, impl="plain").reshape(n, h, w, c))
 
 
 class _Resample(nn.Module):
@@ -170,20 +170,22 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(zc, 2 * cfg.embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.embed_dim, cfg.z_channels, 1)
 
-    def encode_moments(self, x) -> DiagonalGaussian:
-        """AutoencoderKL.encode (autoencoder.py:97-102)."""
-        return DiagonalGaussian.from_moments(F.conv2d(self.quant_conv, self.encoder(x)))
-
     def encode(self, x, generator: torch.Generator | None = None):
-        """Scaled latents: a posterior sample with a generator, else its mode
-        (ddpm3d.py:611-618)."""
-        post = self.encode_moments(x)
-        z = post.sample(generator) if generator is not None else post.mode()
-        return self.cfg.scale_factor * z
+        """Scaled latents from the posterior moments (autoencoder.py:97-102):
+        a sample with a generator, else the mode (ddpm3d.py:611-618)."""
+        return sample_scaled(self.cfg, F.conv2d(self.quant_conv, self.encoder(x)), generator)
 
     def decode(self, z):
         """AutoencoderKL.decode with the 1/scale_factor pre-scale (ddpm3d.py:654-656)."""
         return self.decoder(F.conv2d(self.post_quant_conv, z / self.cfg.scale_factor))
+
+
+def sample_scaled(cfg: VAEConfig, moments, generator: torch.Generator | None = None):
+    """Posterior moments (..., 2z) -> scaled latents (..., z): a sample with a
+    generator, else the mode, times scale_factor (vae.py:148-154)."""
+    post = DiagonalGaussian.from_moments(moments)
+    z = post.sample(generator) if generator is not None else post.mode()
+    return cfg.scale_factor * z
 
 
 def _chunked(fn, x, chunk: int):

@@ -7,6 +7,7 @@ so on a machine without it they run with the repository's conftest left out:
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import pytest
@@ -38,15 +39,46 @@ def _randomize(module, gen):
     return module
 
 
-def _close(got, ref):
+def _close(got, ref, base=None):
+    """max|got - ref| <= TOL * max|ref|, on got - base and ref - base where
+    the kernel adds the residual `base`: the residual's bf16 rounding would
+    otherwise hide an error in the part the kernel computes. Returns the
+    part of ref held, for a planted-fault check."""
     torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
     assert torch.isfinite(got).all()
-    assert err <= TOL * ref.float().abs().max().item(), err
+    got, ref = got.float(), ref.float()
+    if base is not None:
+        got, ref = got - base.float(), ref - base.float()
+    err = (got - ref).abs().max().item()
+    assert err <= TOL * ref.abs().max().item(), err
+    return ref
 
 
 def _mods(dev, gen, *ms):
     return [_randomize(m.to(dev, torch.bfloat16), gen) for m in ms]
+
+
+def _sharpen(*attns):
+    """Logits ~N(0, 9), as chip_smoke.py: a peaked softmax with an O(1)
+    attention term, which a near-uniform one over long L is not."""
+    with torch.no_grad():
+        for a in attns:
+            a.to_q.weight.mul_(3 ** 0.5)
+            a.to_k.weight.mul_(3 ** 0.5)
+
+
+def _zero_v(attn):
+    """A copy of attn with zero attention term (a planted fault)."""
+    z = copy.deepcopy(attn)
+    with torch.no_grad():
+        z.to_v.weight.zero_()
+    return z
+
+
+def _sees(fault, ref_part, base):
+    """The planted fault's output misses the tolerance _close holds."""
+    err = (fault.float() - base.float() - ref_part).abs().max().item()
+    assert err > TOL * ref_part.abs().max().item(), err
 
 
 def test_spatial_attn_kernel(dev):
@@ -55,11 +87,13 @@ def test_spatial_attn_kernel(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     norm, attn = _mods(dev, gen, nn.LayerNorm(128), CrossAttention(128, heads=2, dim_head=64))
+    _sharpen(attn)
     x = torch.randn(3, 192, 128, generator=gen, device=dev).bfloat16()
     before = SP.launches
     got = SP.fused_self_attention(x, norm, attn, 2, SP.pack_stage(norm, attn, 2))
     assert SP.launches == before + 1
-    _close(got, SP.plain_self_attention(x, norm, attn, 2))
+    ref = _close(got, SP.plain_self_attention(x, norm, attn, 2), base=x)
+    _sees(SP.plain_self_attention(x, norm, _zero_v(attn), 2), ref, x)
 
 
 def test_temporal_attn_kernel(dev):
@@ -70,10 +104,12 @@ def test_temporal_attn_kernel(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     n1, a1, n2, a2 = _mods(dev, gen, nn.LayerNorm(128), CrossAttention(128, heads=2),
                            nn.LayerNorm(128), CrossAttention(128, heads=2))
+    _sharpen(a1, a2)
     x = torch.randn(12, 16, 128, generator=gen, device=dev).bfloat16()
     packed = (SP.pack_stage(n1, a1, 2), SP.pack_stage(n2, a2, 2))
     got = TA.fused_double_self_attn(x, (n1, a1), (n2, a2), 2, packed)
-    _close(got, TA.plain_double_self_attn(x, (n1, a1), (n2, a2), 2))
+    ref = _close(got, TA.plain_double_self_attn(x, (n1, a1), (n2, a2), 2), base=x)
+    _sees(TA.plain_double_self_attn(x, (n1, _zero_v(a1)), (n2, _zero_v(a2)), 2), ref, x)
 
 
 @pytest.mark.parametrize("block", [True, False])
@@ -86,7 +122,8 @@ def test_geglu_ff_kernel(dev, block):
     x = torch.randn(2, 384, 96, generator=gen, device=dev).bfloat16()
     packed = M.pack_ff(ff, norm)
     if block:
-        _close(M.fused_geglu_ff_block(x, norm, ff, packed), M.plain_geglu_ff_block(x, norm, ff))
+        _close(M.fused_geglu_ff_block(x, norm, ff, packed), M.plain_geglu_ff_block(x, norm, ff),
+               base=x)
     else:
         _close(M.fused_geglu_ff(x, ff, packed), M.plain_geglu_ff(x, ff))
 
@@ -101,6 +138,44 @@ def test_gn_silu_tconv_kernel(dev):
            TC.plain_gn_silu_tconv(x, norm, conv))
 
 
+@pytest.mark.parametrize("b,l,h", [(2, 192, 3), (1, 1024, 2)])
+def test_flash_attention_kernel(dev, b, l, h):
+    """Kernel 5 on strided q/k/v views of one packed (B, L, 3, H, 64)
+    tensor, o and lse against the plain version."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn(b, l, 3, h, 64, generator=gen, device=dev).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    before = FA.launches
+    o, lse = FA.flash_attention(q, k, v)
+    assert FA.launches == before + 1
+    o_ref, lse_ref = FA.plain_flash_attention(q, k, v)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("b,l,c", [(2, 2304, 640), (2, 9216, 320), (144, 9216, 320)])
+def test_spatial_attn_kernel_long_l(dev, b, l, c):
+    """Kernel 1 at the MDM1024 sequence lengths of TPU kernels 7 and 8; 144
+    frames is a 3-task, 3-variant batch, whose q|k|v scratch holds 1.27e9
+    elements."""
+    from mudg_tpu_torch.kernels import spatial_attn as SP
+    from mudg_tpu_torch.nn.attention import CrossAttention
+
+    heads = c // 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    norm, attn = _mods(dev, gen, nn.LayerNorm(c), CrossAttention(c, heads=heads))
+    _sharpen(attn)
+    x = torch.randn(b, l, c, generator=gen, device=dev).bfloat16()
+    with torch.no_grad():   # the plain version's chunks keep no autograd graph
+        got = SP.fused_self_attention(x, norm, attn, heads, SP.pack_stage(norm, attn, heads))
+        ref = _close(got, SP.plain_self_attention(x, norm, attn, heads), base=x)
+        del got
+        _sees(SP.plain_self_attention(x, norm, _zero_v(attn), heads), ref, x)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     from mudg_tpu_torch.kernels import spatial_attn as SP
     from mudg_tpu_torch.nn.attention import CrossAttention
@@ -113,6 +188,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):   # L not a multiple of 64
         SP.fused_self_attention(torch.randn(1, 96, 128, device=dev).bfloat16(),
                                 norm, attn, 2, packed)
+
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    q = torch.randn(1, 128, 2, 64, device=dev).bfloat16()
+    with pytest.raises(ValueError):   # head dim 32
+        FA.flash_attention(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError):   # fp32
+        FA.flash_attention(q.float(), q.float(), q.float())
 
 
 def test_small_unet_kernel_path_matches_fp32(dev):
@@ -139,6 +222,9 @@ def test_small_unet_kernel_path_matches_fp32(dev):
         K.reset_launch_counts()
         got = unet(x.bfloat16(), ts, ctx.bfloat16(), c_label=ts * 0)
     counts = K.launch_counts()
+    # kernel 5 takes self-attention at L >= 512 wider than kernel 1's C <= 640:
+    # no such site at this size
+    assert counts.pop("flash_attention") == 0
     assert all(v > 0 for v in counts.values()), counts
     e_k = ((got.float() - ref).norm() / ref.norm()).item()
     e_p = ((plain.float() - ref).norm() / ref.norm()).item()

@@ -8,7 +8,9 @@ fp32 comparisons: tests/test_reference_oracle.py:50, 2e-3 * scale + 5e-5.
 """
 from __future__ import annotations
 
+import ast
 import math
+import pathlib
 import subprocess
 import sys
 
@@ -25,14 +27,12 @@ from mudg_tpu.nn import unet3d as JU
 from mudg_tpu.nn import vae as JV
 from mudg_tpu.train.checkpoint import jax_to_torch_layout
 from mudg_tpu_torch import convert
-from mudg_tpu_torch.kernels import mlp as M
-from mudg_tpu_torch.kernels import spatial_attn as SP
-from mudg_tpu_torch.kernels import tconv as TC
-from mudg_tpu_torch.kernels import temporal_attn as TA
 from mudg_tpu_torch.models import mdm as TMDM
 from mudg_tpu_torch.nn import unet3d as TU
 from mudg_tpu_torch.nn import vae as TV
-from test_torch_util import assert_close, port, random_tree, t, to_jax
+from test_torch_util import assert_close, count_kernel_calls, port, random_tree, t, to_jax
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 TINY_UNET = dict(in_channels=12, out_channels=4, model_channels=32, num_res_blocks=1,
                  attention_resolutions=(1,), channel_mult=(1, 2), num_head_channels=16,
@@ -125,7 +125,10 @@ def test_slice_matches_jax_composition(trees, inputs):
     ref = jnp.clip(JV.decode_video(jvae, vcfg, z, chunk=4), -1, 1)
 
     cfg = TMDM.MDMConfig(unet=TU.UNetConfig(**TINY_UNET), vae=TV.VAEConfig(**TINY_VAE))
-    mdm = port(TMDM.MDM(cfg), {"unet": unet_tree, "vae": vae_tree})
+    with torch.device("meta"):   # sample_clip takes the context: no CLIP, no resampler
+        mdm = TMDM.MDM(cfg)
+    mdm.unet = port(TU.UNet3D(cfg.unet), unet_tree)
+    mdm.vae = port(TV.AutoencoderKL(cfg.vae), vae_tree)
     ours = TMDM.sample_clip(mdm, t(inputs["c_concat"]), t(inputs["ctx_c"]), t(inputs["ctx_u"]),
                             torch.zeros(1, dtype=torch.int64),
                             generator=torch.Generator().manual_seed(0), num_steps=steps,
@@ -184,23 +187,9 @@ def test_full_size_trees_match_meta_modules():
 def test_mdm512_dispatch_sites(monkeypatch):
     """One full-width MDM512 UNet forward (batch 2, 16 frames, 40x64, bf16),
     traced on the meta device, reaches the kernel wrappers at exactly the
-    JAX dispatch's sites: 10 spatial, 11 temporal, 33 FF, 20 tconv."""
-    calls = {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0, "gn_silu_tconv": 0}
-
-    def count(mod, fn, name):
-        orig = getattr(mod, fn)
-
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return orig(*a, **k)
-
-        monkeypatch.setattr(mod, fn, wrapped)
-
-    count(SP, "fused_self_attention", "spatial_attn")
-    count(TA, "fused_double_self_attn", "temporal_attn")
-    count(M, "fused_geglu_ff", "geglu_ff")
-    count(M, "fused_geglu_ff_block", "geglu_ff")
-    count(TC, "fused_gn_silu_tconv", "gn_silu_tconv")
+    JAX dispatch's sites: 10 spatial, 11 temporal, 33 FF, 20 tconv, and no
+    flash attention (no self-attention there has L >= 512 outside kernel 1)."""
+    calls = count_kernel_calls(monkeypatch)
     bf = torch.bfloat16
     with torch.device("meta"):
         unet = TU.UNet3D(TU.UNetConfig()).to(bf)
@@ -211,7 +200,7 @@ def test_mdm512_dispatch_sites(monkeypatch):
             y = unet(x, ts, ctx, c_label=ts)
             assert y.shape == (2, 16, 40, 64, 4)
             assert calls == {"spatial_attn": 10, "temporal_attn": 11, "geglu_ff": 33,
-                             "gn_silu_tconv": 20}
+                             "gn_silu_tconv": 20, "flash_attention": 0}
             for k in calls:
                 calls[k] = 0
             unet(x, ts, ctx, c_label=ts, impl="plain")
@@ -221,8 +210,49 @@ def test_mdm512_dispatch_sites(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, mudg_tpu_torch, mudg_tpu_torch.convert, mudg_tpu_torch.kernels, "
-            "mudg_tpu_torch.models.mdm, mudg_tpu_torch.nn.unet3d, mudg_tpu_torch.nn.vae; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mudg_tpu.'))"
-            " or m == 'mudg_tpu']; assert not bad, bad")
+    """Importing every module of the port and converting a tree (the call
+    that loads weights) loads neither JAX nor the JAX package."""
+    code = (
+        "import sys, numpy as np, mudg_tpu_torch, mudg_tpu_torch.convert, "
+        "mudg_tpu_torch.kernels, mudg_tpu_torch.models.mdm, mudg_tpu_torch.models.presets, "
+        "mudg_tpu_torch.nn.unet3d, mudg_tpu_torch.nn.vae, mudg_tpu_torch.nn.resampler, "
+        "mudg_tpu_torch.conditioning.clip, mudg_tpu_torch.diffusion.dpm\n"
+        "tree = {'a': {'weight': np.ones((2, 3), np.float32)},"
+        " 'token_embedding': {'weight': np.ones((4, 2), np.float32)}}\n"
+        "sd = mudg_tpu_torch.convert.tree_to_state_dict(tree)\n"
+        "assert tuple(sd['a.weight'].shape) == (3, 2), sd\n"
+        "assert tuple(sd['token_embedding.weight'].shape) == (4, 2), sd\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
+        "'mudg_tpu.')) or m == 'mudg_tpu']\n"
+        "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` in the file names, at
+    any depth (lazy imports inside functions included); relative imports are
+    resolved against the file's package."""
+    rel = path.relative_to(REPO).with_suffix("")
+    package = list(rel.parts[:-1])
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names += [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+def test_port_sources_import_no_jax():
+    """An ast scan of every .py file of the port and of chip_smoke.py: no
+    import of jax or of the JAX package, lazy or not."""
+    files = sorted((REPO / "mudg_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "mudg_tpu")]
+    assert not bad, bad
+    # the scan resolves relative imports: the port's own modules are seen
+    assert "mudg_tpu_torch.nn.functional" in _imported_modules(
+        REPO / "mudg_tpu_torch" / "nn" / "attention.py")

@@ -70,6 +70,37 @@ def t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
 
+def count_kernel_calls(monkeypatch) -> dict[str, int]:
+    """Wrap every kernel wrapper of the port so that each call adds one to
+    the returned dict (keyed as `mudg_tpu_torch.kernels.KERNELS`), on any
+    device, the meta device included."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+    from mudg_tpu_torch.kernels import mlp as M
+    from mudg_tpu_torch.kernels import spatial_attn as SP
+    from mudg_tpu_torch.kernels import tconv as TC
+    from mudg_tpu_torch.kernels import temporal_attn as TA
+
+    calls = {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0, "gn_silu_tconv": 0,
+             "flash_attention": 0}
+
+    def count(mod, fn, name):
+        orig = getattr(mod, fn)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return orig(*a, **k)
+
+        monkeypatch.setattr(mod, fn, wrapped)
+
+    count(SP, "fused_self_attention", "spatial_attn")
+    count(TA, "fused_double_self_attn", "temporal_attn")
+    count(M, "fused_geglu_ff", "geglu_ff")
+    count(M, "fused_geglu_ff_block", "geglu_ff")
+    count(TC, "fused_gn_silu_tconv", "gn_silu_tconv")
+    count(FA, "flash_attention", "flash_attention")
+    return calls
+
+
 def test_random_tree_covers_every_leaf():
     shapes = {"a": {"weight": jax.ShapeDtypeStruct((4, 8), jnp.float32),
                     "bias": jax.ShapeDtypeStruct((8,), jnp.float32)},
