@@ -5,8 +5,9 @@ mirror it:
     core/          schedules, CFG combiners, the VAE posterior
     nn/            functional layers, attention, the 3D UNet, the VAE
     kernels/       CUDA kernels (sources in csrc/) with their plain versions
-    diffusion/     DDIM sampling
-    models/        the MDM denoising clip (sample_clip)
+    diffusion/     DDIM and DPM-Solver++ sampling
+    models/        the MDM: conditioning, sample / sample_clip, training_loss
+    train/         the training step: AdamW, clipping, accumulation, EMA
     convert.py     JAX parameter trees -> the port's modules
 This package imports torch and never jax.
 """

@@ -1,12 +1,32 @@
-"""Classifier-free guidance combiners and guidance rescale.
+"""Diffusion algebra for training (q-sampling, the v target) and the
+classifier-free guidance combiners and guidance rescale.
 
-Port of the CFG arithmetic of `mudg_tpu/core/diffusion.py` (reference
-`lvdm/models/utils_diffusion.py:147-158`,
+Port of `mudg_tpu/core/diffusion.py` (reference `lvdm/models/ddpm3d.py:
+305-314`, `lvdm/models/utils_diffusion.py:147-158`,
 `lvdm/models/samplers/ddim_multiplecond.py:220-236`).
 """
 from __future__ import annotations
 
 import torch
+
+
+def extract(a, t, ndim: int):
+    """a[t] per batch element, shaped to broadcast over `ndim` dims
+    (lvdm/common.py:25-29)."""
+    out = a[t]
+    return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
+def q_sample(x_start, t, noise, sqrt_ac, sqrt_omac):
+    """Forward diffusion q(x_t | x_0) (ddpm3d.py:305-308)."""
+    nd = x_start.ndim
+    return extract(sqrt_ac, t, nd) * x_start + extract(sqrt_omac, t, nd) * noise
+
+
+def get_v(x, noise, t, sqrt_ac, sqrt_omac):
+    """The v-parameterization target (ddpm3d.py:310-314)."""
+    nd = x.ndim
+    return extract(sqrt_ac, t, nd) * noise - extract(sqrt_omac, t, nd) * x
 
 
 def cfg_combine(e_uncond, e_cond, guidance_scale):

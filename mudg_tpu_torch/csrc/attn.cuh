@@ -86,6 +86,68 @@ __device__ __forceinline__ void pv_accumulate(float o[8][4], float s[2 * KK][4],
   }
 }
 
+// Copy 64 rows x 64 columns (row stride ld elements, columns contiguous)
+// into shared memory, row-major or transposed; SCALE multiplies every value
+// by `scale` in fp32 and rounds back to bf16.
+template <bool TRANSPOSE, bool SCALE>
+__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src,
+                                             long long ld, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = threadIdx.x + i * 128, r = c >> 3, col = (c & 7) * 8;
+    uint4 v = *reinterpret_cast<const uint4*>(src + r * ld + col);
+    if (SCALE) {
+      uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = unpack_bf16x2(w[j]);
+        w[j] = pack_bf16x2(f.x * scale, f.y * scale);
+      }
+    }
+    if (TRANSPOSE) {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[(col + j) * AT_LDS + r] = e[j];
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * AT_LDS + col) = v;
+    }
+  }
+}
+
+// Two bf16 values packed as one mma operand register (a in the low half).
+__device__ __forceinline__ uint32_t pack_pair(bf16 a, bf16 b) {
+  return (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
+
+// A fragments (16 x 16) from the fp32 accumulator fragments of two adjacent
+// 8-column blocks, rounded to bf16 (the accumulator layout is the A layout).
+__device__ __forceinline__ void frag_from_acc(uint32_t a[4], const float lo[4],
+                                              const float hi[4]) {
+  a[0] = pack_bf16x2(lo[0], lo[1]);
+  a[1] = pack_bf16x2(lo[2], lo[3]);
+  a[2] = pack_bf16x2(hi[0], hi[1]);
+  a[3] = pack_bf16x2(hi[2], hi[3]);
+}
+
+// acc[dj] += A(16 x 16*KK) @ T where T is rows row0.. row0+16*KK-1, columns
+// 0..63 of a row-major shared tile (row stride AT_LDS): the B operand's k
+// runs down the tile's rows, so each register takes two rows of one column.
+template <int KK>
+__device__ __forceinline__ void mma_rowmajor_b(float acc[8][4], const uint32_t a[KK][4],
+                                               const bf16* tile, int row0, int g,
+                                               int q) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+    for (int dj = 0; dj < 8; ++dj) {
+      const bf16* t = tile + (row0 + kk * 16 + 2 * q) * AT_LDS + dj * 8 + g;
+      const uint32_t b[2] = {pack_pair(t[0], t[AT_LDS]),
+                             pack_pair(t[8 * AT_LDS], t[9 * AT_LDS])};
+      mma_16816(acc[dj], a[kk], b);
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

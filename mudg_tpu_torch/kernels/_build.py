@@ -34,7 +34,13 @@ _SIGNATURES = {
     "mudg_geglu_ff": [_P] * 11 + [_I] * 3 + [_P],
     "mudg_gn_silu_tconv": [_P] * 6 + [_I] * 4 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
+    "mudg_flash_attn_bwd": [_P] * 9 + [_I] * 3 + [_LL] * 9 + [_P],
+    "mudg_temporal_attn_stage_bwd": [_P] * 21 + [_LL] + [_I] * 2 + [_P],
+    "mudg_geglu_ff_bwd": [_P] * 16 + [_LL] + [_I] * 3 + [_P],
 }
+# fp32 scratch for the backward kernels' split partials (elements); the split
+# counts shrink to fit it, so it bounds memory, never correctness
+WORK_ELEMS = 1 << 23
 
 _lib = None
 build_seconds = 0.0   # wall time of the last build in this process (0: cached)

@@ -1,15 +1,20 @@
-"""Kernel 5: flash attention forward with its logsumexp (CUDA, `csrc/flash_attn.cu`).
+"""Kernel 5: flash attention forward with its logsumexp (CUDA, `csrc/flash_attn.cu`),
+and kernel 6: its FlashAttention-2 backward (`csrc/flash_attn_bwd.cu`).
 
 Computes o = softmax(q k^T / sqrt(64)) v and the natural-log logsumexp of
 every row's logits over q, k, v (B, L, H, 64), non-causal, no bias, equal
 lengths, L % 64 == 0. Replaces `mudg_tpu/kernels/flash_attention.py`'s
-forward (`_oneshot_kernel`, `_fwd_kernel`); what bounds it on the H100 and
-how the CUDA design answers that is in the note at the top of the .cu file.
+forward (`_oneshot_kernel`, `_fwd_kernel`) and backward (`_bwd_dq_kernel`,
+`_bwd_dkv_kernel` and their chunked long-L bodies); what bounds each on the
+H100 and how the CUDA design answers that is in the note at the top of its
+.cu file.
 
-`flash_attention` is the wrapper: on a CPU (or meta) tensor it runs
-`plain_flash_attention`, the port's plain `attend` math with the logsumexp;
-on a CUDA tensor it launches the kernel or raises. q, k and v are read in
-place through their strides (no (B*H, L, D) fold).
+`flash_attention` and `flash_attention_bwd` are the wrappers: on a CPU (or
+meta) tensor they run `plain_flash_attention` / `plain_flash_attention_bwd`;
+on a CUDA tensor they launch the kernel or raise. q, k and v are read in
+place through their strides (no (B*H, L, D) fold). `flash_attention_train`
+is the op with a gradient (a `torch.autograd.Function` that saves q, k, v,
+o and lse), which the training dispatch uses.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 from . import _build
 
 D = 64          # head dim the kernel takes
-launches = 0    # calls of the wrapper that launched the kernel
+launches = 0    # calls of the forward wrapper that launched kernel 5
+bwd_launches = 0   # calls of the backward wrapper that launched kernel 6
 
 
 def eligible(q, k, v) -> bool:
@@ -37,6 +43,41 @@ def plain_flash_attention(q, k, v):
     return plain_attend(q, k, v, with_lse=True)
 
 
+def _delta(o, do):
+    """rowsum(o * dO) in fp32, (B*H, L): outside the kernel, as on the TPU."""
+    b, l, h, _ = o.shape
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 1).reshape(b * h, l).contiguous()
+
+
+def plain_flash_attention_bwd(q, k, v, o, lse, do, *, delta=None):
+    """FA-2 gradients (dq, dk, dv) in plain PyTorch, fp32 math, in q's dtype:
+    P = exp(q k^T s - lse), dS = P (dO v^T - delta), dq = s dS k,
+    dk = s dS^T q, dv = P^T dO with s = d^-0.5. k and v may be shorter than q
+    (a planted fault walks half the keys). Walks chunks of the (batch, head)
+    pairs as `plain_attend` does. `delta` defaults to rowsum(o * dO)."""
+    from ..nn.attention import pair_chunks
+
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = d ** -0.5
+    delta = _delta(o, do) if delta is None else delta
+    lse4 = lse.reshape(b, h, lq, 1)
+    dl4 = delta.reshape(b, h, lq, 1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    bc, hc = pair_chunks(b, h, lq * lk * 16)
+    for b0 in range(0, b, bc):
+        for h0 in range(0, h, hc):
+            sl = (slice(b0, b0 + bc), slice(None), slice(h0, h0 + hc))
+            qf, kf, vf, dof = (t[sl].float() for t in (q, k, v, do))
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+            p = torch.exp(s - lse4[b0:b0 + bc, h0:h0 + hc])
+            ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - dl4[b0:b0 + bc, h0:h0 + hc])
+            dq[sl] = (scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)).to(q.dtype)
+            dk[sl] = (scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf)).to(k.dtype)
+            dv[sl] = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(v.dtype)
+    return dq, dk, dv
+
+
 def _check_operand(t, name):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -45,6 +86,10 @@ def _check_operand(t, name):
                          f"a multiple of 8, got strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def _strides(*ts):
+    return [ctypes.c_longlong(s) for t in ts for s in t.stride()[:3]]
 
 
 def flash_attention(q, k, v):
@@ -62,10 +107,56 @@ def flash_attention(q, k, v):
     o = torch.empty(b, l, h, d, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
     lib = _build.load()
-    strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
     P = _build.ptr
-    err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *strides,
+    err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v),
                               _build.stream())
     _build.check(err, "flash_attention")
     launches += 1
     return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """Gradients (dq, dk, dv) of `flash_attention`'s o for the upstream dO,
+    each (B, L, H, 64) in q's dtype, from the forward's o and lse."""
+    global bwd_launches
+    if q.device.type in ("cpu", "meta"):
+        return plain_flash_attention_bwd(q, k, v, o, lse, do)
+    if not eligible(q, k, v):
+        raise ValueError(f"flash_attention_bwd: unsupported inputs {tuple(q.shape)} {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(t, name)
+    do = do.contiguous()
+    b, l, h, _ = q.shape
+    _build.require(do, "dO")
+    for t, name in ((o, "o"), (do, "dO")):   # o is read only by delta's torch op
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: expected {tuple(q.shape)}, got {tuple(t.shape)}")
+    _build.require(lse, "lse", torch.float32)
+    delta = _delta(o, do)
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
+    lib = _build.load()
+    P = _build.ptr
+    err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(do), P(lse), P(delta), P(dq), P(dk),
+                                  P(dv), b, l, h, *_strides(q, k, v), _build.stream())
+    _build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 5 forward, kernel 6 backward (the JAX package's `_attach_grad`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do)
+
+
+def flash_attention_train(q, k, v):
+    """`flash_attention`'s o with the FlashAttention-2 gradient to q, k, v."""
+    return _FlashAttention.apply(q, k, v)

@@ -39,20 +39,27 @@ class PackedStage(NamedTuple):
     bo: torch.Tensor     # (C,) fp32
 
 
+def pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads: int) -> PackedStage:
+    """Kernel-side weights from one stage's parameters (torch (out, in)
+    layouts, bo may be None). The softmax scale and log2(e) are folded into
+    Wq in bf16, as the TPU kernel does (spatial_attn.py:101-102)."""
+    c = wq.shape[1]
+    d = c // heads
+    bf = torch.bfloat16
+    wq2 = (wq.float() * (d ** -0.5 * LOG2E)).to(bf)
+    wqkv = torch.cat([wq2, wk.to(bf), wv.to(bf)]).contiguous()
+    bo = bo if bo is not None else wo.new_zeros(c)
+    return PackedStage(ln_w.float().contiguous(), ln_b.float().contiguous(), wqkv,
+                       wo.to(bf).contiguous(), bo.float().contiguous())
+
+
 @torch.no_grad()
 def pack_stage(norm, attn, heads: int) -> PackedStage:
     """norm: LayerNorm module; attn: CrossAttention module (self-attention,
-    no q/k/v biases). The softmax scale and log2(e) are folded into Wq in
-    bf16, as the TPU kernel does (spatial_attn.py:101-102)."""
-    c = attn.to_q.weight.shape[1]
-    d = c // heads
-    bf = torch.bfloat16
-    wq = (attn.to_q.weight.float() * (d ** -0.5 * LOG2E)).to(bf)
-    wqkv = torch.cat([wq, attn.to_k.weight.to(bf), attn.to_v.weight.to(bf)]).contiguous()
+    no q/k/v biases); packed once for inference."""
     out = attn.to_out["0"]
-    bo = out.bias if out.bias is not None else out.weight.new_zeros(c)
-    return PackedStage(norm.weight.float().contiguous(), norm.bias.float().contiguous(),
-                       wqkv, out.weight.to(bf).contiguous(), bo.float().contiguous())
+    return pack_stage_params(norm.weight, norm.bias, attn.to_q.weight, attn.to_k.weight,
+                             attn.to_v.weight, out.weight, out.bias, heads)
 
 
 def eligible(shape, dtype, c: int, heads: int) -> bool:

@@ -1,16 +1,19 @@
-"""The MDM (multi-modal diffusion model): conditioning assembly and guided
-sampling.
+"""The MDM (multi-modal diffusion model): conditioning assembly, the
+training loss and guided sampling.
 
-Port of the inference half of `mudg_tpu/models/mdm.py` (reference
-LatentVisualDiffusion, `lvdm/models/ddpm3d.py:1033-1300`, and the condition
-assembly of `virtual_render/virtual_pose_render.py:62-147`). Videos are
+Port of `mudg_tpu/models/mdm.py` (reference LatentVisualDiffusion,
+`lvdm/models/ddpm3d.py:1033-1300`, and the condition assembly of
+`virtual_render/virtual_pose_render.py:62-147`). Videos are
 (B, T, H, W, 3) channels-last in [-1, 1], latents (B, T, h, w, 4);
   c_concat    = cat(sparse_rgb_z, sparse_depth_z) over channels (B, T, h, w, 8)
   c_crossattn = cat(text_emb (B, 77, 1024), img_emb (B, T*16, 1024))
 CFG variants are stacked on the batch axis, so each sampler step is one UNet
 call at batch n_variants*B. `sample` is the whole path from pixels and token
 ids to the clip; `sample_clip` is its second half with the context given.
-The sequence-parallel path (`sp`) waits for the multi-GPU slice.
+`training_loss` is the shared_step / p_losses of the reference; its random
+draws are explicit (`draw_training_noise`), so that a caller can pass the
+draws another implementation made. The sequence-parallel path (`sp`) waits
+for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch import nn
 
 from ..conditioning import clip as CL
 from ..core import diffusion as D
+from ..core.distributions import DiagonalGaussian
 from ..core import schedules as S
 from ..diffusion import ddim, dpm
 from ..nn import resampler as R
@@ -48,6 +52,13 @@ class MDMConfig:
     turning_step: int = 400
     default_fs: int = 10
     vae_chunk: int = 1               # frames per VAE call (perframe_ae)
+    # training (mdm.py:57-74)
+    uncond_prob: float = 0.05        # each of the text / image / both CFG drops
+    train_encode_chunk: int = 16     # frames per call of the stacked training encode
+    noise_strength: float = 0.0      # offset noise (ddpm3d.py:742-745)
+    interp_mode: bool = False        # frame-interpolation conditioning (ddpm3d.py:1114-1118)
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
 
     def schedule(self) -> S.DiffusionSchedule:
         return S.DiffusionSchedule.create(
@@ -57,6 +68,14 @@ class MDMConfig:
             parameterization=self.parameterization,
             use_dynamic_rescale=self.use_dynamic_rescale, base_scale=self.base_scale,
             turning_step=self.turning_step)
+
+
+def schedule_arrays(sched: S.DiffusionSchedule, device=None) -> dict:
+    """Device copies of the schedule fields training reads (mdm.py:96-105)."""
+    names = ["sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "lvlb_weights"]
+    if sched.scale_arr is not None:
+        names.append("scale_arr")
+    return {n: torch.as_tensor(getattr(sched, n), device=device) for n in names}
 
 
 def stage2_config(**overrides) -> MDMConfig:
@@ -101,11 +120,139 @@ def encode_conditions(mdm: MDM, sparse_frames, sparse_depth):
 
 
 def denoise(unet: U.UNet3D, z_noisy, t, c_concat, context, class_label, fs=None,
-            *, impl="auto"):
+            *, impl="auto", remat=False, generator=None):
     """DiffusionWrapper 'hybrid' forward (ddpm3d.py:1320-1324): channel-concat
     conditions + cross-attention context + class label."""
     x = torch.cat([z_noisy, c_concat.to(z_noisy.dtype)], dim=-1)
-    return unet(x, t, context, c_label=class_label, fs=fs, impl=impl)
+    return unet(x, t, context, c_label=class_label, fs=fs, impl=impl, remat=remat,
+                generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def training_shapes(cfg: MDMConfig, batch) -> dict:
+    """The shapes of a batch's random draws: "latent" (B, T, h, w, z) of the
+    target latents, "posterior" of the posterior samples of every encoded
+    video (3B stacked, or B dense frames in interp mode)."""
+    zc = cfg.vae.embed_dim
+    if "dense_moments" in batch:
+        lat = tuple(batch["dense_moments"].shape[:-1]) + (zc,)
+    else:
+        b, t, hh, ww = batch["dense_frames"].shape[:4]
+        f = 2 ** (len(cfg.vae.ch_mult) - 1)
+        lat = (b, t, hh // f, ww // f, zc)
+    post = lat if cfg.interp_mode else (3 * lat[0],) + lat[1:]
+    return {"latent": lat, "posterior": post}
+
+
+def draw_training_noise(cfg: MDMConfig, shapes: dict, generator: torch.Generator) -> dict:
+    """Every random draw of one `training_loss` call, from `generator`, on
+    its device: "t" (B,) int64 timesteps, "noise" (latent) the diffusion
+    noise, "posterior_eps" (posterior) the VAE posterior sample's normal
+    draw, "cfg_uniform" (B,) the CFG-dropout uniform, "offset_noise"
+    (B, T, 1, 1, z) the offset noise (used when cfg.noise_strength > 0)."""
+    lat = shapes["latent"]
+    b = lat[0]
+    kw = dict(generator=generator, device=generator.device)
+    return {
+        "t": torch.randint(0, cfg.timesteps, (b,), **kw),
+        "noise": torch.randn(lat, **kw),
+        "posterior_eps": torch.randn(shapes["posterior"], **kw),
+        "cfg_uniform": torch.rand((b,), **kw),
+        "offset_noise": torch.randn((b, lat[1], 1, 1, lat[-1]), **kw),
+    }
+
+
+def _posterior_sample(cfg: MDMConfig, moments, eps):
+    """scale_factor * (mean + std * eps) of the posterior (vae.py:148-154)."""
+    post = DiagonalGaussian.from_moments(moments)
+    return cfg.vae.scale_factor * (post.mean + post.std * eps.to(post.mean.dtype))
+
+
+def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tokens=None,
+                  sched_arrays: dict | None = None, impl: str = "train", remat: bool = True,
+                  compute_dtype=torch.bfloat16, generator: torch.Generator | None = None):
+    """shared_step / p_losses of the MDM (ddpm3d.py:1056-1149, 741-788;
+    mdm.py:163-310). Returns (loss, {"loss_simple", "t_mean"}).
+
+    batch: dense_frames, sparse_frames, sparse_depth (B, T, H, W, 3) in
+    [-1, 1], tokens (B, 77) int, class_label (B,) int, optional fps (B,);
+    or the moments form: dense_moments, sparse_moments, depth_moments
+    (B, T, h, w, 2z) and sparse_frame0 (B, H, W, 3) in place of the videos.
+    draws: `draw_training_noise`'s dict. null_emb (1 or B, 77, D): the
+    empty prompt's embedding, or null_tokens (77,) to encode it here.
+    The frozen VAE and CLIP towers run under no_grad in compute_dtype; the
+    resampler (image_proj) and the UNet (remat, dropout from `generator`)
+    carry gradients to their fp32 parameters; the diffusion algebra and the
+    loss are fp32."""
+    cfg = mdm.cfg
+    cdt = compute_dtype
+    if sched_arrays is None:
+        sched_arrays = schedule_arrays(cfg.schedule(), draws["noise"].device)
+    eps = draws["posterior_eps"]
+    with torch.no_grad():
+        if cfg.interp_mode:
+            m = V.encode_moments_video(mdm.vae, batch["dense_frames"].to(cdt),
+                                       chunk=cfg.vae_chunk)
+            z = _posterior_sample(cfg, m, eps).float()
+            # start + end frame conditioning, the depth half zero (ddpm3d.py:1114-1118)
+            zc = torch.zeros_like(z)
+            zc[:, 0], zc[:, -1] = z[:, 0], z[:, -1]
+            c_concat = torch.cat([zc, torch.zeros_like(zc)], dim=-1)
+        elif "dense_moments" in batch:
+            m3 = torch.cat([batch["dense_moments"], batch["sparse_moments"],
+                            batch["depth_moments"]]).float()
+            z, sparse_z, depth_z = _posterior_sample(cfg, m3, eps).chunk(3)
+            c_concat = torch.cat([sparse_z, depth_z], dim=-1).to(cdt)
+        else:
+            # one stacked encode of the dense target, sparse RGB and depth
+            enc_in = torch.cat([batch["dense_frames"], batch["sparse_frames"],
+                                batch["sparse_depth"]]).to(cdt)
+            n_frames = enc_in.shape[0] * enc_in.shape[1]
+            chunk = cfg.train_encode_chunk
+            while chunk > 1 and n_frames % chunk:
+                chunk //= 2
+            m3 = V.encode_moments_video(mdm.vae, enc_in, chunk=chunk)
+            z, sparse_z, depth_z = _posterior_sample(cfg, m3, eps).chunk(3)
+            z = z.float()
+            c_concat = torch.cat([sparse_z, depth_z], dim=-1)
+        b = z.shape[0]
+        cond_emb = encode_text(mdm, batch["tokens"])
+        if null_emb is None:
+            null_emb = encode_text(mdm, null_tokens.expand(b, -1))
+        null_emb = null_emb.expand_as(cond_emb).to(cond_emb.dtype)
+
+        # disjoint 5 / 5 / 5 % text / image / both CFG dropout (ddpm3d.py:1091-1099)
+        u = draws["cfg_uniform"]
+        p = cfg.uncond_prob
+        prompt_emb = torch.where((u < 2 * p)[:, None, None], null_emb, cond_emb)
+        input_mask = 1.0 - ((u >= p) & (u < 3 * p)).to(z.dtype).reshape(b, 1, 1, 1)
+        img_src = batch["sparse_frame0"] if "sparse_frame0" in batch else batch["sparse_frames"][:, 0]
+        img_tokens = mdm.clip_image((img_src * input_mask).to(cdt))
+    img_emb = mdm.image_proj(img_tokens)           # trainable
+    context = torch.cat([prompt_emb.to(cdt), img_emb.to(cdt)], dim=1)
+
+    t = draws["t"]
+    if "scale_arr" in sched_arrays:
+        z = z * D.extract(sched_arrays["scale_arr"], t, z.ndim)
+    noise = draws["noise"]
+    if cfg.noise_strength > 0:
+        noise = noise + cfg.noise_strength * draws["offset_noise"]
+    sa = sched_arrays["sqrt_alphas_cumprod"]
+    soma = sched_arrays["sqrt_one_minus_alphas_cumprod"]
+    z_noisy = D.q_sample(z, t, noise, sa, soma)
+    target = D.get_v(z, noise, t, sa, soma)
+    v_pred = denoise(mdm.unet, z_noisy.to(cdt), t, c_concat.to(cdt), context,
+                     batch["class_label"], fs=batch.get("fps"), impl=impl, remat=remat,
+                     generator=generator).float()
+    loss_simple = ((v_pred - target.float()) ** 2).mean(dim=(1, 2, 3, 4))
+    loss = cfg.l_simple_weight * loss_simple.mean()
+    if cfg.original_elbo_weight > 0:
+        loss = loss + cfg.original_elbo_weight * (sched_arrays["lvlb_weights"][t]
+                                                  * loss_simple).mean()
+    return loss, {"loss_simple": loss_simple.mean().detach(), "t_mean": t.float().mean()}
 
 
 def _guided_model_fn(mdm, variants, c_concat, class_label, fs, guidance_scale, cfg_img,

@@ -7,7 +7,11 @@ CrossAttention holds to_q/to_k/to_v, to_out.0 and, with image cross-attention,
 to_k_ip/to_v_ip). Tokens are (B, L, C); attention runs with an fp32 softmax.
 
 `impl` is "auto" (the kernels of `mudg_tpu_torch.kernels` at the sites where
-the JAX dispatch puts its Pallas kernels) or "plain" (PyTorch ops only).
+the JAX dispatch puts its Pallas kernels), "train" (the JAX training
+dispatch, attention.py:34-47: only the kernels with a backward kernel, each as
+an autograd op; kernel 1 is off, kernel 5 takes attention at L >= 512, the
+temporal and FF kernels take the sites their JAX backward predicates admit)
+or "plain" (PyTorch ops only).
 Relative-position and joint task attention are not ported yet.
 """
 from __future__ import annotations
@@ -42,6 +46,16 @@ def _dense(q, k, v, causal, with_lse):
     return o, (torch.logsumexp(logits, dim=-1) if with_lse else None)
 
 
+def pair_chunks(b, h, per_pair):
+    """(batch chunk, head chunk) whose (batch, head) pairs hold at most
+    LOGITS_BUDGET bytes at `per_pair` bytes each; (b, h) when all fit."""
+    pairs = max(1, LOGITS_BUDGET // per_pair)
+    if pairs >= b * h:
+        return b, h
+    hc = min(h, pairs)
+    return (max(1, pairs // h) if hc == h else 1), hc
+
+
 def plain_attend(q, k, v, *, causal=False, with_lse=False):
     """Scaled dot-product attention in plain torch, q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (B, Lq, H, D), and with `with_lse` the natural-log
@@ -52,13 +66,10 @@ def plain_attend(q, k, v, *, causal=False, with_lse=False):
     into chunks of at most LOGITS_BUDGET bytes of logits gives the same
     result as one pass."""
     b, lq, h, _ = q.shape
-    per_pair = lq * k.shape[1] * 4
-    pairs = max(1, LOGITS_BUDGET // per_pair)
-    if pairs >= b * h:
+    bc, hc = pair_chunks(b, h, lq * k.shape[1] * 4)
+    if (bc, hc) == (b, h):
         o, lse = _dense(q, k, v, causal, with_lse)
         return (o, lse.reshape(b * h, lq)) if with_lse else o
-    hc = min(h, pairs)
-    bc = max(1, pairs // h) if hc == h else 1
     rows = []
     for b0 in range(0, b, bc):
         parts = [_dense(q[b0:b0 + bc, :, h0:h0 + hc], k[b0:b0 + bc, :, h0:h0 + hc],
@@ -74,14 +85,17 @@ def plain_attend(q, k, v, *, causal=False, with_lse=False):
 
 def attend(q, k, v, *, causal=False, impl="auto"):
     """Scaled dot-product attention (attention.py:63-128), q (B, Lq, H, D),
-    k/v (B, Lk, H, D) -> (B, Lq, H, D). With impl="auto", long equal-length
-    non-causal bf16 self-attention (L >= FLASH_MIN_SEQ, L % 64 == 0) goes to
-    kernel 5 (`kernels/flash_attention.py`), as the JAX dispatch sends it to
+    k/v (B, Lk, H, D) -> (B, Lq, H, D). With impl="auto" or "train", long
+    equal-length non-causal bf16 self-attention (L >= FLASH_MIN_SEQ,
+    L % 64 == 0) goes to kernel 5 (`kernels/flash_attention.py`; under
+    "train" with kernel 6 as its backward), as the JAX dispatch sends it to
     its Pallas flash kernel; everything else is `plain_attend`. The kernel
     takes head dim 64 only, where the JAX predicate admits any multiple of
     64: no MuDG site has another head dim at L >= 512."""
-    if (impl == "auto" and not causal and q.shape[1] >= FLASH_MIN_SEQ
+    if (impl in ("auto", "train") and not causal and q.shape[1] >= FLASH_MIN_SEQ
             and FA.eligible(q, k, v)):
+        if impl == "train":
+            return FA.flash_attention_train(q, k, v)
         return FA.flash_attention(q, k, v)[0]
     return plain_attend(q, k, v, causal=causal)
 
@@ -166,9 +180,21 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleDict({"0": GEGLUProj(dim, inner), "2": nn.Linear(inner, dim)})
 
 
+def _ff_kernel_site(ff, x, impl):
+    """The JAX FF dispatch (attention.py:298-303, :347-350): the kernel's
+    own predicate, and under "train" the backward kernel's as well."""
+    inner = ff.net["2"].in_features
+    if impl not in ("auto", "train") or not M.eligible(x.shape, x.dtype, inner):
+        return False
+    c = x.shape[-1]
+    return impl == "auto" or M.ff_bwd_eligible(x.numel() // c, c, inner)
+
+
 def feed_forward(ff, x, impl="auto", packed=None):
     """GEGLU FF (attention.py:279-312): the bare FF kernel where eligible."""
-    if impl == "auto" and M.eligible(x.shape, x.dtype, ff.net["2"].in_features):
+    if _ff_kernel_site(ff, x, impl):
+        if impl == "train":
+            return M.geglu_ff_train(x, ff)
         return M.fused_geglu_ff(x.contiguous(), ff, packed)
     return M.plain_geglu_ff(x, ff)
 
@@ -177,8 +203,9 @@ def feed_forward_block(ff, norm, x, impl="auto", packed=None):
     """LN -> GEGLU FF -> + x (attention.py:326-356). The LN and residual ride
     the kernel only at C < 640, as in the JAX dispatch; wider blocks keep them
     in plain torch around the bare FF kernel."""
-    if (impl == "auto" and x.shape[-1] < 640
-            and M.eligible(x.shape, x.dtype, ff.net["2"].in_features)):
+    if x.shape[-1] < 640 and _ff_kernel_site(ff, x, impl):
+        if impl == "train":
+            return M.geglu_ff_block_train(x, norm, ff)
         return M.fused_geglu_ff_block(x.contiguous(), norm, ff, packed)
     return feed_forward(ff, F.layer_norm(norm, x), impl=impl, packed=packed) + x
 
@@ -279,7 +306,10 @@ class SpatialTransformer(nn.Module):
 class TemporalTransformer(nn.Module):
     """TemporalTransformer with self-attention only (attention.py:474-571,
     the only_self_att=True path of every MuDG config). x (B, T, H, W, C);
-    attention runs over T on (B*H*W, T, C) tokens."""
+    attention runs over T on (B*H*W, T, C) tokens. Kernel 2 takes both
+    self-attentions of a block where eligible; under impl="train" only where
+    the JAX backward predicate `bwd_eligible` holds too (attention.py:546-551),
+    with kernel 9 as its backward."""
 
     def __init__(self, in_channels, *, heads, dim_head, depth=1, use_linear=True):
         super().__init__()
@@ -298,17 +328,22 @@ class TemporalTransformer(nn.Module):
         x = F.group_norm(self.norm, x, eps=1e-6)
         x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         x = _proj(self.proj_in, x)
+        n, t, c = x.shape
+        site = (impl in ("auto", "train") and TA.eligible(x.shape, x.dtype, c, self.heads)
+                and (impl == "auto" or TA.bwd_eligible(n * t, c)))
         for blk in self.transformer_blocks.values():
-            packs = blk.kernel_packs
-            if impl == "auto" and TA.eligible(x.shape, x.dtype, x.shape[-1], self.heads):
-                stages = None
-                if "attn1" in packs and "attn2" in packs:
-                    stages = (packs["attn1"], packs["attn2"])
-                x = TA.fused_double_self_attn(x.contiguous(), (blk.norm1, blk.attn1),
-                                              (blk.norm2, blk.attn2), self.heads, stages)
-                x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl,
-                                       packed=packs.get("ff"))
-            else:
+            if not site:
                 x = blk(x, None, impl=impl)
+                continue
+            packs = blk.kernel_packs
+            stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
+            if impl == "train":
+                x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
+            else:
+                packed = None
+                if "attn1" in packs and "attn2" in packs:
+                    packed = (packs["attn1"], packs["attn2"])
+                x = TA.fused_double_self_attn(x.contiguous(), *stages, self.heads, packed)
+            x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl, packed=packs.get("ff"))
         x = _proj(self.proj_out, x)
         return x.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4) + x_in

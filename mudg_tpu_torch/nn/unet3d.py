@@ -7,16 +7,25 @@ paths (input_blocks.N.M..., including the reference's 'temopral_conv'
 spelling). Activations are channels-last: spatial layers see (B*T, H, W, C),
 temporal layers (B, T, H, W, C).
 
-Inference only: no dropout, remat or sequence parallelism. The options that
-the MDM configs leave off (relative position, causal or cross temporal
-attention, joint task attention) are not ported yet and raise.
+Training: `impl="train"` selects the JAX training dispatch (the kernels
+with a backward kernel, as autograd ops; the temporal conv plain, no kernel
+4), a `generator` turns on dropout at `cfg.dropout` in every ResBlock and in
+stages 2-4 of every TemporalConvBlock (unet3d.py:170-201), and `remat=True`
+runs every input, middle and output block under
+`torch.utils.checkpoint` (the JAX `remat=True`, full per-block recompute;
+`init_attn` is not checkpointed). The selective remat policies, sequence
+parallelism and the options that the MDM configs leave off (relative
+position, causal or cross temporal attention, joint task attention) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import attention as A
@@ -113,6 +122,15 @@ def block_plan(cfg: UNetConfig):
     return inp, mid, out
 
 
+def dropout(x, rate: float, generator: torch.Generator):
+    """Inverted dropout (unet3d.py:181-185): each element kept with
+    probability 1 - rate, kept elements scaled by 1 / (1 - rate), in x's
+    dtype; the keep mask is drawn from `generator`."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device)).to(x.dtype)
+
+
 def _stage(c, key):
     return nn.ModuleDict({"0": nn.GroupNorm(32, c), key: nn.Conv3d(c, c, (3, 1, 1))})
 
@@ -138,18 +156,22 @@ class TemporalConvBlock(nn.Module):
         self.kernel_packs = ([TC.pack_tconv(conv) for _, conv in self.stages()]
                              if c <= TC.MAX_C else None)
 
-    def forward(self, x, impl="auto"):
+    def forward(self, x, impl="auto", drop=None):
+        """drop: None, or the dropout applied before the conv of stages 2-4."""
         stages = self.stages()
-        if impl == "auto" and all(TC.eligible(x.shape, x.dtype, conv.weight.shape)
-                                  for _, conv in stages):
+        if impl == "auto" and drop is None and all(
+                TC.eligible(x.shape, x.dtype, conv.weight.shape) for _, conv in stages):
             packs = self.kernel_packs or [None] * 4
             h = x.contiguous()
             for (norm, conv), pack in zip(stages, packs):
                 h = TC.fused_gn_silu_tconv(h, norm, conv, pack)
             return x + h
         h = x
-        for norm, conv in stages:
-            h = F.temporal_conv311(conv, F.silu(F.group_norm(norm, h)))
+        for i, (norm, conv) in enumerate(stages):
+            h = F.silu(F.group_norm(norm, h))
+            if i and drop is not None:
+                h = drop(h)
+            h = F.temporal_conv311(conv, h)
         return x + h
 
 
@@ -168,11 +190,14 @@ class ResBlock(nn.Module):
         if temporal:
             self.temopral_conv = TemporalConvBlock(c_out)
 
-    def forward(self, x, emb, batch_size, impl="auto"):
-        """x (B*T, H, W, C), emb (B*T, emb_dim)."""
+    def forward(self, x, emb, batch_size, impl="auto", drop=None):
+        """x (B*T, H, W, C), emb (B*T, emb_dim); drop: None, or the dropout
+        applied before the output conv and in the temporal conv block."""
         h = F.conv2d(self.in_layers["2"], F.silu(F.group_norm(self.in_layers["0"], x)))
         h = h + F.linear(self.emb_layers["1"], F.silu(emb)).to(h.dtype)[:, None, None, :]
         h = F.silu(F.group_norm(self.out_layers["0"], h))
+        if drop is not None:
+            h = drop(h)
         h = F.conv2d(self.out_layers["3"], h)
         if hasattr(self, "skip_connection"):
             x = F.conv2d(self.skip_connection, x)
@@ -180,7 +205,7 @@ class ResBlock(nn.Module):
         if hasattr(self, "temopral_conv"):
             bt, hh, ww, c = h.shape
             hv = h.reshape(batch_size, bt // batch_size, hh, ww, c)
-            h = self.temopral_conv(hv, impl=impl).reshape(bt, hh, ww, c)
+            h = self.temopral_conv(hv, impl=impl, drop=drop).reshape(bt, hh, ww, c)
         return h
 
 
@@ -265,14 +290,21 @@ class UNet3D(nn.Module):
     def _make_block(self, plan):
         return nn.ModuleDict({str(j): self._make_layer(lt, a) for j, (lt, a) in enumerate(plan)})
 
-    def _run_block(self, block, plan, h, emb, context, batch_size, impl):
+    def _run_block(self, block, plan, h, emb, context, batch_size, impl, seed=None):
+        """One block of the plan. seed: None, or the seed of this block's own
+        dropout generator (made here, so that a checkpointed block's
+        recompute draws the same masks)."""
         cfg = self.cfg
+        drop = None
+        if seed is not None:
+            gen = torch.Generator(device=h.device).manual_seed(seed)
+            drop = functools.partial(dropout, rate=cfg.dropout, generator=gen)
         for idx, (ltype, _) in enumerate(plan):
             m = block[str(idx)]
             if ltype == "conv_in":
                 h = F.conv2d(m, h)
             elif ltype == "res":
-                h = m(h, emb, batch_size, impl=impl)
+                h = m(h, emb, batch_size, impl=impl, drop=drop)
             elif ltype == "spatial":
                 h = m(h, context, image_cross=cfg.image_cross_attention,
                       text_len=cfg.text_context_len, impl=impl)
@@ -284,10 +316,15 @@ class UNet3D(nn.Module):
                 h = m(h)
         return h
 
-    def forward(self, x, timesteps, context, *, c_label=None, fs=None, impl="auto"):
+    def forward(self, x, timesteps, context, *, c_label=None, fs=None, impl="auto",
+                remat=False, generator: torch.Generator | None = None):
         """x (B, T, H, W, C_in), timesteps (B,), context (B, 77 + T*16, D) or
-        (B, L, D), c_label (B,), fs (B,) -> (B, T, H, W, out_channels)."""
+        (B, L, D), c_label (B,), fs (B,) -> (B, T, H, W, out_channels).
+        remat: False or True (full per-block recompute); generator: dropout
+        on, each block drawing from its own generator seeded from this one."""
         cfg = self.cfg
+        if remat not in (False, True):
+            raise NotImplementedError(f"remat policy {remat!r} is not ported (only True)")
         b, t, hh, ww, _ = x.shape
         mc = cfg.model_channels
         dtype = x.dtype
@@ -320,17 +357,33 @@ class UNet3D(nn.Module):
 
         h = x.reshape(b * t, hh, ww, x.shape[-1])
         inp_plan, mid_plan, out_plan = block_plan(cfg)
+        n_blocks = len(inp_plan) + 1 + len(out_plan)
+        seeds = [None] * n_blocks
+        if generator is not None and cfg.dropout > 0.0:
+            seeds = torch.randint(0, 2**62, (n_blocks,), generator=generator,
+                                  device=generator.device).tolist()
+        seeds = iter(seeds)
+
+        def run(block, plan, h):
+            args = (block, plan, h, emb, context, b, impl, next(seeds))
+            if remat:
+                # dropout draws from per-block generators, so no global RNG
+                # state needs saving for the recompute
+                return torch.utils.checkpoint.checkpoint(
+                    self._run_block, *args, use_reentrant=False, preserve_rng_state=False)
+            return self._run_block(*args)
+
         hs = []
         for i, plan in enumerate(inp_plan):
-            h = self._run_block(self.input_blocks[str(i)], plan, h, emb, context, b, impl)
+            h = run(self.input_blocks[str(i)], plan, h)
             if i == 0 and cfg.addition_attention:
                 bt, h_, w_, c = h.shape
                 h = self.init_attn["0"](h.reshape(b, t, h_, w_, c), impl=impl).reshape(bt, h_, w_, c)
             hs.append(h)
-        h = self._run_block(self.middle_block, mid_plan, h, emb, context, b, impl)
+        h = run(self.middle_block, mid_plan, h)
         for i, plan in enumerate(out_plan):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._run_block(self.output_blocks[str(i)], plan, h, emb, context, b, impl)
+            h = run(self.output_blocks[str(i)], plan, h)
         h = F.silu(F.group_norm(self.out["0"], h))
         y = F.conv2d(self.out["2"], h)
         return y.reshape(b, t, hh, ww, cfg.out_channels)

@@ -170,10 +170,14 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(zc, 2 * cfg.embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.embed_dim, cfg.z_channels, 1)
 
+    def encode_moments(self, x):
+        """The posterior moments (mean | logvar) of x (autoencoder.py:97-102)."""
+        return F.conv2d(self.quant_conv, self.encoder(x))
+
     def encode(self, x, generator: torch.Generator | None = None):
-        """Scaled latents from the posterior moments (autoencoder.py:97-102):
-        a sample with a generator, else the mode (ddpm3d.py:611-618)."""
-        return sample_scaled(self.cfg, F.conv2d(self.quant_conv, self.encoder(x)), generator)
+        """Scaled latents from the posterior moments: a sample with a
+        generator, else the mode (ddpm3d.py:611-618)."""
+        return sample_scaled(self.cfg, self.encode_moments(x), generator)
 
     def decode(self, z):
         """AutoencoderKL.decode with the 1/scale_factor pre-scale (ddpm3d.py:654-656)."""
@@ -202,6 +206,14 @@ def encode_video(vae: AutoencoderKL, x, generator=None, chunk: int = 1):
     b, t = x.shape[:2]
     z = _chunked(lambda xc: vae.encode(xc, generator), x.reshape(b * t, *x.shape[2:]), chunk)
     return z.reshape(b, t, *z.shape[1:])
+
+
+def encode_moments_video(vae: AutoencoderKL, x, chunk: int = 1):
+    """x (B, T, H, W, 3) -> posterior moments (B, T, H/8, W/8, 2z)
+    (vae.py:128-141); chunk = frames per call."""
+    b, t = x.shape[:2]
+    m = _chunked(vae.encode_moments, x.reshape(b * t, *x.shape[2:]), chunk)
+    return m.reshape(b, t, *m.shape[1:])
 
 
 def decode_video(vae: AutoencoderKL, z, chunk: int = 1):

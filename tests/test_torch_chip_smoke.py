@@ -1,8 +1,9 @@
 """chip_smoke.py's kernel checks at tiny latents on the CPU, where every
 wrapper runs its plain version: each case must pass its own check, and each
-planted fault (zeroed attention, half the keys) must fail it. This holds the
-checks' power to see a wrong kernel, not the kernels themselves (those run
-only on the card)."""
+planted fault (zeroed attention, half the keys; for the backward kernels
+delta dropped, the softmax Jacobian's row-sum term dropped, the g * pdf(g)
+term dropped) must fail it. This holds the checks' power to see a wrong
+kernel, not the kernels themselves (those run only on the card)."""
 from __future__ import annotations
 
 import pytest
@@ -29,4 +30,19 @@ def test_chip_smoke_checks_see_planted_faults(config):
         adds_residual = (case.name in ("spatial_attn", "temporal_attn")
                          or case.label.startswith("block"))
         assert (case.base is not None) == adds_residual, case.label
-    assert seen == set(K.KERNELS) - ({"flash_attention"} if config == "mdm512" else set())
+    forward = {n for n in K.KERNELS if not n.endswith("_bwd")}
+    assert seen == forward - ({"flash_attention"} if config == "mdm512" else set())
+
+
+def test_chip_smoke_grad_checks_see_planted_faults():
+    seen = set()
+    for case in CS.grad_cases(torch, K, nn_att, dev="cpu",
+                              latent={"mdm512": (8, 8), "mdm1024": (8, 16)}):
+        chk = CS.compare(torch, case)
+        assert chk.err == 0.0 and chk.ok, (case.label, chk)
+        bound = CS.BWD_TOL if case.grads else CS.TOL * chk.scale
+        assert chk.faults and all(e > bound for e in chk.faults.values()), (case.label,
+                                                                            chk.faults)
+        seen.add(case.name)
+    # kernel 5's forward at each training length, before kernel 6 there
+    assert seen == {n for n in K.KERNELS if n.endswith("_bwd")} | {"flash_attention"}

@@ -1,7 +1,10 @@
-"""The port's CUDA kernels on the card: each against its plain version, and a
-small UNet whose every kernel site is eligible, kernel path against the fp32
-plain path. Marked `cuda`; skipped without a GPU. These tests import no JAX,
-so on a machine without it they run with the repository's conftest left out:
+"""The port's CUDA kernels on the card: each against its plain version, the
+backward kernels (6, 9, 10) against their plain backward versions and, through
+their autograd ops, against autograd of the plain forward in fp32; a small
+UNet whose every kernel site is eligible, kernel path against the fp32 plain
+path; the training ops reading the current weights. Marked `cuda`; skipped
+without a GPU. These tests import no JAX, so on a machine without it they
+run with the repository's conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -16,6 +19,7 @@ from torch import nn
 
 pytestmark = pytest.mark.cuda
 TOL = 3e-2   # max|diff| <= TOL * max|ref|, as the JAX kernel tests
+BWD_TOL = 5e-2   # each gradient, as the JAX gradient tests (tests/test_attention.py:274-280)
 
 
 @pytest.fixture
@@ -223,9 +227,209 @@ def test_small_unet_kernel_path_matches_fp32(dev):
         got = unet(x.bfloat16(), ts, ctx.bfloat16(), c_label=ts * 0)
     counts = K.launch_counts()
     # kernel 5 takes self-attention at L >= 512 wider than kernel 1's C <= 640:
-    # no such site at this size
+    # no such site at this size; the backward kernels run only in training
     assert counts.pop("flash_attention") == 0
+    for name in [n for n in counts if n.endswith("_bwd")]:
+        assert counts.pop(name) == 0
     assert all(v > 0 for v in counts.values()), counts
     e_k = ((got.float() - ref).norm() / ref.norm()).item()
     e_p = ((plain.float() - ref).norm() / ref.norm()).item()
     assert e_k <= 1.5 * e_p + 5e-3, (e_k, e_p)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, ref, tol=BWD_TOL):
+    """Each gradient within max|diff| <= tol * max|its ref|; returns the
+    largest ratio."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.isfinite(g).all(), i
+        ratio = (g.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+        assert ratio <= tol, (i, ratio)
+        worst = max(worst, ratio)
+    return worst
+
+
+def _grads_miss(fault, ref, tol=BWD_TOL):
+    """A planted fault misses the tolerance on some gradient."""
+    ratios = [(f.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+              for f, r in zip(fault, ref)]
+    assert max(ratios) > tol, ratios
+
+
+def _bit_equal(a, b):
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 192, 3), (1, 1024, 2)])
+def test_flash_attention_bwd_kernel(dev, b, l, h):
+    """Kernel 6 against the plain FA-2 backward on strided q/k/v, with the
+    planted faults of chip_smoke.py (delta dropped, half the keys); two runs
+    agree bit for bit (every gradient is written by one block, no atomics)."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    qkv = torch.randn(b, l, 3, h, 64, generator=gen, device=dev).bfloat16()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(b, l, h, 64, generator=gen, device=dev).bfloat16()
+    o, lse = FA.flash_attention(q, k, v)
+    before = FA.bwd_launches
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert FA.bwd_launches == before + 1
+    ref = FA.plain_flash_attention_bwd(q, k, v, o, lse, do)
+    _grads_close(got, ref)
+    _bit_equal(got, FA.flash_attention_bwd(q, k, v, o, lse, do))
+    _grads_miss(FA.plain_flash_attention_bwd(q, k, v, o, lse, do, delta=torch.zeros_like(lse)),
+                ref)
+    half = l // 2
+    dq, dk, dv = FA.plain_flash_attention_bwd(q, k[:, :half], v[:, :half], o, lse, do)
+    pad = (0, 0, 0, 0, 0, l - half)
+    _grads_miss((dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)), ref)
+
+
+def test_flash_attention_train_grads_match_fp32_autograd(dev):
+    """The autograd op (kernel 5 forward, kernel 6 backward) against autograd
+    through the plain attention in fp32 on the same bf16 inputs."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+    from mudg_tpu_torch.nn.attention import plain_attend
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=dev).bfloat16()
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(2, 256, 2, 64, generator=gen, device=dev).bfloat16()
+    before = (FA.launches, FA.bwd_launches)
+    got = torch.autograd.grad(FA.flash_attention_train(q, k, v), (q, k, v), do)
+    assert (FA.launches, FA.bwd_launches) == (before[0] + 1, before[1] + 1)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref = torch.autograd.grad(plain_attend(qf, kf, vf), (qf, kf, vf), do.float())
+    _grads_close(got, ref)
+
+
+def _temporal_setup(dev, seed, c=128):
+    from mudg_tpu_torch.kernels import temporal_attn as TA
+    from mudg_tpu_torch.nn.attention import CrossAttention
+
+    heads = c // 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mods = [_randomize(m.to(dev), gen) for m in (nn.LayerNorm(c), CrossAttention(c, heads=heads),
+                                                 nn.LayerNorm(c), CrossAttention(c, heads=heads))]
+    _sharpen(mods[1], mods[3])
+    x = torch.randn(12, 16, c, generator=gen, device=dev).bfloat16()
+    dy = torch.randn(12, 16, c, generator=gen, device=dev).bfloat16()
+    return TA, mods, heads, x, dy
+
+
+def _flat(out):
+    dx, g1, g2 = out
+    return (dx, *g1, *g2)
+
+
+def test_temporal_attn_bwd_kernel(dev):
+    """Kernel 9 (both stages, fp32 parameters) against the plain per-stage
+    backward, the planted fault (the softmax Jacobian's row-sum term
+    dropped) missing; two runs agree bit for bit (fixed-order split sums)."""
+    TA, (n1, a1, n2, a2), heads, x, dy = _temporal_setup(dev, 10)
+    p1, p2 = TA.stage_params(n1, a1), TA.stage_params(n2, a2)
+    with torch.no_grad():
+        h1 = TA.plain_stage(x, p1, heads)
+        before = TA.bwd_launches
+        got = _flat(TA.double_self_attn_bwd(x, h1, dy, p1, p2, heads))
+        assert TA.bwd_launches == before + 1
+        dh1, g2 = TA.plain_temporal_stage_bwd(h1, dy, p2, heads)
+        dx, g1 = TA.plain_temporal_stage_bwd(x, dh1, p1, heads)
+        ref = _flat((dx, g1, g2))
+        _grads_close(got, ref)
+        _bit_equal(got, _flat(TA.double_self_attn_bwd(x, h1, dy, p1, p2, heads)))
+        fh1, fg2 = TA.plain_temporal_stage_bwd(h1, dy, p2, heads, drop_rowsum=True)
+        fdx, fg1 = TA.plain_temporal_stage_bwd(x, fh1, p1, heads, drop_rowsum=True)
+        _grads_miss(_flat((fdx, fg1, fg2)), ref)
+
+
+def test_temporal_attn_train_grads_match_fp32_autograd(dev):
+    """The autograd op (kernel 2 forward with h1, kernel 9 backward) against
+    autograd through the plain double stage in fp32, gradients to the tokens
+    and every parameter of both stages."""
+    TA, (n1, a1, n2, a2), heads, x, dy = _temporal_setup(dev, 11)
+    xg = x.clone().requires_grad_()
+    params = [*TA.stage_params(n1, a1), *TA.stage_params(n2, a2)]
+    before = (TA.launches, TA.bwd_launches)
+    y = TA.double_self_attn_train(xg, (n1, a1), (n2, a2), heads)
+    got = torch.autograd.grad(y, [xg, *params], dy)
+    assert (TA.launches, TA.bwd_launches) == (before[0] + 1, before[1] + 1)
+    xf = x.float().requires_grad_()
+    yf = TA.plain_stage(TA.plain_stage(xf, params[:7], heads), params[7:], heads)
+    ref = torch.autograd.grad(yf, [xf, *params], dy.float())
+    _grads_close(got, ref)
+
+
+def _ff_setup(dev, seed):
+    from mudg_tpu_torch.kernels import mlp as M
+    from mudg_tpu_torch.nn.attention import FeedForward
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    norm, ff = (_randomize(m.to(dev), gen) for m in (nn.LayerNorm(96), FeedForward(96)))
+    x = torch.randn(2, 384, 96, generator=gen, device=dev).bfloat16()   # inner 384
+    dy = torch.randn(2, 384, 96, generator=gen, device=dev).bfloat16()
+    return M, norm, ff, x, dy
+
+
+def test_geglu_ff_bwd_kernel(dev):
+    """Kernel 10 against the plain GEGLU backward (fp32 weight gradients),
+    the planted fault (the g * pdf(g) term dropped) missing; two runs agree
+    bit for bit."""
+    M, _, ff, x, dy = _ff_setup(dev, 12)
+    w1, b1, w2, _ = M.ff_params(ff)
+    with torch.no_grad():
+        before = M.bwd_launches
+        got = M.geglu_ff_bwd(x, dy, w1, b1, w2)
+        assert M.bwd_launches == before + 1
+        ref = M.plain_geglu_ff_bwd(x, dy, w1, b1, w2)
+        _grads_close(got, ref)
+        _bit_equal(got, M.geglu_ff_bwd(x, dy, w1, b1, w2))
+        _grads_miss(M.plain_geglu_ff_bwd(x, dy, w1, b1, w2, drop_pdf_term=True), ref)
+
+
+@pytest.mark.parametrize("block", [True, False])
+def test_geglu_ff_train_grads_match_fp32_autograd(dev, block):
+    """The autograd ops (kernel 3 forward, kernel 10 backward; the block form
+    with the LN's and the residual's backward in torch) against autograd
+    through the plain FF in fp32."""
+    M, norm, ff, x, dy = _ff_setup(dev, 13)
+    xg = x.clone().requires_grad_()
+    params = ([norm.weight, norm.bias] if block else []) + list(M.ff_params(ff))
+    before = (M.launches, M.bwd_launches)
+    y = M.geglu_ff_block_train(xg, norm, ff) if block else M.geglu_ff_train(xg, ff)
+    got = torch.autograd.grad(y, [xg, *params], dy)
+    assert (M.launches, M.bwd_launches) == (before[0] + 1, before[1] + 1)
+    xf = x.float().requires_grad_()
+    yf = M.plain_geglu_ff_block(xf, norm, ff) if block else M.plain_geglu_ff(xf, ff)
+    ref = torch.autograd.grad(yf, [xf, *params], dy.float())
+    _grads_close(got, ref)
+
+
+def test_training_ops_read_current_weights(dev):
+    """The training ops pack the fp32 parameters in every call: after a
+    weight changes, the next training forward sees it, though the inference
+    packs (prepare_kernels) still hold the old weights."""
+    import mudg_tpu_torch.kernels as K
+    from mudg_tpu_torch.nn.attention import BasicTransformerBlock
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    blk = _randomize(BasicTransformerBlock(128, heads=2, dim_head=64).to(dev), gen)
+    x = torch.randn(1, 512, 128, generator=gen, device=dev).bfloat16()
+    K.prepare_kernels(blk)
+    y0 = blk(x, None, impl="train")
+    with torch.no_grad():
+        blk.ff.net["2"].weight.mul_(2.0)
+        blk.attn1.to_v.weight.mul_(-1.0)
+    y1 = blk(x, None, impl="train")
+    with torch.no_grad():
+        ref = blk(x, None, impl="plain")
+    assert (y1.float() - y0.float()).abs().max().item() > 0.1
+    torch.cuda.synchronize()
+    part = (ref.float() - x.float()).abs().max().item()
+    assert (y1.float() - ref.float()).abs().max().item() <= TOL * part
