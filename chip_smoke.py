@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--out DIR] [--profile]
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -59,14 +59,36 @@ Phases:
   8. one stage-2 optimizer step at MDM1024 (`stage2_config()`, 576x1024,
      `temporal_frozen_mask` as the grad mask): the frozen temporal leaves move by weight decay
      alone, kernel 6 runs at L = 9216 inside the path, launches at the
-     MDM1024 training sites x 2 micro-steps.
+     MDM1024 training sites x 2 micro-steps;
+  9. kernel 13 (3DGS tile compositing) forward and backward against their
+     plain versions (float64 inside) at four scenes: (a) the refine-gs
+     default, 160x256 and a 200k-gaussian slab, (b) scripts/gsbench.py's
+     1M-gaussian slab at 960x640 with trained-scene-like opacities, (c) the
+     dense-occlusion scene of tests/test_tile_raster.py at 960x640, (d) (a)
+     with 19 semantic classes (npay 23). Color, depth and T within 1e-4 *
+     max|ref|; each per-gaussian gradient field (through the pair gather and
+     the projection) within 2e-3 * max|ref| + 1e-8; planted faults (pairs
+     composited back to front; the backward without its occlusion term)
+     must miss those bounds; two backward runs bit for bit; kernel and plain
+     times beside a bound from the (pair, pixel) evaluations this data needs
+     and the contributing ones among them (FP32 operations at 67 TFLOP/s)
+     and the bytes each direction moves (at 3.35 TB/s);
+ 10. the 3DGS refinement path: `apps/refine_gs.refine` on 500k seeded slab
+     points (0.25 m splats) at capacity 1M, 24 views of a forward track at
+     960x640 whose targets kernel 13 rendered from a seeded true set, 300
+     steps with densify_every=100, the holdout renders with PSNR and the
+     PLY export; loss falls, no pair dropped, some densify clones or splits,
+     kernel 13 launched exactly steps + renders (forward) and steps
+     (backward), counts reset just before, read just after; s/step, peak
+     memory, each densify and each layer of a step timed alone.
 It prints the kernel table as one JSON line: "ms", "plain_ms", "bound_ms" and
 "library_ms" are one UNet forward's worth of a forward kernel at each of the
 two configurations, summed, and one batch-1 training micro-step's backward
 at each configuration, summed, for a backward kernel (phase 2's per-call
 medians or bounds times the sites; kernel 5 at the training lengths has
-sites 0 there: checked and timed, not summed); "launches" is the count from the main
-paths (phases 4, 6, 7 and 8). Then the card's name and power limit, and as
+sites 0 there: checked and timed, not summed), and kernel 13's per-call
+times at scene (b); "launches" is the count from the main paths (phases 4,
+6, 7, 8 and 10). Then the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
 """
@@ -98,8 +120,9 @@ SHARPEN = math.sqrt(3.0)
 PEAK_FLOPS = 989e12   # bf16 tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
-# inference launches no backward kernel
-NO_BWD = {"flash_attention_bwd": 0, "temporal_attn_bwd": 0, "geglu_ff_bwd": 0}
+# inference launches no backward kernel and no 3DGS kernel
+NO_BWD = {"flash_attention_bwd": 0, "temporal_attn_bwd": 0, "geglu_ff_bwd": 0,
+          "tile_composite": 0, "tile_composite_bwd": 0}
 SITES = {
     "mdm512": {"spatial_attn": 10, "temporal_attn": 11, "geglu_ff": 33, "gn_silu_tconv": 20,
                "flash_attention": 0, **NO_BWD},
@@ -133,6 +156,9 @@ KERNEL_ROWS = {
     "temporal_attn_bwd": ("mudg_tpu_torch/csrc/temporal_attn_bwd.cu",
                           "mudg_tpu/kernels/temporal_attn.py:406"),
     "geglu_ff_bwd": ("mudg_tpu_torch/csrc/mlp_bwd.cu", "mudg_tpu/kernels/mlp.py:438"),
+    "tile_composite": ("mudg_tpu_torch/csrc/tile_raster.cu", "mudg_tpu/gs/tile_raster.py:535"),
+    "tile_composite_bwd": ("mudg_tpu_torch/csrc/tile_raster.cu",
+                           "mudg_tpu/gs/tile_raster.py:709"),
 }
 
 
@@ -141,7 +167,8 @@ def train_launches(cfg, micro_steps):
     sites = TRAIN_SITES[cfg]
     fwd = {k: 2 * v - INIT_ATTN_SITES.get(k, 0) for k, v in sites.items()}
     counts = {"spatial_attn": 0, "gn_silu_tconv": 0, **fwd,
-              **{k + "_bwd": v for k, v in sites.items()}}
+              **{k + "_bwd": v for k, v in sites.items()},
+              "tile_composite": 0, "tile_composite_bwd": 0}
     return {k: micro_steps * v for k, v in counts.items()}
 
 
@@ -1143,9 +1170,427 @@ def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
                     "frozen_leaves": len(frozen)}
 
 
+
+# ---------------------------------------------------------------------------
+# 3DGS: kernel 13 (phase 9) and the refinement path (phase 10)
+# ---------------------------------------------------------------------------
+
+GS_FWD_TOL = 1e-4     # color, depth, T (and extras): max|diff| <= 1e-4 * max|ref|
+GS_BWD_TOL = 2e-3     # each per-gaussian gradient field: <= 2e-3 * max|ref| + 1e-8,
+GS_BWD_ATOL = 1e-8    # the JAX tile test's tolerance (tests/test_tile_raster.py:94-96)
+PEAK_FP32 = 67e12     # FP32 outside the tensor cores, H100 SXM data sheet
+GSBENCH_K = ((560.0, 0.0, 480.0), (0.0, 560.0, 320.0), (0.0, 0.0, 1.0))
+GS_FIELDS = ("means", "log_scales", "quats", "opacity", "colors")
+
+
+class GsCase(NamedTuple):
+    """One scene for kernel 13: gaussians, camera, image size, optional
+    (N, E) semantic logits; `sites` weights its times in the JSON row."""
+    label: str
+    sites: int
+    g: object
+    K: object
+    w2c: object
+    width: int
+    height: int
+    logits: object = None
+
+
+def slab_gaussians(torch, G, n, seed, dev, mixed=True):
+    """scripts/gsbench.py's urban slab: n points uniform over x in [-60, 60],
+    y in [-12, 12], z in [3, 200] m, random colors, init scale 0.25 m,
+    opacity 0.5 or, `mixed` (GSBENCH_MIXED), trained-scene-like logits
+    ~N(-2, 1.5)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.tensor([-60.0, -12.0, 3.0], device=dev)
+    hi = torch.tensor([60.0, 12.0, 200.0], device=dev)
+    xyz = lo + torch.rand((n, 3), generator=gen, device=dev) * (hi - lo)
+    rgb = torch.rand((n, 3), generator=gen, device=dev)
+    g = G.init_from_points(xyz, rgb, init_scale=0.25, opacity=0.5)
+    if mixed:
+        g = g._replace(opacity=torch.randn(n, generator=gen, device=dev) * 1.5 - 2.0)
+    return g
+
+
+def dense_gaussians(torch, G, n, seed, dev):
+    """tests/test_tile_raster.py's dense-occlusion scene (spread 0.8 m around
+    z = 10 m, opacity logit 3.0, sigmoid ~0.95), n gaussians."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.randn((n, 3), generator=gen, device=dev) * 0.8 + torch.tensor([0, 0, 10.0],
+                                                                               device=dev)
+    xyz[:, 2].clamp_(2.0, 25.0)
+    g = G.init_from_points(xyz, torch.rand((n, 3), generator=gen, device=dev), opacity=0.35)
+    return g._replace(opacity=torch.full((n,), 3.0, device=dev))
+
+
+def anisotropic(torch, g, seed):
+    """g with trained-scene-like anisotropy: per-axis log-scales jittered by
+    N(0, 0.3) and random rotations. With isotropic splats the gradient to the
+    quaternions is rounding noise, which no relative bound can hold."""
+    gen = torch.Generator(device=g.means.device).manual_seed(seed)
+    return g._replace(
+        log_scales=g.log_scales + 0.3 * torch.randn(g.log_scales.shape, generator=gen,
+                                                    device=g.means.device),
+        quats=torch.randn(g.quats.shape, generator=gen, device=g.means.device))
+
+
+def scaled_k(torch, k, sx, sy, dev):
+    k = torch.tensor(k, device=dev)
+    k[0] *= sx
+    k[1] *= sy
+    return k
+
+
+def gs_cases(torch, G, dev="cuda", n_scale=1.0, res_scale=1):
+    """Kernel 13's phase-9 scenes: (a) the refine-gs default, 160x256 and a
+    200k-gaussian slab; (b) scripts/gsbench.py's 1M-gaussian slab at 960x640
+    with its K; (c) the dense-occlusion scene at 960x640 (K scaled 10x from
+    the test's 96x64) with 6000 gaussians, so that tiles saturate; (d) (a)
+    with 19 semantic classes (npay 23). `n_scale` and `res_scale` shrink the
+    gaussian counts and the images (the CPU rehearsal). Every scene's splats
+    are made anisotropic (`anisotropic`)."""
+    w2c = torch.eye(4, device=dev)
+    n = lambda c: max(int(c * n_scale), 64)   # noqa: E731
+    big = (960 // res_scale, 640 // res_scale)
+    small = (256 // res_scale, 160 // res_scale)
+    ka = scaled_k(torch, GSBENCH_K, small[0] / 960, small[1] / 640, dev)
+    kb = scaled_k(torch, GSBENCH_K, 1 / res_scale, 1 / res_scale, dev)
+    kc = scaled_k(torch, ((600.0, 0, 480.0), (0, 600.0, 320.0), (0, 0, 1.0)), 1 / res_scale,
+                  1 / res_scale, dev)
+    ga = anisotropic(torch, slab_gaussians(torch, G, n(200_000), SEED + 20, dev), SEED + 25)
+    yield GsCase("(a) refine-gs 256x160, 200k", 0, ga, ka, w2c, *small)
+    yield GsCase("(b) gsbench 960x640, 1M", 1, anisotropic(
+        torch, slab_gaussians(torch, G, n(1_000_000), SEED + 21, dev), SEED + 26), kb, w2c, *big)
+    yield GsCase("(c) dense occlusion 960x640", 0, anisotropic(
+        torch, dense_gaussians(torch, G, n(6000), SEED + 22, dev), SEED + 27), kc, w2c, *big)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    yield GsCase("(d) (a) + 19 classes", 0, ga, ka, w2c, *small,
+                 torch.randn((ga.n, 19), generator=gen, device=dev) * 2.0)
+
+
+def timed_once(torch, fn):
+    """(fn(), the CUDA-event ms of that one call), the ms None off the card."""
+    if not torch.cuda.is_available():
+        return fn(), None
+    box = []
+    ms = cuda_ms(torch, lambda: box.append(fn()), iters=1, warmup=0)
+    return box[0], ms
+
+
+def gs_check(torch, KT, G, TT, case):
+    """Kernel 13 forward and backward against the plain versions on one scene.
+    Forward: color, depth, T and the extras each within GS_FWD_TOL *
+    max|ref|. Backward: a seeded upstream gradient of the composited tiles
+    through kernel 13's backward (per pair) and the pair gather and
+    projection (torch autograd) to each gaussian field, within GS_BWD_TOL *
+    max|ref| + GS_BWD_ATOL. Planted faults in the plain versions, pairs
+    composited back to front and the backward without the (suffix + tail) /
+    (1 - alpha) occlusion term, must miss those bounds. Two backward runs
+    must agree bit for bit. Returns a report and what the timings need."""
+    from mudg_tpu_torch.gs.rasterize import T_MIN, _tile_grid
+
+    tw, _ = _tile_grid(case.width, case.height)
+    leaves = {k: getattr(case.g, k).detach().clone().requires_grad_() for k in GS_FIELDS}
+    if case.logits is not None:
+        leaves["logits"] = case.logits.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        g = case.g._replace(**{k: leaves[k] for k in GS_FIELDS})
+        extras = torch.softmax(leaves["logits"], -1) if case.logits is not None else None
+        proj = G.project_gaussians(g, case.K, case.w2c, width=case.width, height=case.height)
+        feats, bounds, _ = TT.build_pairs(proj, G.view_colors(g, case.w2c), width=case.width,
+                                             height=case.height, extras=extras)
+    fd = feats.detach().contiguous()
+    npay = fd.shape[1] - 6
+    out_k, last = KT.tile_composite(fd, bounds, tw, npay)
+    gen = torch.Generator(device=fd.device).manual_seed(SEED + 24)
+    gout = torch.randn(out_k.shape, generator=gen, device=fd.device)
+    d_k = KT.tile_composite_bwd(fd, bounds, out_k, last, gout, tw, npay)
+    # the planted faults first: they warm up the plain versions' launches,
+    # which then run once more, timed, for the comparison
+    bad_out = KT.plain_tile_composite(fd, bounds, tw, npay, reverse=True)[0]
+    bad_d = KT.plain_tile_composite_bwd(fd, bounds, gout, tw, npay, drop_occlusion=True)
+    stats = {}
+    (out_p, _), plain_ms = timed_once(torch, lambda: KT.plain_tile_composite(
+        fd, bounds, tw, npay, stats=stats))
+    d_p, plain_bwd_ms = timed_once(torch, lambda: KT.plain_tile_composite_bwd(
+        fd, bounds, gout, tw, npay))
+
+    def per_gaussian(d):
+        return torch.autograd.grad(feats, list(leaves.values()), d, retain_graph=True)
+
+    def fwd_ratio(out):
+        groups = {"color": slice(0, 3), "depth": slice(3, 4), "T": slice(npay, npay + 1)}
+        if npay > 4:
+            groups["extras"] = slice(4, npay)
+        return max((out[:, s] - out_p[:, s]).abs().max().item()
+                   / max(out_p[:, s].abs().max().item(), 1e-30) for s in groups.values())
+
+    gp = per_gaussian(d_p)
+
+    def bwd_ratios(grads):
+        return {n: (a - b).abs().max().item() / (GS_BWD_TOL * b.abs().max().item() + GS_BWD_ATOL)
+                for n, a, b in zip(leaves, grads, gp)}
+
+    def bwd_ratio(grads):
+        return max(bwd_ratios(grads).values())
+
+    gk = per_gaussian(d_k)
+    fwd_err, bwd_err = fwd_ratio(out_k), bwd_ratio(gk)
+    faults = {"back to front": fwd_ratio(bad_out) / GS_FWD_TOL,
+              "occlusion term dropped": bwd_ratio(per_gaussian(bad_d))}
+    again = KT.tile_composite_bwd(fd, bounds, out_k, last, gout, tw, npay)
+    bitwise = torch.equal(again, d_k) and all(
+        torch.equal(a, b) for a, b in zip(per_gaussian(again), gk))
+    finite = bool(torch.isfinite(out_k).all()) and all(bool(torch.isfinite(x).all()) for x in gk)
+    ok = (finite and bitwise and fwd_err <= GS_FWD_TOL and bwd_err <= 1.0
+          and all(v > 1.0 for v in faults.values()))
+    # the work this run's data needs: per pixel, the pairs up to saturation
+    # (the whole tile's list where a pixel never saturates) in the forward,
+    # the pairs up to its last contributor in the backward. Each evaluation
+    # costs ~14 FP32 operations (offset, conic quadratic, exp, alpha and its
+    # tests); a contributing one adds 4 + 2 * npay in the forward (weight,
+    # payload sums, T) and 32 + 4 * npay in the backward (the T and occlusion
+    # updates, the 6 + npay gradient terms and their sum over the tile's
+    # pixels). Bytes: the forward reads the pair table and bounds and writes
+    # out and last; the backward reads the pair table, bounds, out's T plane,
+    # last and gout and writes the gradient table.
+    counts = (bounds[1:] - bounds[:-1]).long()
+    t_final = out_k[:, npay]
+    evals_f = torch.where(t_final <= T_MIN, last.long(), counts[:, None]).sum().item()
+    evals_b = last.long().sum().item()
+    contrib = stats["contributions"]
+    plane = out_k.shape[0] * out_k.shape[2] * 4
+    tbl, bnd = fd.numel() * 4, bounds.numel() * 4
+    work_f = (14 * evals_f + (4 + 2 * npay) * contrib, tbl + bnd + out_k.numel() * 4 + plane)
+    work_b = (14 * evals_b + (32 + 4 * npay) * contrib,
+              2 * tbl + bnd + plane + plane + gout.numel() * 4)
+    return {"ok": ok, "fwd_err": fwd_err, "bwd_err": bwd_err, "faults": faults,
+            "bwd_fields": bwd_ratios(gk),
+            "bitwise": bitwise, "pairs": fd.shape[0], "npay": npay,
+            "max_abs_err": max((out_k - out_p).abs().max().item(),
+                               max((a - b).abs().max().item() for a, b in zip(gk, gp))),
+            "evals_fwd": evals_f, "evals_bwd": evals_b, "contributions": contrib,
+            "work_fwd": work_f, "work_bwd": work_b, "plain_ms": plain_ms,
+            "plain_bwd_ms": plain_bwd_ms,
+            "timing": (fd, bounds, out_k, last, gout, tw, npay)}
+
+
+def gs_bound(work):
+    """(ms, by): FP32 operations at the card's data-sheet rate or bytes at
+    its memory rate, the larger."""
+    ops, nbytes = work
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_gs_kernels(torch, KT, G, TT):
+    """Phase 9: kernel 13 forward and backward at shapes (a)-(d)."""
+    rows = {}
+    for case in gs_cases(torch, G):
+        r = gs_check(torch, KT, G, TT, case)
+        fd, bounds, out_k, last, gout, tw, npay = r.pop("timing")
+        ms = cuda_ms(torch, lambda: KT.tile_composite(fd, bounds, tw, npay))
+        bms = cuda_ms(torch, lambda: KT.tile_composite_bwd(fd, bounds, out_k, last, gout, tw,
+                                                           npay))
+        for name, t_k, t_p, work, err in (
+                ("tile_composite", ms, r["plain_ms"], r["work_fwd"], r["fwd_err"]),
+                ("tile_composite_bwd", bms, r["plain_bwd_ms"], r["work_bwd"], r["bwd_err"])):
+            b_ms, by = gs_bound(work)
+            log(f"  {name:18s} {case.label:30s} {r['pairs']:>9,} pairs npay {npay:2d}: "
+                f"{'ok' if r['ok'] else 'FAIL'} err {err:.3e} "
+                f"({'of max|ref|, bound ' + str(GS_FWD_TOL) if name == 'tile_composite' else 'of the bound'})"
+                f"   kernel {t_k:.3f} ms   plain {t_p:.1f} ms   bound {b_ms:.4f} ms ({by}, "
+                f"{100 * b_ms / t_k:.1f}% of it)")
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                         "bound_ms": 0.0, "library_ms": None, "ok": True,
+                                         "bound_by": by, "shapes": []})
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            row["ms"] += case.sites * t_k
+            row["plain_ms"] += case.sites * t_p
+            row["bound_ms"] += case.sites * b_ms
+            if case.sites:
+                row["bound_by"] = by
+            row["ok"] &= r["ok"]
+            row["shapes"].append({"shape": case.label, "sites": case.sites, "pairs": r["pairs"],
+                                  "npay": npay, "err": err, "faults": r["faults"],
+                                  "bitwise": r["bitwise"], "ms": t_k, "plain_ms": t_p,
+                                  "bound_ms": b_ms, "bound_by": by,
+                                  "evals": r["evals_fwd" if name == "tile_composite"
+                                             else "evals_bwd"],
+                                  "contributions": r["contributions"]})
+        log(f"    gradient errors (ratio to the bound) by field: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r["bwd_fields"].items()))
+        log(f"    faults (ratio to the bound): {r['faults']}, backward bit for bit: "
+            f"{r['bitwise']}, (pair, pixel) evaluations fwd {r['evals_fwd']:,} "
+            f"bwd {r['evals_bwd']:,}, contributing {r['contributions']:,}")
+        del case, r, fd, bounds, out_k, last, gout
+        torch.cuda.empty_cache()
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel 13 disagrees with its plain version: {bad}")
+    return rows
+
+
+def forward_track(torch, n, dev, step=0.5):
+    """n world-to-camera matrices on a straight track along +z, one every
+    `step` m, looking down the slab."""
+    out = []
+    for i in range(n):
+        w2c = torch.eye(4, device=dev)
+        w2c[2, 3] = -step * i
+        out.append(w2c)
+    return out
+
+
+def phase_gs_refine(torch, K, G, GT, TT, app, gs_io):
+    """Phase 10: `refine` at a real scene size. 500k seeded points in the
+    gsbench slab (a "true" slab set's means + N(0, 0.1 m), grey, at the
+    gsbench splats' 0.25 m) at capacity 1M, 24 views on a forward track at
+    960x640 with targets rendered by the kernel path from the true set, 300
+    steps with densify_every=100, the 3 holdout renders with PSNR and the
+    PLY export. A densify must clone or split, so that the slot-reuse path
+    runs at size."""
+    import tempfile
+
+    dev = "cuda"
+    width, height, n_views, steps = 960, 640, 24, 300
+    sync = torch.cuda.synchronize
+    kc = torch.tensor(GSBENCH_K, device=dev)
+    true_g = slab_gaussians(torch, G, 500_000, SEED + 30, dev)
+    track = forward_track(torch, n_views, dev)
+    with torch.no_grad():
+        targets = [TT.rasterize_tiles(true_g, kc, w2c, width=width, height=height).color
+                   for w2c in track]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    pts = true_g.means + 0.1 * torch.randn(true_g.means.shape, generator=gen, device=dev)
+    g0 = G.init_from_points(pts, torch.full_like(pts, 0.5), capacity=1_000_000,
+                            init_scale=0.25)
+    views = [{"K": kc, "w2c": w2c, "rgb": rgb} for w2c, rgb in zip(track, targets)]
+    train = [v for i, v in enumerate(views) if i % 8]
+    hold = [v for i, v in enumerate(views) if i % 8 == 0]
+    cfg = GT.GSConfig(densify_every=100)
+
+    ends, dropped, densify_s, grown = [], [], [], []
+    densify = GT.densify_and_prune
+
+    def timed_densify(state, c):
+        t0 = time.perf_counter()
+        g = state.gaussians
+        n_before = int(g.active.sum())
+        n_pruned = int((g.active & (torch.sigmoid(g.opacity) < c.prune_opacity_thresh)).sum())
+        r = densify(state, c)
+        # clones and splits each fill one free slot
+        grown.append((n_pruned, int(r.gaussians.active.sum()) - (n_before - n_pruned)))
+        densify_s.append((t0, time.perf_counter()))
+        return r
+
+    def on_step(i, state, metrics):
+        sync()
+        ends.append(time.perf_counter())
+        dropped.append(metrics["n_dropped"])
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    GT.densify_and_prune = timed_densify
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        r = app.refine(g0, train, hold, cfg, width=width, height=height, steps=steps,
+                       on_step=on_step)
+    finally:
+        GT.densify_and_prune = densify
+    sync()
+    total_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state, hist = r["state"], r["history"]
+    steady = [b - a for a, b in zip(ends[9:], ends[10:])]
+    # the densifies inside the timed gaps (after steps 100 and 200; the last
+    # one runs after the final step)
+    inside = [b - a for a, b in densify_s if ends[9] <= a and b <= ends[-1]]
+    densify_s = [b - a for a, b in densify_s]
+    s_step = (sum(steady) - sum(inside)) / len(steady)
+    n_active = int(state.gaussians.active.sum())
+    with tempfile.TemporaryDirectory() as d:
+        n_ply = gs_io.save_gaussians_ply(os.path.join(d, "gaussians.ply"), state.gaussians)
+        n_back = gs_io.load_gaussians_ply(os.path.join(d, "gaussians.ply")).n
+    losses = [h["loss"] for h in hist]
+    expect = {"tile_composite": steps + len(hold), "tile_composite_bwd": steps}
+    log(f"  {n_views} views ({len(train)} train, {len(hold)} holdout) at {width}x{height}, "
+        f"{steps} steps: {total_s:.1f} s in refine, {s_step:.4f} s/step (steps 11-{steps}, host "
+        f"clock, synchronized, densify excluded), peak memory {peak:.2f} GiB")
+    log(f"  loss {losses[0]:.5f} -> {losses[-1]:.5f} ({len(losses)} logged); active "
+        f"{int(g0.active.sum()):,} -> {n_active:,}; densify {['%.3f' % x for x in densify_s]} s "
+        f"(pruned, cloned + split: {grown}); "
+        f"holdout PSNR {['%.3f' % p for p in r['psnrs']]} dB; PLY {n_ply:,} splats")
+    gs_launches = {k: counts[k] for k in expect}
+    log(f"  launches in refine: {gs_launches} (expected {expect})")
+
+    layers = gs_layers(torch, G, GT, TT, state, cfg, train[0], width, height)
+    log("  layers alone: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in layers.items()))
+    report = {"s_per_step": s_step, "refine_s": total_s, "peak_gib": peak, "loss": losses,
+              "n_active": n_active, "densify_s": densify_s, "densify_pruned_grown": grown,
+              "psnr": r["psnrs"],
+              "layers_s": layers, "n_dropped": sum(dropped)}
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if sum(dropped) or r["dropped_renders"]:
+        raise AssertionError(f"pairs dropped: {sum(dropped)}, {r['dropped_renders']}")
+    if not any(n > 0 for _, n in grown):
+        raise AssertionError(f"no densify cloned or split a splat: {grown}")
+    if gs_launches != expect:
+        raise AssertionError(f"launch counts {gs_launches} != {expect}")
+    if n_ply != n_active or n_back != n_active or not all(map(math.isfinite, r["psnrs"])):
+        raise AssertionError(f"PLY {n_ply}/{n_back} splats for {n_active} active, "
+                             f"PSNR {r['psnrs']}")
+    return counts, report
+
+
+def gs_layers(torch, G, GT, TT, state, cfg, view, width, height):
+    """One refinement step's layers, each timed alone (host clock,
+    synchronized): the projection, the pair build with its sort, kernel 13's
+    forward, the loss on the composited image, the whole backward of a step
+    and the Adam update."""
+    from mudg_tpu_torch.gs.rasterize import _tile_grid
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    tw, th = _tile_grid(width, height)
+    g, kc, w2c, rgb = state.gaussians, view["K"], view["w2c"], view["rgb"]
+    params = GT._train_params(state)
+    proj = G.project_gaussians(g, kc, w2c, width=width, height=height)
+    colors = G.view_colors(g, w2c)
+    feats, bounds, _ = TT.build_pairs(proj, colors, width=width, height=height)
+    fd = feats.contiguous()
+    out = KT.tile_composite(fd, bounds, tw, 4)[0]
+    img = TT.raster_out(out, 0, tw, th, width, height, (0.0, 0.0, 0.0), 0).color
+    raster = GT.pick_raster(cfg, width, height)
+    floats = {k: v.detach().requires_grad_() for k, v in params.items()}
+    holder = {}
+
+    def forward():
+        with torch.enable_grad():
+            holder["loss"] = GT.gs_loss(cfg, raster, floats, g.active, g.group, kc, w2c, rgb)[0]
+
+    def backward():
+        holder["grads"] = dict(zip(floats, torch.autograd.grad(holder["loss"],
+                                                                list(floats.values()))))
+
+    layers = {"projection": host_s(torch, lambda: G.project_gaussians(
+                  g, kc, w2c, width=width, height=height)),
+              "pair build + sort": host_s(torch, lambda: TT.build_pairs(
+                  proj, colors, width=width, height=height)),
+              "kernel 13 forward": host_s(torch, lambda: KT.tile_composite(fd, bounds, tw, 4)),
+              "loss (L1 + SSIM)": host_s(torch, lambda: GT.photometric_loss(img, rgb, cfg)),
+              "forward of a step": host_s(torch, forward),
+              "backward of a step": host_s(torch, backward)}
+    layers["Adam"] = host_s(torch, lambda: GT.adam_update(cfg, state.opt_state, holder["grads"],
+                                                          params))
+    return layers
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -1170,6 +1615,12 @@ def main(argv=None):
         from mudg_tpu_torch.nn import attention as nn_att
         from mudg_tpu_torch.nn import unet3d as U
         from mudg_tpu_torch.train import step as step_mod
+        from mudg_tpu_torch.apps import refine_gs as gs_app
+        from mudg_tpu_torch.gs import gaussians as gs_g
+        from mudg_tpu_torch.gs import io as gs_io
+        from mudg_tpu_torch.gs import tile_raster as gs_tr
+        from mudg_tpu_torch.gs import train as gs_train
+        from mudg_tpu_torch.kernels import tile_raster as gs_k
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}", file=sys.stderr)
         return 2
@@ -1219,6 +1670,14 @@ def main(argv=None):
     if 8 in phases:
         launches["mdm1024_train"], report["train_mdm1024"] = timed(
             8, "MDM1024 stage-2 step", phase_train_stage2, torch, K, mdm_mod, step_mod, mdm)
+    del mdm
+    torch.cuda.empty_cache()
+    if 9 in phases:
+        rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr))
+    if 10 in phases:
+        launches["gs_refine"], report["gs_refine"] = timed(
+            10, "3DGS refinement", phase_gs_refine, torch, K, gs_g, gs_train, gs_tr, gs_app,
+            gs_io)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     for mod in list(sys.modules):
         if mod.split(".")[0] in ("jax", "jaxlib", "mudg_tpu"):

@@ -8,6 +8,9 @@ mirror it:
     diffusion/     DDIM and DPM-Solver++ sampling
     models/        the MDM: conditioning, sample / sample_clip, training_loss
     train/         the training step: AdamW, clipping, accumulation, EMA
+    gs/            3D Gaussian Splatting: scene, rasterizers, refinement
+    apps/          refine_gs (`python -m mudg_tpu_torch refine-gs`)
+    render/, utils/  host helpers: PLY I/O, virtual poses, media, PSNR
     convert.py     JAX parameter trees -> the port's modules
 This package imports torch and never jax.
 """

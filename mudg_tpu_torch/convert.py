@@ -76,11 +76,13 @@ def tree_to_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 def load_tree(module: torch.nn.Module, tree, *, device=None, dtype=None):
     """Load a JAX tree into `module` (strict), optionally moving it to
-    `device` (a module built on the meta device is materialised there) and
-    casting it to `dtype`; then pack the kernel weights. Returns module."""
+    `device` and casting it to `dtype`; then pack the kernel weights.
+    Returns module. A module built on the meta device is materialised on
+    `device`, by default the card ("cuda"), which raises where there is none:
+    the CPU is used only when the caller asks for it."""
     sd = tree_to_state_dict(tree)
     if any(p.is_meta for p in module.parameters()):
-        module.to_empty(device=device or "cpu")
+        module.to_empty(device=device or "cuda")
     elif device is not None:
         module.to(device)
     if dtype is not None:
@@ -88,3 +90,20 @@ def load_tree(module: torch.nn.Module, tree, *, device=None, dtype=None):
     module.load_state_dict(sd, strict=True)
     prepare_kernels(module)
     return module
+
+
+def gaussians_from_arrays(fields: Mapping, device="cuda"):
+    """The JAX package's Gaussians fields as numpy arrays (the dict its
+    refine-gs app pickles: means, log_scales, quats, opacity, colors,
+    active, and sh, sem, group where present) -> the port's Gaussians on
+    `device`: floats float32, active bool, group int32."""
+    from .gs.gaussians import Gaussians
+
+    def t(k):
+        if fields.get(k) is None:
+            return None
+        a = np.asarray(fields[k])
+        a = a.astype(bool if k == "active" else np.int32 if k == "group" else np.float32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Gaussians(**{k: t(k) for k in Gaussians._fields})

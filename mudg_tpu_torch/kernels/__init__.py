@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-Each module holds a kernel's wrapper (and, for kernels 2, 3 and 5, its
+Each module holds a kernel's wrapper (and, for kernels 2, 3, 5 and 13, its
 backward kernel's wrapper and the autograd op that joins the two), the plain
 PyTorch versions, the weight packing and a count of launches. A wrapper runs
 the plain version for a CPU (or meta) tensor and launches its kernel for a
@@ -10,7 +10,7 @@ at first use).
 """
 from __future__ import annotations
 
-from . import flash_attention, mlp, spatial_attn, tconv, temporal_attn
+from . import flash_attention, mlp, spatial_attn, tconv, temporal_attn, tile_raster
 
 # kernel name -> (module, its launch counter), in the order of the port's
 # kernel table
@@ -23,6 +23,8 @@ KERNELS = {
     "flash_attention_bwd": (flash_attention, "bwd_launches"),
     "temporal_attn_bwd": (temporal_attn, "bwd_launches"),
     "geglu_ff_bwd": (mlp, "bwd_launches"),
+    "tile_composite": (tile_raster, "launches"),
+    "tile_composite_bwd": (tile_raster, "bwd_launches"),
 }
 
 

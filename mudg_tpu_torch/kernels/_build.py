@@ -37,6 +37,8 @@ _SIGNATURES = {
     "mudg_flash_attn_bwd": [_P] * 9 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_temporal_attn_stage_bwd": [_P] * 21 + [_LL] + [_I] * 2 + [_P],
     "mudg_geglu_ff_bwd": [_P] * 16 + [_LL] + [_I] * 3 + [_P],
+    "mudg_tile_composite": [_P] * 4 + [_I] * 3 + [_P],
+    "mudg_tile_composite_bwd": [_P] * 6 + [_I] * 3 + [_P],
 }
 # fp32 scratch for the backward kernels' split partials (elements); the split
 # counts shrink to fit it, so it bounds memory, never correctness

@@ -227,9 +227,10 @@ def test_small_unet_kernel_path_matches_fp32(dev):
         got = unet(x.bfloat16(), ts, ctx.bfloat16(), c_label=ts * 0)
     counts = K.launch_counts()
     # kernel 5 takes self-attention at L >= 512 wider than kernel 1's C <= 640:
-    # no such site at this size; the backward kernels run only in training
+    # no such site at this size; the backward kernels run only in training,
+    # kernel 13 only in the 3DGS path
     assert counts.pop("flash_attention") == 0
-    for name in [n for n in counts if n.endswith("_bwd")]:
+    for name in [n for n in counts if n.endswith("_bwd") or n.startswith("tile_")]:
         assert counts.pop(name) == 0
     assert all(v > 0 for v in counts.values()), counts
     e_k = ((got.float() - ref).norm() / ref.norm()).item()
@@ -433,3 +434,106 @@ def test_training_ops_read_current_weights(dev):
     torch.cuda.synchronize()
     part = (ref.float() - x.float()).abs().max().item()
     assert (y1.float() - ref.float()).abs().max().item() <= TOL * part
+
+
+# ---------------------------------------------------------------------------
+# Kernel 13: 3DGS tile compositing
+# ---------------------------------------------------------------------------
+
+def _gs_pairs(dev, n=400, npay=4, opacity=None, seed=15):
+    """A seeded scene of tests/test_tile_raster.py's kind at 96x64 as the
+    sorted pair table kernel 13 takes."""
+    from mudg_tpu_torch.gs import gaussians as G
+    from mudg_tpu_torch.gs import tile_raster as TT
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.randn(n, 3, generator=gen, device=dev) * 2.0 + torch.tensor([0, 0, 10.0],
+                                                                             device=dev)
+    g = G.init_from_points(xyz, torch.rand(n, 3, generator=gen, device=dev), opacity=0.35)
+    if opacity is not None:
+        g = g._replace(opacity=torch.full((n,), opacity, device=dev))
+    k = torch.tensor([[60.0, 0, 48.0], [0, 60.0, 32.0], [0, 0, 1]], device=dev)
+    proj = G.project_gaussians(g, k, torch.eye(4, device=dev), width=96, height=64)
+    extras = (torch.softmax(torch.randn(n, npay - 4, generator=gen, device=dev), -1)
+              if npay > 4 else None)
+    feats, bounds, _ = TT.build_pairs(proj, g.colors, width=96, height=64, extras=extras)
+    return feats.contiguous(), bounds, 6, gen
+
+
+@pytest.mark.parametrize("opacity,npay", [(None, 4), (3.0, 4), (None, 23)])
+def test_tile_composite_kernels(dev, opacity, npay):
+    """Kernel 13 forward (color, depth, T, extras within 1e-4 * max|ref|) and
+    backward (each pair-row column group within 2e-3 * max|ref| + 1e-8)
+    against the plain versions; the backward reruns bit for bit; the
+    planted faults (back to front; no occlusion term) miss."""
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    feats, bounds, tw, gen = _gs_pairs(dev, npay=npay, opacity=opacity)
+    before = (KT.launches, KT.bwd_launches)
+    out, last = KT.tile_composite(feats, bounds, tw, npay)
+    ref, _ = KT.plain_tile_composite(feats, bounds, tw, npay)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(dim=(0, 2))
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs().amax(dim=(0, 2)) <= 1e-4 * scale).all()
+    rev, _ = KT.plain_tile_composite(feats, bounds, tw, npay, reverse=True)
+    assert ((rev - ref).abs().amax(dim=(0, 2)) > 1e-4 * scale).any()
+    gout = torch.randn(out.shape, generator=gen, device=dev)
+    got = KT.tile_composite_bwd(feats, bounds, out, last, gout, tw, npay)
+    assert (KT.launches, KT.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = KT.plain_tile_composite_bwd(feats, bounds, gout, tw, npay)
+    groups = [slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 6 + npay)]
+
+    def ratio(a):
+        return max(((a[:, s] - want[:, s]).abs().max() /
+                    (2e-3 * want[:, s].abs().max() + 1e-8)).item() for s in groups)
+
+    assert ratio(got) <= 1.0
+    assert torch.equal(got, KT.tile_composite_bwd(feats, bounds, out, last, gout, tw, npay))
+    assert ratio(KT.plain_tile_composite_bwd(feats, bounds, gout, tw, npay,
+                                             drop_occlusion=True)) > 1.0
+
+
+def test_rasterize_tiles_gradients_match_the_plain_path(dev):
+    """The tile rasterizer's gradients to every gaussian field on the card
+    (kernel 13) against the same scene on the CPU (its plain versions)."""
+    from mudg_tpu_torch.gs import gaussians as G
+    from mudg_tpu_torch.gs import tile_raster as TT
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    xyz = torch.randn(300, 3, generator=gen, device=dev) * 2.0 + torch.tensor([0, 0, 10.0],
+                                                                               device=dev)
+    g = G.init_from_points(xyz, torch.rand(300, 3, generator=gen, device=dev), opacity=0.35)
+    g = g._replace(log_scales=g.log_scales + 0.3 * torch.randn(300, 3, generator=gen,
+                                                               device=dev),
+                   quats=torch.randn(300, 4, generator=gen, device=dev))
+    k = torch.tensor([[60.0, 0, 48.0], [0, 60.0, 32.0], [0, 0, 1]])
+    names = ("means", "log_scales", "quats", "opacity", "colors")
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [getattr(g, n).to(d).clone().requires_grad_() for n in names]
+        gd = G.Gaussians(*[None if x is None else x.to(d) for x in g])._replace(
+            **dict(zip(names, leaves)))
+        out = TT.rasterize_tiles(gd, k.to(d), torch.eye(4, device=d), width=96, height=64)
+        loss = ((out.color - 0.25) ** 2).mean() + 0.1 * out.alpha.mean() + 1e-3 * out.depth.mean()
+        grads[d.type] = torch.autograd.grad(loss, leaves)
+    for name, a, b in zip(names, grads["cuda"], grads["cpu"]):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 2e-3 * b.abs().max().item() + 1e-8, (name, err)
+
+
+def test_tile_composite_rejects_what_the_kernel_does_not_take(dev):
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    feats, bounds, tw, _ = _gs_pairs(dev)
+    with pytest.raises(ValueError):   # fp64 pair table
+        KT.tile_composite(feats.double(), bounds, tw, 4)
+    with pytest.raises(ValueError):   # int64 bounds
+        KT.tile_composite(feats, bounds.long(), tw, 4)
+    with pytest.raises(ValueError):   # npay not matching the table's width
+        KT.tile_composite(feats, bounds, tw, 5)
+    with pytest.raises(ValueError):   # a non-contiguous table
+        KT.tile_composite(torch.cat([feats, feats], 1)[:, ::2], bounds, tw, 4)
+    wide = torch.zeros(feats.shape[0], 6 + 27, device=dev)
+    with pytest.raises(ValueError):   # more payload channels than the kernel takes
+        KT.tile_composite(wide, bounds, tw, 27)

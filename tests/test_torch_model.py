@@ -216,7 +216,10 @@ def test_port_imports_no_jax():
         "import sys, numpy as np, mudg_tpu_torch, mudg_tpu_torch.convert, "
         "mudg_tpu_torch.kernels, mudg_tpu_torch.models.mdm, mudg_tpu_torch.models.presets, "
         "mudg_tpu_torch.nn.unet3d, mudg_tpu_torch.nn.vae, mudg_tpu_torch.nn.resampler, "
-        "mudg_tpu_torch.conditioning.clip, mudg_tpu_torch.diffusion.dpm\n"
+        "mudg_tpu_torch.conditioning.clip, mudg_tpu_torch.diffusion.dpm, "
+        "mudg_tpu_torch.gs.train, mudg_tpu_torch.gs.io, mudg_tpu_torch.apps.refine_gs, "
+        "mudg_tpu_torch.__main__, mudg_tpu_torch.render.pointcloud, "
+        "mudg_tpu_torch.utils.media\n"
         "tree = {'a': {'weight': np.ones((2, 3), np.float32)},"
         " 'token_embedding': {'weight': np.ones((4, 2), np.float32)}}\n"
         "sd = mudg_tpu_torch.convert.tree_to_state_dict(tree)\n"

@@ -54,8 +54,9 @@ def to_jax(tree):
 
 
 def port(module: torch.nn.Module, tree):
-    """Load a numpy tree into a port module (strict) and return it in eval mode."""
-    return convert.load_tree(module, tree).eval()
+    """Load a numpy tree into a port module (strict) on the CPU and return it
+    in eval mode."""
+    return convert.load_tree(module, tree, device="cpu").eval()
 
 
 def assert_close(ours, ref, rel: float, atol: float = 0.0, name: str = ""):
