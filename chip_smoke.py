@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--out DIR] [--profile]
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -80,21 +80,53 @@ Phases:
      PLY export; loss falls, no pair dropped, some densify clones or splits,
      kernel 13 launched exactly steps + renders (forward) and steps
      (backward), counts reset just before, read just after; s/step, peak
-     memory, each densify and each layer of a step timed alone.
+     memory, each densify and each layer of a step timed alone;
+ 11. kernels 11 (GroupNorm, LayerNorm) and 12 (short-KV and packed
+     attention) against their plain versions at every site shape that the
+     switch path reaches in an MDM512 and an MDM1024 UNet forward (batch
+     2), in an MDM512 training micro-step (batch 1), in the MDM1024 clip's
+     resampler and in the VAE at a training encode chunk, and the packed
+     kernel at the temporal attention's (B*H*W, 16, heads, 64), all bf16,
+     plus GN, LN and short-KV in fp32 (max|diff| <= 3e-2 * max|ref| in
+     bf16, 1e-5 * max|ref| in fp32), GN in fp32 at a DC offset of 1e3
+     against the plain version run
+     in float64; planted faults: GN with the one-pass variance (at the
+     offset) and with the channel-to-group map shifted by one channel, LN
+     without its mean subtraction, short-KV with the padded keys unmasked
+     and with half the keys, packed with another sequence's keys; each
+     autograd op's gradients against autograd of the plain math (within
+     5e-2 * max|ref|); GN reruns bit for bit; times beside the bound and
+     torch's group_norm (channels-last), layer_norm and
+     scaled_dot_product_attention (yardsticks only); then the packed
+     kernel's path, its public function at those three shapes, counts
+     reset just before and read just after;
+ 12. the switch path, MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 set inside
+     it and restored after: (a) phases 3 and 5's UNet forwards on it (the
+     same gate against fp32 with the switches unset; launches at kernels
+     1-5's sites and kernels 11-12's as the JAX predicates admit them,
+     SWITCH_SITES; and an fp32 forward with impl="auto", where kernels 11
+     and 12 take fp32 and no other kernel runs, within 1e-4 relative L2 of
+     the fp32 plain forward, launches at SWITCH_SITES_F32), (b) one MDM1024 `sample` clip as phase 6 with its s/clip
+     beside phase 6's, (c) one MDM512 training micro-step's gradients as
+     phase 7's check, with kernel 11-12 launches at the training sites.
 It prints the kernel table as one JSON line: "ms", "plain_ms", "bound_ms" and
 "library_ms" are one UNet forward's worth of a forward kernel at each of the
 two configurations, summed, and one batch-1 training micro-step's backward
 at each configuration, summed, for a backward kernel (phase 2's per-call
 medians or bounds times the sites; kernel 5 at the training lengths has
 sites 0 there: checked and timed, not summed), and kernel 13's per-call
-times at scene (b); "launches" is the count from the main paths (phases 4,
-6, 7, 8 and 10). Then the card's name and power limit, and as
-its last line {"ok": true, "device": {...}}. Any failed check raises and the
+times at scene (b); kernels 11 and 12 one UNet forward's worth at both
+configurations (the packed kernel one call at each temporal shape);
+"launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
+packed path of phase 11, and phase 12's clip and micro-step). Then the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -118,11 +150,14 @@ SEED = 0
 SHARPEN = math.sqrt(3.0)
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_FLOPS = 989e12   # bf16 tensor cores
+PEAK_FP32 = 67e12     # FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
-# inference launches no backward kernel and no 3DGS kernel
+# inference launches no backward kernel and no 3DGS kernel, and kernels 11
+# and 12 only with their switches set (phase 12)
 NO_BWD = {"flash_attention_bwd": 0, "temporal_attn_bwd": 0, "geglu_ff_bwd": 0,
-          "tile_composite": 0, "tile_composite_bwd": 0}
+          "tile_composite": 0, "tile_composite_bwd": 0, "group_norm": 0, "layer_norm": 0,
+          "short_kv_attention": 0, "packed_short_attention": 0}
 SITES = {
     "mdm512": {"spatial_attn": 10, "temporal_attn": 11, "geglu_ff": 33, "gn_silu_tconv": 20,
                "flash_attention": 0, **NO_BWD},
@@ -142,6 +177,111 @@ TRAIN_SITES = {"mdm512": {"flash_attention": 10, "temporal_attn": 6, "geglu_ff":
                "mdm1024": {"flash_attention": 15, "temporal_attn": 6, "geglu_ff": 33}}
 INIT_ATTN_SITES = {"temporal_attn": 1, "geglu_ff": 1}
 TRAIN_FRAMES = 16   # batch 1 x 16 frames
+# Kernels 11 and 12 run only under MUDG_FUSED_NORMS=1 / MUDG_SHORT_ATTN=1
+# (phase 12); the packed short attention has no model path (phase 11 drives
+# its public function)
+SWITCH_KERNELS = ("group_norm", "layer_norm", "short_kv_attention", "packed_short_attention")
+OFF = dict.fromkeys(SWITCH_KERNELS, 0)
+# Their sites with both switches set, held against the JAX predicates on the
+# meta device by tests/test_torch_norms_short.py: one UNet forward (batch 2,
+# 16 frames) per configuration; the MDM1024 clip outside its UNet forwards
+# (the resampler's latents; the VAE's and towers' shapes do not fit); one
+# MDM512 training micro-step's forward and its remat recompute.
+SWITCH_SITES = {
+    "mdm512": {"group_norm": 87, "layer_norm": 56, "short_kv_attention": 10},
+    "mdm1024": {"group_norm": 42, "layer_norm": 56, "short_kv_attention": 20},
+}
+# An fp32 UNet forward with impl="auto" (batch 2) reaches kernels 11 and 12
+# only (every other kernel takes bf16): fewer GN sites (the fp32 budget
+# admits up to 1,048,576 elements per sample), more LN sites (the LNs that
+# kernels 1-3 fuse in bf16).
+SWITCH_SITES_F32 = {
+    "mdm512": {"group_norm": 86, "layer_norm": 99, "short_kv_attention": 10},
+    "mdm1024": {"group_norm": 28, "layer_norm": 99, "short_kv_attention": 20},
+}
+F32_PATH_TOL = 1e-4   # the fp32 switch forward's relative L2 against the fp32 plain one
+SWITCH_CLIP_EXTRA = {"group_norm": 0, "layer_norm": 9, "short_kv_attention": 0}
+SWITCH_TRAIN = {"fwd": {"group_norm": 117, "layer_norm": 85, "short_kv_attention": 10},
+                "bwd": {"group_norm": 86, "layer_norm": 76, "short_kv_attention": 10}}
+# Every distinct shape at those sites in one UNet forward at each
+# configuration (batch 2; "sites" per forward), and (sites 0: checked and
+# timed, not in the row's sums) those that only the VAE at a training encode
+# chunk, the MDM512 training micro-step (batch 1), the MDM1024 clip's
+# resampler and the fp32 forwards ("-f32", in fp32) reach: phase 11 checks
+# and times each
+GN_SHAPES = {
+    "mdm512": {(2, 16, 5, 8, 1280): 29, (32, 10, 16, 1280): 11, (32, 10, 16, 1920): 1,
+               (32, 10, 16, 2560): 2, (32, 10, 16, 640): 1, (32, 20, 32, 1280): 1,
+               (32, 20, 32, 1920): 1, (32, 20, 32, 320): 1, (32, 20, 32, 640): 11,
+               (32, 20, 32, 960): 1, (32, 40, 64, 320): 13, (32, 5, 8, 1280): 12,
+               (32, 5, 8, 2560): 3},
+    "mdm1024": {(32, 18, 32, 1280): 11, (32, 18, 32, 1920): 1, (32, 18, 32, 2560): 2,
+                (32, 18, 32, 640): 1, (32, 36, 64, 320): 1, (32, 36, 64, 640): 11,
+                (32, 9, 16, 1280): 12, (32, 9, 16, 2560): 3},
+    "vae": {(16, 40, 64, 512): 0},
+    "train": dict.fromkeys(((1, 16, 5, 8, 1280), (16, 10, 16, 1280), (16, 10, 16, 1920),
+                            (16, 10, 16, 2560), (16, 10, 16, 640), (16, 20, 32, 1280),
+                            (16, 20, 32, 1920), (16, 20, 32, 320), (16, 20, 32, 640),
+                            (16, 20, 32, 960), (16, 40, 64, 320), (16, 5, 8, 1280),
+                            (16, 5, 8, 2560)), 0),
+    "mdm512-f32": dict.fromkeys(((2, 16, 5, 8, 1280), (32, 10, 16, 1280), (32, 10, 16, 1920),
+                                 (32, 10, 16, 2560), (32, 10, 16, 640), (32, 20, 32, 1280),
+                                 (32, 20, 32, 320), (32, 20, 32, 640), (32, 20, 32, 960),
+                                 (32, 40, 64, 320), (32, 5, 8, 1280), (32, 5, 8, 2560)), 0),
+    "mdm1024-f32": dict.fromkeys(((32, 18, 32, 1280), (32, 18, 32, 640), (32, 36, 64, 320),
+                                  (32, 9, 16, 1280), (32, 9, 16, 2560)), 0),
+}
+LN_SHAPES = {
+    "mdm512": {(1280, 16, 640): 5, (32, 160, 1280): 15, (32, 2560, 320): 5, (32, 40, 1280): 3,
+               (32, 640, 640): 10, (320, 16, 1280): 15, (80, 16, 1280): 3},
+    "mdm1024": {(1152, 16, 1280): 15, (288, 16, 1280): 3, (32, 144, 1280): 3,
+                (32, 2304, 640): 10, (32, 576, 1280): 15, (32, 9216, 320): 5,
+                (4608, 16, 640): 5},
+    "train": dict.fromkeys(((1, 256, 1024), (16, 160, 1280), (16, 2560, 320), (16, 40, 1280),
+                            (16, 640, 640), (160, 16, 1280), (40, 16, 1280), (640, 16, 640)),
+                           0),
+    "clip": {(2, 256, 1024): 0},
+    "mdm512-f32": dict.fromkeys(((1280, 16, 640), (32, 160, 1280), (32, 2560, 320),
+                                 (32, 40, 1280), (32, 640, 640), (320, 16, 1280),
+                                 (5120, 16, 320), (5120, 16, 512), (80, 16, 1280)), 0),
+    "mdm1024-f32": dict.fromkeys(((1152, 16, 1280), (18432, 16, 320), (18432, 16, 512),
+                                  (288, 16, 1280), (32, 144, 1280), (32, 2304, 640),
+                                  (32, 576, 1280), (32, 9216, 320), (4608, 16, 640)), 0),
+}
+# (q shape, k shape) of the text (77 keys) and image (16 keys) attends
+SKV_SHAPES = {
+    "mdm512": {((32, 2560, 5, 64), (32, 16, 5, 64)): 5, ((32, 2560, 5, 64), (32, 77, 5, 64)): 5},
+    "mdm1024": {((32, 2304, 10, 64), (32, 16, 10, 64)): 5,
+                ((32, 2304, 10, 64), (32, 77, 10, 64)): 5,
+                ((32, 9216, 5, 64), (32, 16, 5, 64)): 5, ((32, 9216, 5, 64), (32, 77, 5, 64)): 5},
+    "train": {((16, 2560, 5, 64), (16, 16, 5, 64)): 0, ((16, 2560, 5, 64), (16, 77, 5, 64)): 0},
+    "mdm512-f32": {((32, 2560, 5, 64), (32, 16, 5, 64)): 0,
+                   ((32, 2560, 5, 64), (32, 77, 5, 64)): 0},
+    "mdm1024-f32": {((32, 2304, 10, 64), (32, 16, 10, 64)): 0,
+                    ((32, 2304, 10, 64), (32, 77, 10, 64)): 0,
+                    ((32, 9216, 5, 64), (32, 16, 5, 64)): 0,
+                    ((32, 9216, 5, 64), (32, 77, 5, 64)): 0},
+}
+# the temporal attention's (B*H*W, 16, heads, 64) at C = 320, 640, 1280 of MDM512
+PACKED_SHAPES = ((5120, 16, 5, 64), (1280, 16, 10, 64), (320, 16, 20, 64))
+F32_TOL = 1e-5   # fp32 forward: max|diff| <= 1e-5 * max|ref|
+DC_OFFSET = 1e3
+
+
+def switch_site_shapes(key):
+    """The shapes phase 11 checks for a kernel-11/12 site kind, as
+    tests/test_torch_norms_short.py records them: (shape, dtype) for the
+    norms, (q shape, k shape, dtype) for short-KV."""
+    table = {"group_norm": GN_SHAPES, "layer_norm": LN_SHAPES,
+             "short_kv_attention": SKV_SHAPES}[key]
+    out = set()
+    for cfg, shapes in table.items():
+        dtype = "torch.float32" if cfg.endswith("-f32") else "torch.bfloat16"
+        out |= {(*(shape if key == "short_kv_attention" else (shape,)), dtype)
+                for shape in shapes}
+    return out
+
+
 KERNEL_ROWS = {
     "spatial_attn": ("mudg_tpu_torch/csrc/spatial_attn.cu",
                      "mudg_tpu/kernels/spatial_attn.py:163,365,550"),
@@ -159,6 +299,12 @@ KERNEL_ROWS = {
     "tile_composite": ("mudg_tpu_torch/csrc/tile_raster.cu", "mudg_tpu/gs/tile_raster.py:535"),
     "tile_composite_bwd": ("mudg_tpu_torch/csrc/tile_raster.cu",
                            "mudg_tpu/gs/tile_raster.py:709"),
+    "group_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:87"),
+    "layer_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:172"),
+    "short_kv_attention": ("mudg_tpu_torch/csrc/short_attn.cu",
+                           "mudg_tpu/kernels/short_attention.py:214"),
+    "packed_short_attention": ("mudg_tpu_torch/csrc/short_attn.cu",
+                               "mudg_tpu/kernels/short_attention.py:81"),
 }
 
 
@@ -168,12 +314,35 @@ def train_launches(cfg, micro_steps):
     fwd = {k: 2 * v - INIT_ATTN_SITES.get(k, 0) for k, v in sites.items()}
     counts = {"spatial_attn": 0, "gn_silu_tconv": 0, **fwd,
               **{k + "_bwd": v for k, v in sites.items()},
-              "tile_composite": 0, "tile_composite_bwd": 0}
+              "tile_composite": 0, "tile_composite_bwd": 0, **OFF}
     return {k: micro_steps * v for k, v in counts.items()}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+SWITCH_VARS = ("MUDG_FUSED_NORMS", "MUDG_SHORT_ATTN")
+
+
+@contextlib.contextmanager
+def switches(on=True):
+    """MUDG_FUSED_NORMS and MUDG_SHORT_ATTN set to "1" (on) or unset (off)
+    inside the block, restored after it."""
+    saved = {v: os.environ.get(v) for v in SWITCH_VARS}
+    for v in SWITCH_VARS:
+        if on:
+            os.environ[v] = "1"
+        else:
+            os.environ.pop(v, None)
+    try:
+        yield
+    finally:
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
 
 
 def cuda_ms(torch, fn, iters=10, warmup=2):
@@ -193,10 +362,10 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     return ts[len(ts) // 2]
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_FLOPS):
     """(ms, "bytes" | "operations"): the least time the card could take for
-    `flops` bf16 operations and `nbytes` bytes moved."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    `flops` operations at `peak` (bf16 by default) and `nbytes` bytes moved."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -303,6 +472,8 @@ class Case(NamedTuple):
     base: object
     faults: dict
     grads: bool = False   # kernel and plain return tuples of gradients
+    tol: float = TOL      # forward check: max|diff| <= tol * max|ref|
+    peak: float = PEAK_FLOPS   # the operations' rate in the bound
 
 
 def sharpen_(attn):
@@ -552,6 +723,211 @@ def _plain_double_bwd(TA, x, h1, dy, p1, p2, heads):
     return dx, g1, g2
 
 
+def work_norm(numel, c, itemsize):
+    """A norm's bytes: x read and y written once, w and b (fp32) read once;
+    its ~10 fp32 operations per element take no tensor-core time (0)."""
+    return 0, 2 * numel * itemsize + 2 * 4 * c
+
+
+def work_short(b, lq, lk, h, d, itemsize=2):
+    """Attention of lq queries over lk keys per (batch, head): the 2 lq x lk x d
+    products; q and o, k and v read or written once."""
+    return 4 * b * h * lq * lk * d, itemsize * (2 * b * lq * h * d + 2 * b * lk * h * d)
+
+
+def op_grads(torch, fn, inputs, dy):
+    """Gradients of fn(*inputs) for the upstream dy, to every input."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        out = fn(*ins)
+        return torch.autograd.grad(out, ins, dy)
+
+
+def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packed=None,
+                     offset_shape=(32, 20, 32, 640)):
+    """Yield a Case for kernel 11 (GroupNorm, LayerNorm) and kernel 12
+    (short-KV, packed) at every site shape of the switch path (GN_SHAPES,
+    LN_SHAPES, SKV_SHAPES: config -> {shape: sites per UNet forward}), in
+    bf16, or in fp32 for a config named "<cfg>-f32" (within F32_TOL), and
+    the packed kernel at PACKED_SHAPES; GN in fp32 at a DC offset of 1e3 at
+    `offset_shape` against the plain version run in float64; then each
+    autograd op's gradients against autograd of its plain math at its first
+    shape. Norm inputs carry per-channel means and scales (a group's
+    statistics then depend on which channels it holds) and a row offset of 3
+    (a LayerNorm that skips the mean shows)."""
+    gn, ln = gn or GN_SHAPES, ln or LN_SHAPES
+    skv, packed = skv or SKV_SHAPES, packed or PACKED_SHAPES
+    bf, f4 = torch.bfloat16, torch.float32
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f4)
+
+    def dtype_of(cfg):
+        return f4 if cfg.endswith("-f32") else bf
+
+    def checks(dtype):   # (tolerance, rate of the operations in the bound)
+        return dict(tol=TOL, peak=PEAK_FLOPS) if dtype == bf else dict(tol=F32_TOL,
+                                                                          peak=PEAK_FP32)
+
+    def named(cfg, shape):
+        return f"{cfg} {'x'.join(map(str, shape))}"
+
+    def norm_input(shape, dtype, offset=0.0):
+        c = shape[-1]
+        x = randn(*shape) * (0.5 + randn(c).abs()) + 3.0 * randn(c) + 3.0 + offset
+        return x.to(dtype), 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+
+    def gn_case(cfg, shape, sites, dtype, eps, offset=0.0):
+        x, w, b = norm_input(shape, dtype, offset)
+        xc = x.movedim(-1, 1)   # (N, C, ...) with channels-last strides
+        plain = lambda: N.plain_group_norm(x, w, b, 32, eps)   # noqa: E731
+        faults = {"groups shifted by one channel": lambda: N.plain_group_norm(
+            x, w, b, 32, eps, shift_groups=1)}
+        label = named(cfg, shape)
+        if offset:
+            plain = lambda: N.plain_group_norm(x.double(), w.double(), b.double(), 32,  # noqa
+                                               eps).float()
+            faults = {"one-pass variance": lambda: N.plain_group_norm(x, w, b, 32, eps,
+                                                                        one_pass=True)}
+            label += f" offset {offset:g}"
+        return Case("group_norm", cfg, label, sites, work_norm(x.numel(), shape[-1],
+                                                                x.element_size()),
+                    lambda: N.fused_group_norm(x, w, b, 32, eps), plain,
+                    lambda: F.group_norm(xc, 32, w.to(dtype), b.to(dtype), eps), None, faults,
+                    tol=checks(dtype)["tol"])
+
+    def ln_case(cfg, shape, sites, dtype):
+        x, w, b = norm_input(shape, dtype)
+        return Case("layer_norm", cfg, named(cfg, shape), sites,
+                    work_norm(x.numel(), shape[-1], x.element_size()),
+                    lambda: N.fused_layer_norm(x, w, b, 1e-5),
+                    lambda: N.plain_layer_norm(x, w, b, 1e-5),
+                    lambda: F.layer_norm(x, (shape[-1],), w.to(dtype), b.to(dtype), 1e-5),
+                    None, {"mean not subtracted": lambda: N.plain_layer_norm(
+                        x, w, b, 1e-5, center=False)}, tol=checks(dtype)["tol"])
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2))
+
+    def skv_inputs(qs, ks, dtype):
+        q = randn(*qs).to(dtype)
+        k, v = randn(ks[0], ks[1], 2, *ks[2:]).to(dtype).unbind(2)   # strided, as a k|v buffer
+        return q, k, v
+
+    def skv_case(cfg, qs, ks, sites, dtype):
+        q, k, v = skv_inputs(qs, ks, dtype)
+        lk = ks[1]
+        pad = (0, 0, 0, 0, 0, -lk % 64)
+        return Case("short_kv_attention", cfg, f"{cfg} q {'x'.join(map(str, qs))} Lk {lk}",
+                    sites, work_short(qs[0], qs[1], lk, qs[2], qs[3], q.element_size()),
+                    lambda: SA.short_kv_attention(q, k, v),
+                    lambda: SA.plain_short_attention(q, k, v), lambda: sdpa(q, k, v), None,
+                    {"padded keys unmasked": lambda: SA.plain_short_attention(
+                        q, F.pad(k, pad), F.pad(v, pad)),
+                     "half the keys": lambda: SA.plain_short_attention(
+                         q, k[:, :lk // 2], v[:, :lk // 2])}, **checks(dtype))
+
+    def packed_inputs(shape):
+        b, t, h, d = shape
+        return randn(b, t, 3, h, d).to(bf).unbind(2)   # strided, as a q|k|v projection
+
+    for cfg, shapes in gn.items():
+        for shape, sites in shapes.items():
+            yield gn_case(cfg, shape, sites, dtype_of(cfg), 1e-6 if cfg == "vae" else 1e-5)
+    yield gn_case("fp32", offset_shape, 0, f4, 1e-5, offset=DC_OFFSET)
+    for cfg, shapes in ln.items():
+        for shape, sites in shapes.items():
+            yield ln_case(cfg, shape, sites, dtype_of(cfg))
+    for cfg, shapes in skv.items():
+        for (qs, ks), sites in shapes.items():
+            yield skv_case(cfg, qs, ks, sites, dtype_of(cfg))
+    for shape in packed:
+        q, k, v = packed_inputs(shape)
+        b, t, h, d = shape
+        flat = [z.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous() for z in (q, k, v)]
+        yield Case("packed_short_attention", "temporal", "x".join(map(str, shape)), 1,
+                   work_short(b, t, t, h, d),
+                   lambda: SA.packed_short_attention(q, k, v),
+                   lambda: SA.plain_short_attention(q, k, v),
+                   lambda: F.scaled_dot_product_attention(*flat), None,
+                   {"another sequence's keys": lambda: SA.plain_short_attention(
+                       q, k.roll(1, 0), v.roll(1, 0))})
+
+    # gradients through each autograd op (backward: the plain math), bf16, at
+    # the first shape of each table
+    gshape = next(iter(next(iter(gn.values()))))
+    x, w, b = norm_input(gshape, bf)
+    dy = randn(*gshape).to(bf)
+    yield Case("group_norm", "grad", f"op {'x'.join(map(str, gshape))}", 0,
+               work_norm(2 * x.numel(), gshape[-1], 2),
+               lambda: op_grads(torch, lambda *a: N.group_norm_op(*a, 32, 1e-5), (x, w, b), dy),
+               lambda: op_grads(torch, lambda *a: N.plain_group_norm(*a, 32, 1e-5), (x, w, b),
+                                dy), None, None, {}, grads=True)
+    lshape = next(iter(next(iter(ln.values()))))
+    xl, wl, bl = norm_input(lshape, bf)
+    dyl = randn(*lshape).to(bf)
+    yield Case("layer_norm", "grad", f"op {'x'.join(map(str, lshape))}", 0,
+               work_norm(2 * xl.numel(), lshape[-1], 2),
+               lambda: op_grads(torch, lambda *a: N.layer_norm_op(*a, 1e-5), (xl, wl, bl), dyl),
+               lambda: op_grads(torch, lambda *a: N.plain_layer_norm(*a, 1e-5), (xl, wl, bl),
+                                dyl), None, None, {}, grads=True)
+    qs, ks = next(iter(next(iter(skv.values()))))
+    qa, ka, va = skv_inputs(qs, ks, bf)
+    dya = randn(*qs).to(bf)
+    yield Case("short_kv_attention", "grad", f"op q {'x'.join(map(str, qs))} Lk {ks[1]}", 0,
+               work_short(qs[0], qs[1], ks[1], qs[2], qs[3]),
+               lambda: op_grads(torch, SA.short_kv_attention_op, (qa, ka, va), dya),
+               lambda: op_grads(torch, SA.plain_short_attention, (qa, ka, va), dya),
+               None, None, {}, grads=True)
+    pb, pt, ph, pd = packed[-1]
+    qp, kp, vp = packed_inputs(packed[-1])
+    dyp = randn(*packed[-1]).to(bf)
+    yield Case("packed_short_attention", "grad", f"op {pb}x{pt}x{ph}x{pd}", 0,
+               work_short(pb, pt, pt, ph, pd),
+               lambda: op_grads(torch, SA.packed_short_attention_op, (qp, kp, vp), dyp),
+               lambda: op_grads(torch, SA.plain_short_attention, (qp, kp, vp), dyp),
+               None, None, {}, grads=True)
+
+
+def gn_reruns_bit_for_bit(torch, case):
+    """A GroupNorm case's kernel output is the same bits on a rerun (no
+    atomics: the partial statistics are merged in a fixed order)."""
+    if case.name != "group_norm" or case.grads:
+        return True
+    a, b = case.kernel(), case.kernel()
+    same = torch.equal(a, b)
+    if not same:
+        log(f"  group_norm {case.label}: a rerun differs")
+    return same
+
+
+def phase_norm_short(torch, K, N, SA):
+    """Kernels 11 and 12 against their plain versions (phase 11), GN reruns
+    bit for bit, then the packed kernel's path: its public function at the
+    temporal-attention shapes, counts reset just before and read just
+    after."""
+    rows = run_cases(torch, norm_short_cases(torch, N, SA),
+                     check=lambda case: gn_reruns_bit_for_bit(torch, case))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    inputs = [torch.randn((b, t, 3, h, d), generator=gen, device="cuda").bfloat16().unbind(2)
+              for b, t, h, d in PACKED_SHAPES]
+    K.reset_launch_counts()
+    outs = [SA.packed_short_attention(q, k, v) for q, k, v in inputs]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    expect = {**{k: 0 for k in counts}, "packed_short_attention": len(PACKED_SHAPES)}
+    log(f"  packed path: {[tuple(o.shape) for o in outs]}, launches {counts}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    for o, (q, _, _) in zip(outs, inputs):
+        if o.shape != q.shape or not bool(torch.isfinite(o).all().item()):
+            raise AssertionError(f"packed output {tuple(o.shape)} not finite or misshapen")
+    return rows, counts
+
+
 class Check(NamedTuple):
     ok: bool
     err: float           # max|diff| of the kernel's part against the plain version's
@@ -587,9 +963,9 @@ def compare_grads(torch, case):
 
 
 def compare(torch, case):
-    """The kernel against its plain version on one case: max|diff| <= TOL *
+    """The kernel against its plain version on one case: max|diff| <= tol *
     max|ref| on output - base, kernel 5's lse within LSE_TOL, and every
-    planted fault beyond TOL * max|ref| (else the check could not see it)."""
+    planted fault beyond tol * max|ref| (else the check could not see it)."""
     if case.grads:
         return compare_grads(torch, case)
 
@@ -604,7 +980,7 @@ def compare(torch, case):
     go, ro = part(got), part(ref)
     err = (go - ro).abs().max().item()
     scale = ro.abs().max().item()
-    ok = bool(torch.isfinite(go).all().item()) and err <= TOL * scale
+    ok = bool(torch.isfinite(go).all().item()) and err <= case.tol * scale
     lse_err = None
     if isinstance(got, tuple):
         lse_err = (got[1] - ref[1]).abs().max().item()
@@ -613,8 +989,8 @@ def compare(torch, case):
     faults = {}
     for name, fn in case.faults.items():
         faults[name] = (part(fn()) - ro).abs().max().item()
-        ok &= faults[name] > TOL * scale
-    return Check(ok, err, scale, lse_err, faults, TOL, err)
+        ok &= faults[name] > case.tol * scale
+    return Check(ok, err, scale, lse_err, faults, case.tol, err)
 
 
 def phase_kernels(torch, K, nn_att, configs):
@@ -622,17 +998,25 @@ def phase_kernels(torch, K, nn_att, configs):
     each backward kernel at every training shape."""
     import itertools
 
+    return run_cases(torch, itertools.chain(kernel_cases(torch, K, nn_att, configs),
+                                            grad_cases(torch, K, nn_att)))
+
+
+def run_cases(torch, cases, check=None):
+    """Check and time each case (`check(case)` runs after its comparison);
+    returns the kernel table's rows, each shape's sites-weighted times
+    summed per kernel. Raises if any case failed."""
     rows = {}
-    cases = itertools.chain(kernel_cases(torch, K, nn_att, configs),
-                            grad_cases(torch, K, nn_att))
     for case in cases:
         chk = compare(torch, case)
+        if check is not None:
+            chk = chk._replace(ok=chk.ok and check(case))
         fk, fp, flib = case.kernel, case.plain, case.library
         reps = dict(iters=3, warmup=1) if case.grads else {}
         ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, **reps)
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
         flops, nbytes = case.work
-        bms, by = bound(flops, nbytes)
+        bms, by = bound(flops, nbytes, case.peak)
         extra = f", lse max|diff| {chk.lse_err:.3e} <= {LSE_TOL}" if chk.lse_err is not None else ""
         extra += "".join(f", {n} {e:.3e}" for n, e in chk.faults.items())
         what = ("max|diff|/max|ref| over the gradients" if case.grads else
@@ -691,15 +1075,39 @@ def unet_inputs(torch, gen, dtype, cfg):
     return x, t, ctx, lab, fs
 
 
-def phase_unet(torch, K, U, cfg):
+def phase_unet(torch, K, U, cfg, paths=("kernels",)):
+    """One full-width UNet forward at batch 2 on the plain fp32 path (TF32
+    off, switches unset), the plain bf16 path and each kernel path of
+    `paths`: "kernels" (phases 3 and 5) and "switches", with
+    MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 (phase 12a). Each kernel path's
+    relative L2 error against fp32 within 1.5x the plain bf16 path's + 5e-3,
+    launches at exactly its sites. With "switches", first an fp32 forward
+    on it (impl="auto": kernels 11 and 12 in fp32) within F32_PATH_TOL
+    relative L2 of the fp32 plain one, launches at SWITCH_SITES_F32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     unet = build_unet(torch, U, gen, torch.float32)
     n_params = sum(p.numel() for p in unet.parameters())
     x, t, ctx, lab, fs = unet_inputs(torch, gen, torch.float32, cfg)
+    report = {"params": n_params}
     with torch.no_grad():
         ref = unet(x, t, ctx, c_label=lab, fs=fs, impl="plain")
+        if "switches" in paths:
+            with switches():
+                K.reset_launch_counts()
+                f32 = unet(x, t, ctx, c_label=lab, fs=fs, impl="auto")
+                counts = K.launch_counts()
+            e32 = ((f32 - ref).norm() / ref.norm()).item()
+            expect = {**dict.fromkeys(counts, 0), **SWITCH_SITES_F32[cfg]}
+            log(f"  fp32 switch path: rel L2 vs fp32 plain {e32:.4e} (bound {F32_PATH_TOL}), "
+                f"launches {counts}")
+            if not bool(torch.isfinite(f32).all().item()) or e32 > F32_PATH_TOL:
+                raise AssertionError(f"fp32 switch-path error {e32:.4e} exceeds {F32_PATH_TOL}")
+            if counts != expect:
+                raise AssertionError(f"launch counts {counts} != {expect}")
+            report["rel_l2_switches_f32"] = e32
+            del f32
         unet.to(torch.bfloat16)
         K.prepare_kernels(unet)
         xb, cb = x.bfloat16(), ctx.bfloat16()
@@ -709,30 +1117,38 @@ def phase_unet(torch, K, U, cfg):
             return unet(xb, t, cb, c_label=lab, fs=fs, impl=impl)
 
         plain = run("plain")
-        K.reset_launch_counts()
-        kern = run("auto")
-        counts = K.launch_counts()
-        ms_k = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1)
         ms_p = cuda_ms(torch, lambda: run("plain"), iters=3, warmup=1)
 
     def rel(a):
         return ((a.float() - ref).norm() / ref.norm()).item()
 
-    e_k, e_p = rel(kern), rel(plain)
+    e_p = rel(plain)
     err_bound = 1.5 * e_p + 5e-3
-    log(f"  UNet {n_params:,} params, out {tuple(kern.shape)}")
-    log(f"  rel L2 vs fp32: kernels {e_k:.4e}, plain bf16 {e_p:.4e}, bound {err_bound:.4e}")
-    log(f"  launches per forward: {counts} (expected {SITES[cfg]})")
-    log(f"  forward bf16: kernels {ms_k:.1f} ms, plain {ms_p:.1f} ms")
-    if not bool(torch.isfinite(kern).all().item()):
-        raise AssertionError("kernel-path UNet output is not finite")
-    if e_k > err_bound:
-        raise AssertionError(f"kernel-path error {e_k:.4e} exceeds {err_bound:.4e}")
-    if counts != SITES[cfg]:
-        raise AssertionError(f"launch counts {counts} != {SITES[cfg]}")
-    del ref, plain, kern
-    return unet, {"params": n_params, "rel_l2_kernels": e_k, "rel_l2_plain_bf16": e_p,
-                  "ms_kernels": ms_k, "ms_plain": ms_p}
+    del plain
+    log(f"  UNet {n_params:,} params; plain bf16 {ms_p:.1f} ms, rel L2 vs fp32 {e_p:.4e}")
+    report.update({"rel_l2_plain_bf16": e_p, "ms_plain": ms_p})
+    for path in paths:
+        expect = SITES[cfg] if path == "kernels" else {**SITES[cfg], **SWITCH_SITES[cfg]}
+        with switches(path == "switches"), torch.no_grad():
+            K.reset_launch_counts()
+            kern = run("auto")
+            counts = K.launch_counts()
+            ms_k = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1)
+        e_k = rel(kern)
+        log(f"  {path} path: out {tuple(kern.shape)}, rel L2 vs fp32 {e_k:.4e} (bound "
+            f"{err_bound:.4e}), forward bf16 {ms_k:.1f} ms")
+        log(f"  launches per forward: {counts} (expected {expect})")
+        if not bool(torch.isfinite(kern).all().item()):
+            raise AssertionError(f"{path}-path UNet output is not finite")
+        if e_k > err_bound:
+            raise AssertionError(f"{path}-path error {e_k:.4e} exceeds {err_bound:.4e}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        del kern
+        suffix = "" if path == "kernels" else "_switches"
+        report.update({"rel_l2_kernels" + suffix: e_k, "ms_kernels" + suffix: ms_k})
+    del ref
+    return unet, report
 
 
 CATEGORIES = (("port kernels", ("mudg::",)),
@@ -864,8 +1280,19 @@ def phase_clip(torch, K, U, mdm_mod, unet):
     return counts, {"s_per_clip": secs, "std": out.std().item()}
 
 
-def phase_sample(torch, K, U, mdm_mod, presets, unet):
-    """`sample` at the mdm1024 preset: pixels and token ids to the clip."""
+def switch_clip_launches():
+    """Every kernel's launches in one MDM1024 clip with both switches set:
+    25 UNet forwards' sites of kernels 1-5 and 11-12 and the resampler's."""
+    per = {**SITES["mdm1024"], **SWITCH_SITES["mdm1024"]}
+    return {k: 25 * v + SWITCH_CLIP_EXTRA.get(k, 0) for k, v in per.items()}
+
+
+def phase_sample(torch, K, U, mdm_mod, presets, unet, paths=("kernels",)):
+    """`sample` at the mdm1024 preset: pixels and token ids to the clip, once
+    per path of `paths`: "kernels" (phase 6) and "switches" (phase 12b,
+    MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1), each with its counts reset
+    just before and read just after; then, after the "kernels" clip, each
+    stage outside the UNet timed alone."""
     from mudg_tpu_torch.nn import vae as V
 
     cfg = presets.mdm1024()
@@ -897,24 +1324,35 @@ def phase_sample(torch, K, U, mdm_mod, presets, unet):
     tokens = torch.randint(0, vocab, (1, 77), generator=gen, device="cuda")
     null_tokens = torch.randint(0, vocab, (77,), generator=gen, device="cuda")
     label = torch.zeros(1, dtype=torch.int64, device="cuda")
-    warm_up(torch, unet, gen, "mdm1024")
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = mdm_mod.sample(mdm, generator=torch.Generator(device="cuda").manual_seed(SEED + 6),
-                         sparse_frames=sparse_frames, sparse_depth=sparse_depth, tokens=tokens,
-                         null_tokens=null_tokens, class_label=label, num_steps=25,
-                         guidance_scale=7.5, guidance_rescale=0.7, eta=1.0,
-                         timestep_spacing="uniform_trailing", dtype=bf)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = K.launch_counts()
-    expect = {k: 25 * v for k, v in SITES["mdm1024"].items()}
-    log(f"  clip {tuple(out.shape)} {out.dtype}: {secs:.3f} s/clip, "
-        f"range [{out.min().item():.3f}, {out.max().item():.3f}], std {out.std().item():.4f}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"  launches in the clip: {counts} (expected {expect})")
-    check_clip(torch, out, shape, counts, expect)
+    launches, report = {}, {"params": n_params}
+    for path in paths:
+        with switches(path == "switches"):
+            warm_up(torch, unet, gen, "mdm1024")
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = mdm_mod.sample(
+                mdm, generator=torch.Generator(device="cuda").manual_seed(SEED + 6),
+                sparse_frames=sparse_frames, sparse_depth=sparse_depth, tokens=tokens,
+                null_tokens=null_tokens, class_label=label, num_steps=25, guidance_scale=7.5,
+                guidance_rescale=0.7, eta=1.0, timestep_spacing="uniform_trailing", dtype=bf)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = K.launch_counts()
+        expect = ({k: 25 * v for k, v in SITES["mdm1024"].items()} if path == "kernels"
+                  else switch_clip_launches())
+        log(f"  {path} clip {tuple(out.shape)} {out.dtype}: {secs:.3f} s/clip, "
+            f"range [{out.min().item():.3f}, {out.max().item():.3f}], "
+            f"std {out.std().item():.4f}, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        log(f"  launches in the clip: {counts} (expected {expect})")
+        check_clip(torch, out, shape, counts, expect)
+        launches[path] = counts
+        suffix = "" if path == "kernels" else "_switches"
+        report.update({"s_per_clip" + suffix: secs, "std" + suffix: out.std().item()})
+        del out
+    if "kernels" not in paths:
+        return launches, report
 
     # the clip's stages outside the UNet, each timed alone after the clip
     img = sparse_frames[:, 0]
@@ -930,8 +1368,8 @@ def phase_sample(torch, K, U, mdm_mod, presets, unet):
         "decode": host_s(torch, lambda: V.decode_video(mdm.vae, z, chunk=cfg.vae_chunk)),
     }
     log("  stages alone: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
-    return counts, {"s_per_clip": secs, "std": out.std().item(), "params": n_params,
-                    "stages_s": stages}
+    report["stages_s"] = stages
+    return launches, report
 
 
 def build_mdm(torch, mdm_mod, cfg, gen, dev="cuda"):
@@ -963,11 +1401,13 @@ def train_batch(torch, cfg, gen, hw, accum, dev="cuda"):
             "class_label": torch.zeros((accum, 1), dtype=torch.int64, device=dev)}
 
 
-def grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen):
+def grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen, paths=("kernels",)):
     """One micro-step's trainable gradients, dropout off, from the same
-    draws on three paths: kernels bf16 (impl "train"), plain bf16 and plain
-    fp32 (TF32 off). Returns (relative L2 error of the kernel path and of
-    the plain bf16 path against fp32, the kernel path's launch counts)."""
+    draws on the plain fp32 path (TF32 off), the plain bf16 path and each
+    kernel path of `paths` (impl "train", bf16): "kernels", and "switches"
+    with MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1. Returns (the plain bf16
+    path's relative L2 error against fp32, {path: (its error, its launch
+    counts)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = mdm.cfg
@@ -990,10 +1430,22 @@ def grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen):
     ref = flat_grads("plain", torch.float32)
     ref_norm = ref.norm()
     e_p = ((flat_grads("plain", torch.bfloat16) - ref).norm() / ref_norm).item()
-    K.reset_launch_counts()
-    e_k = ((flat_grads("train", torch.bfloat16) - ref).norm() / ref_norm).item()
-    counts = K.launch_counts()
-    return e_k, e_p, counts
+    out = {}
+    for path in paths:
+        with switches(path == "switches"):
+            K.reset_launch_counts()
+            e_k = ((flat_grads("train", torch.bfloat16) - ref).norm() / ref_norm).item()
+            out[path] = e_k, K.launch_counts()
+    return e_p, out
+
+
+def switch_train_launches():
+    """Every kernel's launches in one MDM512 training micro-step with both
+    switches set."""
+    counts = train_launches("mdm512", 1)
+    for k in SWITCH_TRAIN["fwd"]:
+        counts[k] = SWITCH_TRAIN["fwd"][k] + SWITCH_TRAIN["bwd"][k]
+    return counts
 
 
 def leaf_samples(params):
@@ -1042,11 +1494,13 @@ def train_layers(torch, mdm_mod, step_mod, mdm, state, tc, mb, null_emb, gen):
     return layers, micro
 
 
-def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None):
-    """Full-width MDM512 training: a gradient check, then a warm-up and
-    three timed optimizer steps at batch 1, accumulation 2, remat, and the
-    step's layers timed alone (with `profile`, one micro-step under the
-    profiler)."""
+def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None,
+                paths=("kernels",), steps=True):
+    """Full-width MDM512 training: a gradient check on each kernel path of
+    `paths` ("kernels", phase 7; "switches", phase 12c), then, with `steps`,
+    a warm-up and three timed optimizer steps at batch 1, accumulation 2,
+    remat, and the step's layers timed alone (with `profile`, one
+    micro-step under the profiler)."""
     cfg = mdm_mod.MDMConfig()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     mdm = build_mdm(torch, mdm_mod, cfg, gen)
@@ -1062,17 +1516,24 @@ def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None):
     null_emb = mdm_mod.encode_text(mdm, null_tokens[None])
     log(f"  parameters: {n_params}, batch {tuple(batch['dense_frames'].shape)}")
 
-    e_k, e_p, counts = grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen)
+    e_p, checked = grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen, paths)
     err_bound = 1.5 * e_p + 5e-3
-    expect = train_launches("mdm512", 1)
-    log(f"  one micro-step's UNet + resampler gradients, rel L2 vs fp32: kernels {e_k:.4e}, "
-        f"plain bf16 {e_p:.4e}, bound {err_bound:.4e}")
-    log(f"  launches in it: {counts} (expected {expect})")
-    if not e_k <= err_bound:
-        raise AssertionError(f"kernel-path gradient error {e_k:.4e} exceeds {err_bound:.4e}")
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
+    report = {"params": n_params, "rel_l2_grad_plain_bf16": e_p}
+    launches = {}
+    for path, (e_k, counts) in checked.items():
+        expect = train_launches("mdm512", 1) if path == "kernels" else switch_train_launches()
+        log(f"  one micro-step's UNet + resampler gradients, rel L2 vs fp32: {path} "
+            f"{e_k:.4e}, plain bf16 {e_p:.4e}, bound {err_bound:.4e}")
+        log(f"  launches in it: {counts} (expected {expect})")
+        if not e_k <= err_bound:
+            raise AssertionError(f"{path}-path gradient error {e_k:.4e} exceeds {err_bound:.4e}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        report["rel_l2_grad_" + path] = e_k
+        launches[path] = counts
     torch.cuda.empty_cache()
+    if not steps:
+        return mdm, launches, report
 
     state = step_mod.init_train_state(mdm, tc)
     step = step_mod.make_train_step(mdm, tc, null_tokens)
@@ -1098,6 +1559,7 @@ def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None):
     log(f"  steps: {secs:.3f} s/step (host clock, 3 steps after a warm-up), peak memory "
         f"{peak:.1f} GiB; loss {losses}, grad norm {norms}")
     log(f"  launches in the 3 steps: {counts} (expected {expect})")
+    launches["steps"] = counts
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError("loss or gradient norm not finite")
     if still:
@@ -1107,15 +1569,14 @@ def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None):
     layers, micro = train_layers(torch, mdm_mod, step_mod, mdm, state, tc,
                                  {k: v[0] for k, v in batch.items()}, null_emb, gen)
     log("  layers alone: " + ", ".join(f"{k} {v:.3f} s" for k, v in layers.items()))
-    report = {"params": n_params, "rel_l2_grad_kernels": e_k, "rel_l2_grad_plain_bf16": e_p,
-              "s_per_step": secs, "peak_gib": peak, "loss": losses, "grad_norm": norms,
-              "layers_s": layers}
+    report.update({"s_per_step": secs, "peak_gib": peak, "loss": losses, "grad_norm": norms,
+                   "layers_s": layers})
     if profile:
         report["profile"] = profile_call(torch, micro, "MDM512 training micro-step")
         save_profile(report["profile"], "train_mdm512", out_dir)
     del state, step, micro
     torch.cuda.empty_cache()
-    return mdm, counts, report
+    return mdm, launches, report
 
 
 def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
@@ -1178,7 +1639,6 @@ def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
 GS_FWD_TOL = 1e-4     # color, depth, T (and extras): max|diff| <= 1e-4 * max|ref|
 GS_BWD_TOL = 2e-3     # each per-gaussian gradient field: <= 2e-3 * max|ref| + 1e-8,
 GS_BWD_ATOL = 1e-8    # the JAX tile test's tolerance (tests/test_tile_raster.py:94-96)
-PEAK_FP32 = 67e12     # FP32 outside the tensor cores, H100 SXM data sheet
 GSBENCH_K = ((560.0, 0.0, 480.0), (0.0, 560.0, 320.0), (0.0, 0.0, 1.0))
 GS_FIELDS = ("means", "log_scales", "quats", "opacity", "colors")
 
@@ -1378,9 +1838,7 @@ def gs_check(torch, KT, G, TT, case):
 def gs_bound(work):
     """(ms, by): FP32 operations at the card's data-sheet rate or bytes at
     its memory rate, the larger."""
-    ops, nbytes = work
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(*work, peak=PEAK_FP32)
 
 
 def phase_gs_kernels(torch, KT, G, TT):
@@ -1590,7 +2048,7 @@ def gs_layers(torch, G, GT, TT, state, cfg, view, width, height):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -1621,12 +2079,16 @@ def main(argv=None):
         from mudg_tpu_torch.gs import tile_raster as gs_tr
         from mudg_tpu_torch.gs import train as gs_train
         from mudg_tpu_torch.kernels import tile_raster as gs_k
+        from mudg_tpu_torch.kernels import norms as norm_k
+        from mudg_tpu_torch.kernels import short_attention as short_k
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}", file=sys.stderr)
         return 2
 
     report = {}
     t_all = time.perf_counter()
+    for v in SWITCH_VARS:   # the switches are set only inside phase 12's paths
+        os.environ.pop(v, None)
 
     def timed(n, title, fn, *a):
         t0 = time.perf_counter()
@@ -1640,11 +2102,21 @@ def main(argv=None):
         rows = timed(2, "kernels vs plain", phase_kernels, torch, K, nn_att,
                      ("mdm512", "mdm1024"))
     launches = {}
+    sw = 12 in phases   # phase 12 runs the switch path inside phases 3, 5, 6 and 7's set-up
+
+    def paths(n):
+        return (("kernels",) if n in phases else ()) + (("switches",) if sw else ())
+
+    if 11 in phases:
+        rows11, launches["packed_temporal"] = timed(
+            11, "kernels 11 and 12 vs plain", phase_norm_short, torch, K, norm_k, short_k)
+        rows.update(rows11)
     unet = None
-    if 3 in phases:
-        unet, report["unet_mdm512"] = timed(3, "MDM512 UNet forward", phase_unet, torch, K, U,
-                                            "mdm512")
-        if args.profile:
+    if 3 in phases or sw:
+        unet, report["unet_mdm512"] = timed(
+            "3" + (" + 12a" if sw else ""), "MDM512 UNet forward", phase_unet, torch, K, U,
+            "mdm512", paths(3))
+        if args.profile and 3 in phases:
             report["profile_mdm512"] = phase_profile(torch, unet, "mdm512", args.out)
     if 4 in phases:
         launches["mdm512_clip"], report["clip_mdm512"] = timed(
@@ -1652,21 +2124,30 @@ def main(argv=None):
     del unet
     torch.cuda.empty_cache()
     unet = None
-    if 5 in phases:
-        unet, report["unet_mdm1024"] = timed(5, "MDM1024 UNet forward", phase_unet, torch, K, U,
-                                             "mdm1024")
-        if args.profile:
+    if 5 in phases or sw:
+        unet, report["unet_mdm1024"] = timed(
+            "5" + (" + 12a" if sw else ""), "MDM1024 UNet forward", phase_unet, torch, K, U,
+            "mdm1024", paths(5))
+        if args.profile and 5 in phases:
             report["profile_mdm1024"] = phase_profile(torch, unet, "mdm1024", args.out)
-    if 6 in phases:
-        launches["mdm1024_sample"], report["sample_mdm1024"] = timed(
-            6, "MDM1024 sample", phase_sample, torch, K, U, mdm_mod, presets, unet)
+    if 6 in phases or sw:
+        clips, report["sample_mdm1024"] = timed(
+            "6" + (" + 12b" if sw else ""), "MDM1024 sample", phase_sample, torch, K, U,
+            mdm_mod, presets, unet, paths(6))
+        for path, name in (("kernels", "mdm1024_sample"), ("switches", "mdm1024_sample_switches")):
+            if path in clips:
+                launches[name] = clips[path]
     del unet
     torch.cuda.empty_cache()
     mdm = None
-    if 7 in phases:
-        mdm, launches["mdm512_train"], report["train_mdm512"] = timed(
-            7, "MDM512 training", phase_train, torch, K, mdm_mod, step_mod, args.profile,
-            args.out)
+    if 7 in phases or sw:
+        mdm, trained, report["train_mdm512"] = timed(
+            "7" + (" + 12c" if sw else ""), "MDM512 training", phase_train, torch, K, mdm_mod,
+            step_mod, args.profile, args.out, paths(7), 7 in phases)
+        if "steps" in trained:
+            launches["mdm512_train"] = trained["steps"]
+        if "switches" in trained:
+            launches["mdm512_micro_step_switches"] = trained["switches"]
     if 8 in phases:
         launches["mdm1024_train"], report["train_mdm1024"] = timed(
             8, "MDM1024 stage-2 step", phase_train_stage2, torch, K, mdm_mod, step_mod, mdm)

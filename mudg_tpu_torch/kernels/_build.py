@@ -24,10 +24,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types: pointers and the stream as
 # c_void_p (a c_int would cut a 64-bit pointer), sizes as c_int, element
-# strides as c_longlong
+# strides as c_longlong, eps as c_float
 _SIGNATURES = {
     "mudg_spatial_attn": [_P] * 11 + [_I] * 3 + [_P],
     "mudg_temporal_attn_stage": [_P] * 11 + [_I] * 2 + [_P],
@@ -39,6 +39,11 @@ _SIGNATURES = {
     "mudg_geglu_ff_bwd": [_P] * 16 + [_LL] + [_I] * 3 + [_P],
     "mudg_tile_composite": [_P] * 4 + [_I] * 3 + [_P],
     "mudg_tile_composite_bwd": [_P] * 6 + [_I] * 3 + [_P],
+    "mudg_group_norm": [_P] * 5 + [_I] * 7 + [_F] + [_P],
+    "mudg_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
+    "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
+    "mudg_short_kv_attn_f32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
+    "mudg_packed_attn": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_P],
 }
 # fp32 scratch for the backward kernels' split partials (elements); the split
 # counts shrink to fit it, so it bounds memory, never correctness

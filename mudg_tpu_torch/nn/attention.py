@@ -16,12 +16,15 @@ Relative-position and joint task attention are not ported yet.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
 from . import functional as F
 from ..kernels import flash_attention as FA
 from ..kernels import mlp as M
+from ..kernels import short_attention as SA
 from ..kernels import spatial_attn as SP
 from ..kernels import temporal_attn as TA
 
@@ -34,13 +37,20 @@ FLASH_MIN_SEQ = 512
 LOGITS_BUDGET = 2 << 30
 
 
-def _dense(q, k, v, causal, with_lse):
+def dense_logits(q, k, causal=False):
+    """fp32 logits (B, H, Lq, Lk) of q (B, Lq, H, D) against k (B, Lk, H, D),
+    scaled by D^-0.5; the causal mask keeps key j <= query i + Lk - Lq."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         lq, lk = logits.shape[-2:]
         mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(lk - lq)
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    return logits
+
+
+def _dense(q, k, v, causal, with_lse):
+    logits = dense_logits(q, k, causal)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return o, (torch.logsumexp(logits, dim=-1) if with_lse else None)
@@ -91,12 +101,21 @@ def attend(q, k, v, *, causal=False, impl="auto"):
     "train" with kernel 6 as its backward), as the JAX dispatch sends it to
     its Pallas flash kernel; everything else is `plain_attend`. The kernel
     takes head dim 64 only, where the JAX predicate admits any multiple of
-    64: no MuDG site has another head dim at L >= 512."""
+    64: no MuDG site has another head dim at L >= 512. Next, under
+    `MUDG_SHORT_ATTN=1`, a CUDA q and k that `short_kv_attention_eligible`
+    admits go to kernel 12's short-KV attention (attention.py:100-113; under
+    "train" as its autograd op), bf16 or fp32 as the Pallas kernel takes
+    either."""
     if (impl in ("auto", "train") and not causal and q.shape[1] >= FLASH_MIN_SEQ
             and FA.eligible(q, k, v)):
         if impl == "train":
             return FA.flash_attention_train(q, k, v)
         return FA.flash_attention(q, k, v)[0]
+    if (impl in ("auto", "train") and not causal and os.environ.get("MUDG_SHORT_ATTN") == "1"
+            and F.on_card(q) and SA.short_kv_attention_eligible(q, k)):
+        if impl == "train":
+            return SA.short_kv_attention_op(q, k, v)
+        return SA.short_kv_attention(q, k, v)
     return plain_attend(q, k, v, causal=causal)
 
 

@@ -5,12 +5,30 @@ that holds `weight`/`bias` in torch layouts (Linear (out, in), ConvNd
 (out, in, k...)), applied to channels-last activations: (N, H, W, C)
 spatial, (N, T, H, W, C) video. Forwards run in the dtype of their input;
 weights are cast to it at application. GroupNorm and LayerNorm are fp32
-islands (cast up, normalize, cast back), as in the reference.
+islands (cast up, normalize, cast back), as in the reference. Under
+`MUDG_FUSED_NORMS=1` a CUDA tensor that the JAX fit predicates admit goes to
+kernel 11 (`kernels/norms.py`), whatever the caller's `impl`, as the JAX
+dispatch sends it to its Pallas kernels (nn/functional.py:166-193,
+:226-233); the JAX dispatch's "backend is TPU" is "the tensor is on CUDA"
+here.
 """
 from __future__ import annotations
 
-import torch
+import os
+
 import torch.nn.functional as F
+
+from ..kernels import norms as N
+
+
+def on_card(x) -> bool:
+    """Whether x lies where the port's kernels run (the JAX dispatch's
+    backend check)."""
+    return x.device.type == "cuda"
+
+
+def _fused_norms(x) -> bool:
+    return os.environ.get("MUDG_FUSED_NORMS") == "1" and on_card(x)
 
 
 def _w(m, dtype):
@@ -62,32 +80,19 @@ def temporal_conv311(m, x):
 def group_norm(m, x, num_groups: int = 32, eps: float = 1e-5):
     """GroupNorm over channels-last input, stats over every non-batch dim of
     each channel group, in fp32 with the centered (two-pass) variance
-    (nn/functional.py:180-223)."""
-    xf = x.float()
-    n, c = xf.shape[0], xf.shape[-1]
-    g = num_groups
-    assert c % g == 0, f"channels {c} not divisible by groups {g}"
-    dims = tuple(range(1, xf.ndim - 1))
-    count = c // g
-    for d in xf.shape[1:-1]:
-        count *= d
-
-    def group_mean(per_channel):  # (N, C) -> (N, C) broadcast group means
-        gsum = per_channel.reshape(n, g, c // g).sum(-1, keepdim=True)
-        return (gsum / count).expand(n, g, c // g).reshape(n, c)
-
-    bshape = (n,) + (1,) * len(dims) + (c,)
-    mean = group_mean(xf.sum(dims)).reshape(bshape)
-    centered = xf - mean
-    var = group_mean((centered * centered).sum(dims)).reshape(bshape)
-    y = centered * torch.rsqrt(var + eps) * m.weight.float() + m.bias.float()
-    return y.to(x.dtype)
+    (nn/functional.py:180-223); kernel 11 under `MUDG_FUSED_NORMS=1` where
+    it fits."""
+    if _fused_norms(x) and N.group_norm_fits(x):
+        return N.group_norm_op(x, m.weight, m.bias, num_groups, eps)
+    return N.plain_group_norm(x, m.weight, m.bias, num_groups, eps)
 
 
 def layer_norm(m, x, eps: float = 1e-5):
-    """LayerNorm over the last axis in fp32 (population variance)."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), m.weight.float(), m.bias.float(), eps)
-    return y.to(x.dtype)
+    """LayerNorm over the last axis in fp32 (population variance); kernel 11
+    under `MUDG_FUSED_NORMS=1` where it fits."""
+    if _fused_norms(x) and N.layer_norm_fits(x):
+        return N.layer_norm_op(x, m.weight, m.bias, eps)
+    return N.plain_layer_norm(x, m.weight, m.bias, eps)
 
 
 def silu(x):

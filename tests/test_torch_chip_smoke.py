@@ -13,8 +13,10 @@ import chip_smoke as CS
 import mudg_tpu_torch.kernels as K
 from mudg_tpu_torch.nn import attention as nn_att
 
-# kernel 13 composites splats; no UNet forward or training step reaches it
+# kernel 13 composites splats; no UNet forward or training step reaches it.
+# Kernels 11 and 12 run only on the switch path, checked by phase 11.
 GS_KERNELS = {"tile_composite", "tile_composite_bwd"}
+SWITCH_KERNELS = set(CS.SWITCH_KERNELS)
 
 
 @pytest.mark.parametrize("config", ["mdm512", "mdm1024"])
@@ -33,7 +35,7 @@ def test_chip_smoke_checks_see_planted_faults(config):
         adds_residual = (case.name in ("spatial_attn", "temporal_attn")
                          or case.label.startswith("block"))
         assert (case.base is not None) == adds_residual, case.label
-    forward = {n for n in K.KERNELS if not n.endswith("_bwd")} - GS_KERNELS
+    forward = {n for n in K.KERNELS if not n.endswith("_bwd")} - GS_KERNELS - SWITCH_KERNELS
     assert seen == forward - ({"flash_attention"} if config == "mdm512" else set())
 
 
@@ -72,3 +74,66 @@ def test_chip_smoke_gs_checks_see_planted_faults():
         assert r["plain_ms"] is None and r["plain_bwd_ms"] is None   # timed on the card only
         npays.append(r["npay"])
     assert npays == [4, 4, 4, 23]
+
+
+def test_chip_smoke_norm_short_checks_see_planted_faults():
+    """Phase 11's checks of kernels 11 and 12 at tiny shapes on the CPU,
+    where each wrapper runs its plain version: every case passes its own
+    check (GN, LN and short-KV in fp32 within 1e-5 * max|ref|, the fp32 GroupNorm at a DC offset of 1e3 against the plain
+    version in float64, within 1e-5 * max|ref|), each planted fault (GN
+    with the one-pass variance at the offset and with the group map shifted
+    by one channel, LN without its mean, short-KV with the padded keys
+    unmasked and with half the keys, packed with another sequence's keys)
+    misses the bound, and each autograd op's gradients pass theirs."""
+    from mudg_tpu_torch.kernels import norms as N
+    from mudg_tpu_torch.kernels import short_attention as SA
+
+    seen, faults = set(), set()
+    cases = CS.norm_short_cases(
+        torch, N, SA, dev="cpu",
+        gn={"mdm512": {(2, 4, 8, 64): 1, (2, 2, 4, 8, 64): 1}, "mdm512-f32": {(2, 4, 8, 64): 0}},
+        ln={"mdm512": {(2, 16, 64): 1}, "mdm512-f32": {(2, 16, 64): 0}},
+        skv={"mdm512": {((2, 256, 2, 64), (2, 77, 2, 64)): 1,
+                        ((2, 256, 2, 64), (2, 16, 2, 64)): 1},
+             "mdm512-f32": {((2, 256, 2, 64), (2, 77, 2, 64)): 0}},
+        packed=((8, 16, 2, 64), (16, 8, 2, 128)), offset_shape=(2, 4, 8, 64))
+    for case in cases:
+        chk = CS.compare(torch, case)
+        assert chk.ok, (case.name, case.label, chk)
+        if case.grads:
+            assert chk.err <= CS.BWD_TOL
+        elif "offset" not in case.label:
+            assert chk.err == 0.0 and chk.scale > 0.0, (case.label, chk)
+        for name, err in chk.faults.items():
+            assert err > chk.tol * chk.scale, (case.label, name, err, chk.scale)
+            faults.add((case.name, name))
+        assert CS.gn_reruns_bit_for_bit(torch, case)
+        seen.add((case.name, case.grads, case.tol))
+    assert {n for n, _, _ in seen} == SWITCH_KERNELS
+    assert {n for n, g, _ in seen if g} == SWITCH_KERNELS          # every op's gradients
+    assert {n for n, _, tol in seen if tol == CS.F32_TOL} == {"group_norm", "layer_norm",
+                                                              "short_kv_attention"}
+    assert faults == {("group_norm", "one-pass variance"),
+                      ("group_norm", "groups shifted by one channel"),
+                      ("layer_norm", "mean not subtracted"),
+                      ("short_kv_attention", "padded keys unmasked"),
+                      ("short_kv_attention", "half the keys"),
+                      ("packed_short_attention", "another sequence's keys")}
+
+
+def test_chip_smoke_switch_launch_expectations():
+    """Phase 12's expected launches: kernels 1-5 at their sites and kernels
+    11-12 at SWITCH_SITES per UNet forward; the clip adds the resampler's
+    LayerNorms; the micro-step adds the forward's and the remat recompute's
+    sites to phase 7's; with the switches unset every path expects none."""
+    clip = CS.switch_clip_launches()
+    assert clip["group_norm"] == 25 * CS.SWITCH_SITES["mdm1024"]["group_norm"]
+    assert clip["layer_norm"] == 25 * 56 + 9
+    assert clip["flash_attention"] == 125 and clip["packed_short_attention"] == 0
+    micro = CS.switch_train_launches()
+    assert micro["group_norm"] == 117 + 86 and micro["short_kv_attention"] == 20
+    assert {k: micro[k] for k in CS.TRAIN_SITES["mdm512"]} == \
+        {k: v for k, v in CS.train_launches("mdm512", 1).items() if k in CS.TRAIN_SITES["mdm512"]}
+    for cfg in ("mdm512", "mdm1024"):
+        assert all(CS.SITES[cfg][k] == 0 for k in CS.SWITCH_KERNELS)
+    assert all(v == 0 for k, v in CS.train_launches("mdm512", 2).items() if k in CS.OFF)

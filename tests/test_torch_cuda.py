@@ -2,7 +2,11 @@
 backward kernels (6, 9, 10) against their plain backward versions and, through
 their autograd ops, against autograd of the plain forward in fp32; a small
 UNet whose every kernel site is eligible, kernel path against the fp32 plain
-path; the training ops reading the current weights. Marked `cuda`; skipped
+path, with and without MUDG_FUSED_NORMS=1 / MUDG_SHORT_ATTN=1; the training
+ops reading the current weights; kernels 11 and 12 (norms, short attention)
+in both dtypes where they take fp32 (GN, LN, short-KV), a GN rerun bit for
+bit, each wrapper raising on what its kernel does not take, and the small
+UNet's fp32 forward on the switch path against its fp32 plain path. Marked `cuda`; skipped
 without a GPU. These tests import no JAX, so on a machine without it they
 run with the repository's conftest left out:
 
@@ -230,7 +234,10 @@ def test_small_unet_kernel_path_matches_fp32(dev):
     # no such site at this size; the backward kernels run only in training,
     # kernel 13 only in the 3DGS path
     assert counts.pop("flash_attention") == 0
-    for name in [n for n in counts if n.endswith("_bwd") or n.startswith("tile_")]:
+    # kernels 11 and 12 only with MUDG_FUSED_NORMS=1 / MUDG_SHORT_ATTN=1, unset here
+    for name in [n for n in counts if n.endswith("_bwd") or n.startswith("tile_")
+                 or n in ("group_norm", "layer_norm", "short_kv_attention",
+                          "packed_short_attention")]:
         assert counts.pop(name) == 0
     assert all(v > 0 for v in counts.values()), counts
     e_k = ((got.float() - ref).norm() / ref.norm()).item()
@@ -537,3 +544,253 @@ def test_tile_composite_rejects_what_the_kernel_does_not_take(dev):
     wide = torch.zeros(feats.shape[0], 6 + 27, device=dev)
     with pytest.raises(ValueError):   # more payload channels than the kernel takes
         KT.tile_composite(wide, bounds, tw, 27)
+
+
+
+# ---------------------------------------------------------------------------
+# Kernels 11 and 12
+# ---------------------------------------------------------------------------
+
+def _norm_input(dev, gen, shape, dtype, offset=0.0):
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * (0.5 + torch.rand(c, generator=gen,
+                                                                           device=dev))
+         + 3 * torch.randn(c, generator=gen, device=dev) + 3 + offset)
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    return x.to(dtype), w, b
+
+
+@pytest.mark.parametrize("shape,dtype", [((32, 20, 32, 640), torch.bfloat16),
+                                         ((2, 16, 5, 8, 1280), torch.bfloat16),
+                                         ((3, 7, 9, 64), torch.bfloat16),
+                                         ((4, 10, 16, 2560), torch.bfloat16),
+                                         ((16, 20, 32, 320), torch.float32)])
+def test_group_norm_kernel(dev, shape, dtype):
+    """GN against its plain version (fp32 within 1e-5 * max|ref|), reruns
+    bit for bit, and the group map shifted by one channel is seen."""
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x, w, b = _norm_input(dev, gen, shape, dtype)
+    before = N.launches
+    got = N.fused_group_norm(x, w, b, 32, 1e-5)
+    assert N.launches == before + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    ref = N.plain_group_norm(x, w, b, 32, 1e-5).float()
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(got, N.fused_group_norm(x, w, b, 32, 1e-5))
+    fault = N.plain_group_norm(x, w, b, 32, 1e-5, shift_groups=1).float()
+    assert (fault - ref).abs().max().item() > tol * ref.abs().max().item()
+
+
+def test_group_norm_kernel_at_a_dc_offset(dev):
+    """fp32 at a DC offset of 1e3: within 1e-5 * max|ref| of the plain
+    version in float64, where the one-pass variance is not."""
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x, w, b = _norm_input(dev, gen, (8, 20, 32, 640), torch.float32, offset=1e3)
+    got = N.fused_group_norm(x, w, b, 32, 1e-5)
+    ref = N.plain_group_norm(x.double(), w.double(), b.double(), 32, 1e-5).float()
+    bound = 1e-5 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= bound
+    one_pass = N.plain_group_norm(x, w, b, 32, 1e-5, one_pass=True)
+    assert (one_pass - ref).abs().max().item() > bound
+
+
+@pytest.mark.parametrize("shape,dtype", [((32, 640, 640), torch.bfloat16),
+                                         ((320, 16, 1280), torch.bfloat16),
+                                         ((5, 7, 2560), torch.bfloat16),
+                                         ((16, 64, 1024), torch.float32)])
+def test_layer_norm_kernel(dev, shape, dtype):
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x, w, b = _norm_input(dev, gen, shape, dtype)
+    before = N.ln_launches
+    got = N.fused_layer_norm(x, w, b, 1e-5)
+    assert N.ln_launches == before + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    ref = N.plain_layer_norm(x, w, b, 1e-5).float()
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    fault = N.plain_layer_norm(x, w, b, 1e-5, center=False).float()
+    assert (fault - ref).abs().max().item() > tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,dtype", [(4, 2560, 77, 5, 64, torch.bfloat16),
+                                               (4, 2304, 16, 10, 64, torch.bfloat16),
+                                               (2, 256, 1024, 2, 128, torch.bfloat16),
+                                               (2, 512, 93, 3, 128, torch.bfloat16),
+                                               (2, 256, 1, 2, 64, torch.bfloat16),
+                                               (4, 2560, 77, 5, 64, torch.float32),
+                                               (2, 256, 1024, 2, 128, torch.float32),
+                                               (2, 512, 93, 3, 128, torch.float32),
+                                               (2, 256, 1, 2, 64, torch.float32)])
+def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
+    """Against the dense plain version across the predicate (Lk up to 1024,
+    D 64 and 128; fp32 within 1e-5 * max|ref|); k and v strided; unmasked
+    padded keys are seen."""
+    from mudg_tpu_torch.kernels import short_attention as SA
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn(b, lq, h, d, generator=gen, device=dev).to(dtype)
+    k, v = torch.randn(b, lk, 2, h, d, generator=gen, device=dev).to(dtype).unbind(2)
+    before = SA.launches
+    got = SA.short_kv_attention(q, k, v)
+    assert SA.launches == before + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    ref = SA.plain_short_attention(q, k, v).float()
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    if lk % 64:
+        pad = (0, 0, 0, 0, 0, -lk % 64)
+        fault = SA.plain_short_attention(q, torch.nn.functional.pad(k, pad),
+                                         torch.nn.functional.pad(v, pad))
+        assert (fault.float() - ref).abs().max().item() > tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,t,h,d", [(1280, 16, 10, 64), (64, 8, 2, 64), (32, 4, 4, 128),
+                                     (16, 32, 2, 64), (8, 64, 2, 128), (128, 1, 1, 64)])
+def test_packed_short_attention_kernel(dev, b, t, h, d):
+    from mudg_tpu_torch.kernels import short_attention as SA
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    q, k, v = torch.randn(b, t, 3, h, d, generator=gen, device=dev).bfloat16().unbind(2)
+    before = SA.packed_launches
+    got = SA.packed_short_attention(q, k, v)
+    assert SA.packed_launches == before + 1
+    ref = _close(got, SA.plain_short_attention(q, k, v))
+    if b > 1 and t > 1:
+        fault = SA.plain_short_attention(q, k.roll(1, 0), v.roll(1, 0))
+        assert (fault.float() - ref).abs().max().item() > TOL * ref.abs().max().item()
+
+
+def test_norm_and_short_ops_grads_match_plain_autograd(dev):
+    """Each kernel-11/12 autograd op's gradients against autograd of its
+    plain math (within 5e-2 * max|ref|)."""
+    from mudg_tpu_torch.kernels import norms as N
+    from mudg_tpu_torch.kernels import short_attention as SA
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def grads(fn, ins, dy):
+        ins = [t.detach().requires_grad_() for t in ins]
+        return torch.autograd.grad(fn(*ins), ins, dy)
+
+    x, w, b = _norm_input(dev, gen, (8, 10, 16, 640), torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+    _grads_close(grads(lambda *a: N.group_norm_op(*a, 32, 1e-5), (x, w, b), dy),
+                 grads(lambda *a: N.plain_group_norm(*a, 32, 1e-5), (x, w, b), dy))
+    x, w, b = _norm_input(dev, gen, (8, 160, 1280), torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+    _grads_close(grads(lambda *a: N.layer_norm_op(*a, 1e-5), (x, w, b), dy),
+                 grads(lambda *a: N.plain_layer_norm(*a, 1e-5), (x, w, b), dy))
+    q = torch.randn(2, 512, 5, 64, generator=gen, device=dev).bfloat16()
+    k, v = torch.randn(2, 77, 2, 5, 64, generator=gen, device=dev).bfloat16().unbind(2)
+    dy = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    _grads_close(grads(SA.short_kv_attention_op, (q, k, v), dy),
+                 grads(SA.plain_short_attention, (q, k, v), dy))
+    q, k, v = torch.randn(64, 16, 3, 4, 64, generator=gen, device=dev).bfloat16().unbind(2)
+    dy = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    _grads_close(grads(SA.packed_short_attention_op, (q, k, v), dy),
+                 grads(SA.plain_short_attention, (q, k, v), dy))
+
+
+def test_norm_and_short_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from mudg_tpu_torch.kernels import norms as N
+    from mudg_tpu_torch.kernels import short_attention as SA
+
+    w, b = torch.ones(60, device=dev), torch.zeros(60, device=dev)
+    with pytest.raises(ValueError):   # C not a multiple of 8
+        N.fused_group_norm(torch.randn(2, 4, 4, 60, device=dev), w, b, 6, 1e-5)
+    with pytest.raises(ValueError):   # fp16
+        N.fused_layer_norm(torch.randn(2, 4, 64, device=dev).half(), w[:4].repeat(16),
+                           b[:4].repeat(16), 1e-5)
+    with pytest.raises(ValueError):   # groups not dividing C
+        N.fused_group_norm(torch.randn(2, 4, 4, 64, device=dev), w[:4].repeat(16),
+                           b[:4].repeat(16), 24, 1e-5)
+    q = torch.randn(2, 256, 2, 64, device=dev)
+    with pytest.raises(ValueError):   # fp16: bf16 or fp32 only, no plain fallback
+        SA.short_kv_attention(q.half(), q[:, :77].half(), q[:, :77].half())
+    with pytest.raises(ValueError):   # k's dtype not q's
+        SA.short_kv_attention(q, q[:, :77].bfloat16(), q[:, :77])
+    with pytest.raises(ValueError):   # packed: bf16 only
+        SA.packed_short_attention(*(torch.randn(16, 16, 2, 64, device=dev),) * 3)
+    with pytest.raises(ValueError):   # Lq not a multiple of 256
+        SA.short_kv_attention(q[:, :192].bfloat16(), q[:, :77].bfloat16(),
+                              q[:, :77].bfloat16())
+    with pytest.raises(ValueError):   # Lk > 1024
+        k = torch.randn(2, 1100, 2, 64, device=dev).bfloat16()
+        SA.short_kv_attention(q.bfloat16(), k, k)
+    with pytest.raises(ValueError):   # head dim 32
+        SA.packed_short_attention(*(torch.randn(16, 16, 2, 32, device=dev).bfloat16(),) * 3)
+    with pytest.raises(ValueError):   # T = 3
+        SA.packed_short_attention(*(torch.randn(128, 3, 2, 64, device=dev).bfloat16(),) * 3)
+
+
+def test_small_unet_switch_path_matches_fp32(dev, monkeypatch):
+    """The small UNet of test_small_unet_kernel_path_matches_fp32 with
+    MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 (16x16 latents: the spatial
+    cross-attention's 256 queries take the short-KV kernel): kernels 11 and
+    12 launch, and the gate against the fp32 plain path holds."""
+    import mudg_tpu_torch.kernels as K
+    from mudg_tpu_torch.nn import unet3d as U
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = U.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                       attention_resolutions=(1,), context_dim=32)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    unet = _randomize(U.UNet3D(cfg).to(dev), gen).eval()
+    x = torch.randn(1, 16, 16, 16, 12, generator=gen, device=dev)
+    ctx = torch.randn(1, 77 + 256, 32, generator=gen, device=dev)
+    ts = torch.tensor([500], device=dev)
+    with torch.no_grad():
+        ref = unet(x, ts, ctx, c_label=ts * 0)
+        unet.bfloat16()
+        K.prepare_kernels(unet)
+        plain = unet(x.bfloat16(), ts, ctx.bfloat16(), c_label=ts * 0, impl="plain")
+        monkeypatch.setenv("MUDG_FUSED_NORMS", "1")
+        monkeypatch.setenv("MUDG_SHORT_ATTN", "1")
+        K.reset_launch_counts()
+        got = unet(x.bfloat16(), ts, ctx.bfloat16(), c_label=ts * 0)
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("group_norm", "layer_norm", "short_kv_attention")), counts
+    e_k = ((got.float() - ref).norm() / ref.norm()).item()
+    e_p = ((plain.float() - ref).norm() / ref.norm()).item()
+    assert e_k <= 1.5 * e_p + 5e-3, (e_k, e_p)
+
+
+def test_small_unet_fp32_switch_path_matches_plain(dev, monkeypatch):
+    """The small UNet in fp32 with impl="auto" and both switches: kernels 11
+    and 12 take fp32 (the Pallas kernels take any dtype, and the JAX
+    `sample` runs fp32 by default), no other kernel launches, and the output
+    is within 1e-4 relative L2 of the fp32 plain path."""
+    import mudg_tpu_torch.kernels as K
+    from mudg_tpu_torch.nn import unet3d as U
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = U.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                       attention_resolutions=(1,), context_dim=32)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    unet = _randomize(U.UNet3D(cfg).to(dev), gen).eval()
+    x = torch.randn(1, 16, 16, 16, 12, generator=gen, device=dev)
+    ctx = torch.randn(1, 77 + 256, 32, generator=gen, device=dev)
+    ts = torch.tensor([500], device=dev)
+    with torch.no_grad():
+        ref = unet(x, ts, ctx, c_label=ts * 0, impl="plain")
+        monkeypatch.setenv("MUDG_FUSED_NORMS", "1")
+        monkeypatch.setenv("MUDG_SHORT_ATTN", "1")
+        K.reset_launch_counts()
+        got = unet(x, ts, ctx, c_label=ts * 0)
+    counts = K.launch_counts()
+    switch = ("group_norm", "layer_norm", "short_kv_attention")
+    assert all(counts[k] > 0 for k in switch), counts
+    assert all(v == 0 for k, v in counts.items() if k not in switch), counts
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-4
