@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--out DIR] [--profile]
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -25,7 +25,14 @@ Phases:
      dropped and with half the keys, kernel 9 without the softmax
      Jacobian's row-sum term, kernel 10 without the g * pdf(g) term, each of
      which must miss it), kernel 6 beside the backward of torch's
-     scaled_dot_product_attention under autograd (timed only);
+     scaled_dot_product_attention under autograd (timed only); kernel 6
+     reruns bit for bit at every shape; kernels 5 and 6 in fp32 (kernel 5
+     at MDM512 ds1 and ds2 and MDM1024 ds4, kernel 6 at the MDM512 ds1
+     training shape; within 1e-5 * max|ref| and lse within 1e-5, each
+     gradient within 1e-4 * max|ref|; the same planted faults; bounds from
+     FP32 operations at 67 TFLOP/s, SDPA in fp32 as the yardstick) and in
+     bf16 at a tail shape, 3 x 576 x 3 heads (the last 128-row block half
+     empty);
   3. one full-width MDM512 UNetConfig() forward at batch 2 (40x64 latent,
      re-randomized weights) on three paths: kernels bf16, plain bf16, plain
      fp32 (TF32 off, impl="plain"); the kernel path's relative L2 error against fp32 must
@@ -105,10 +112,18 @@ Phases:
      same gate against fp32 with the switches unset; launches at kernels
      1-5's sites and kernels 11-12's as the JAX predicates admit them,
      SWITCH_SITES; and an fp32 forward with impl="auto", where kernels 11
-     and 12 take fp32 and no other kernel runs, within 1e-4 relative L2 of
-     the fp32 plain forward, launches at SWITCH_SITES_F32), (b) one MDM1024 `sample` clip as phase 6 with its s/clip
-     beside phase 6's, (c) one MDM512 training micro-step's gradients as
-     phase 7's check, with kernel 11-12 launches at the training sites.
+     and 12 and kernel 5 take fp32 and kernels 1-4 do not run, within 1e-4
+     relative L2 of the fp32 plain forward, launches at SWITCH_SITES_F32),
+     (b) one MDM1024 `sample` clip as phase 6 with its s/clip beside phase
+     6's, (c) one MDM512 training micro-step's gradients as phase 7's check,
+     with kernel 11-12 launches at the training sites;
+ 13. the JAX package's six kernel opt-out switches (MUDG_FUSED_SPATIAL,
+     MUDG_STREAM_SPATIAL, MUDG_FLASHBLOCK, MUDG_FUSED_FF,
+     MUDG_FUSED_TEMPORAL, MUDG_FUSED_TCONV), inside phases 3 and 5's set-up:
+     one bf16 UNet forward per configuration with each set to "0" alone and
+     one with all six, set in-process and restored after; launches at
+     SWITCHES_OFF, the phase-3/5 gate against fp32; the forward with all six
+     off (kernel 5 at every spatial self-attention with L >= 512) timed.
 It prints the kernel table as one JSON line: "ms", "plain_ms", "bound_ms" and
 "library_ms" are one UNet forward's worth of a forward kernel at each of the
 two configurations, summed, and one batch-1 training micro-step's backward
@@ -118,7 +133,8 @@ sites 0 there: checked and timed, not summed), and kernel 13's per-call
 times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
-packed path of phase 11, and phase 12's clip and micro-step). Then the
+packed path of phase 11, phase 12's clip and micro-step, and phase 13's
+forwards). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -140,6 +156,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 3e-2          # max|diff| <= TOL * max|ref| (tests/test_attention.py:262,307)
 BWD_TOL = 5e-2      # each gradient, the JAX gradient tests' (tests/test_attention.py:274-280)
 LSE_TOL = 1e-2      # kernel 5's logsumexp, absolute, natural-log units
+F32_LSE_TOL = 1e-5  # the same in fp32
+F32_BWD_TOL = 1e-4  # kernel 6 in fp32: each gradient within 1e-4 * max|ref| (fp32 sums
+                    # over L = 2560 keys in another order; its planted faults miss by O(1))
 SEED = 0
 # Phase 2 scales kernels 1 and 2's Wq and Wk by this, so the logits are
 # ~N(0, 9) instead of ~N(0, 1): a peaked softmax whose output is O(1). With
@@ -192,12 +211,41 @@ SWITCH_SITES = {
     "mdm1024": {"group_norm": 42, "layer_norm": 56, "short_kv_attention": 20},
 }
 # An fp32 UNet forward with impl="auto" (batch 2) reaches kernels 11 and 12
-# only (every other kernel takes bf16): fewer GN sites (the fp32 budget
-# admits up to 1,048,576 elements per sample), more LN sites (the LNs that
-# kernels 1-3 fuse in bf16).
+# and kernel 5 in fp32 at every spatial self-attention with L >= 512 (the
+# Pallas flash kernel takes any dtype; kernels 1-4 take bf16 only, so those
+# sites reach `attend`): fewer GN sites (the fp32 budget admits up to
+# 1,048,576 elements per sample), more LN sites (the LNs that kernels 1-3
+# fuse in bf16). tests/test_torch_norms_short.py and
+# tests/test_torch_switches.py hold these against the JAX predicates and a
+# trace of the JAX UNet.
 SWITCH_SITES_F32 = {
-    "mdm512": {"group_norm": 86, "layer_norm": 99, "short_kv_attention": 10},
-    "mdm1024": {"group_norm": 28, "layer_norm": 99, "short_kv_attention": 20},
+    "mdm512": {"group_norm": 86, "layer_norm": 99, "short_kv_attention": 10,
+               "flash_attention": 10},
+    "mdm1024": {"group_norm": 28, "layer_norm": 99, "short_kv_attention": 20,
+                "flash_attention": 15},
+}
+# The JAX package's six kernel opt-out switches (phase 13): each set to "0"
+# alone, then all six, in one bf16 UNet forward (batch 2); the sites that
+# differ from SITES, held against a trace of the JAX UNet by
+# tests/test_torch_switches.py. MDM512's spatial sites all take the
+# whole-block tier, so its stream and flash-block switches change nothing;
+# MDM1024's ds2 sites leave the stream tier for the flash-block one.
+OPT_OUT = ("MUDG_FUSED_SPATIAL", "MUDG_STREAM_SPATIAL", "MUDG_FLASHBLOCK", "MUDG_FUSED_FF",
+           "MUDG_FUSED_TEMPORAL", "MUDG_FUSED_TCONV")
+SWITCHES_OFF = {
+    "mdm512": {"MUDG_FUSED_SPATIAL": {"spatial_attn": 0, "flash_attention": 10},
+               "MUDG_STREAM_SPATIAL": {}, "MUDG_FLASHBLOCK": {},
+               "MUDG_FUSED_FF": {"geglu_ff": 0}, "MUDG_FUSED_TEMPORAL": {"temporal_attn": 0},
+               "MUDG_FUSED_TCONV": {"gn_silu_tconv": 0},
+               "all": {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0,
+                       "gn_silu_tconv": 0, "flash_attention": 10}},
+    "mdm1024": {"MUDG_FUSED_SPATIAL": {"spatial_attn": 0, "flash_attention": 15},
+                "MUDG_STREAM_SPATIAL": {},
+                "MUDG_FLASHBLOCK": {"spatial_attn": 5, "flash_attention": 10},
+                "MUDG_FUSED_FF": {"geglu_ff": 0}, "MUDG_FUSED_TEMPORAL": {"temporal_attn": 0},
+                "MUDG_FUSED_TCONV": {"gn_silu_tconv": 0},
+                "all": {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0,
+                        "gn_silu_tconv": 0, "flash_attention": 15}},
 }
 F32_PATH_TOL = 1e-4   # the fp32 switch forward's relative L2 against the fp32 plain one
 SWITCH_CLIP_EXTRA = {"group_norm": 0, "layer_norm": 9, "short_kv_attention": 0}
@@ -326,15 +374,15 @@ SWITCH_VARS = ("MUDG_FUSED_NORMS", "MUDG_SHORT_ATTN")
 
 
 @contextlib.contextmanager
-def switches(on=True):
-    """MUDG_FUSED_NORMS and MUDG_SHORT_ATTN set to "1" (on) or unset (off)
+def environ(values):
+    """The environment variables of `values` set (a string) or unset (None)
     inside the block, restored after it."""
-    saved = {v: os.environ.get(v) for v in SWITCH_VARS}
-    for v in SWITCH_VARS:
-        if on:
-            os.environ[v] = "1"
-        else:
+    saved = {v: os.environ.get(v) for v in values}
+    for v, val in values.items():
+        if val is None:
             os.environ.pop(v, None)
+        else:
+            os.environ[v] = val
     try:
         yield
     finally:
@@ -343,6 +391,20 @@ def switches(on=True):
                 os.environ.pop(v, None)
             else:
                 os.environ[v] = val
+
+
+def switches(on=True):
+    """MUDG_FUSED_NORMS and MUDG_SHORT_ATTN set to "1" (on) or unset (off)
+    inside the block, restored after it."""
+    return environ(dict.fromkeys(SWITCH_VARS, "1" if on else None))
+
+
+def opt_out_cases(cfg):
+    """(name, the switches set to "0", the expected launches of one bf16 UNet
+    forward) for each opt-out switch alone and for all six (phase 13)."""
+    for name, delta in SWITCHES_OFF[cfg].items():
+        off = OPT_OUT if name == "all" else (name,)
+        yield name, dict.fromkeys(off, "0"), {**SITES[cfg], **delta}
 
 
 def cuda_ms(torch, fn, iters=10, warmup=2):
@@ -393,16 +455,20 @@ def work_tconv(b, t, h, w, c):
     return 6 * m * c * c, 2 * 2 * m * c + 2 * 3 * c * c + 4 * 3 * c
 
 
-def work_flash(b, l, h, d):
-    return 4 * b * h * l * l * d, 4 * 2 * b * l * h * d + 4 * b * h * l
+def work_flash(b, l, h, d, itemsize=2):
+    return 4 * b * h * l * l * d, 4 * itemsize * b * l * h * d + 4 * b * h * l
 
 
 # The backward functions: their inputs include the fp32 parameters (read once)
 # and their outputs the fp32 weight gradients (written once).
-def work_flash_bwd(b, l, h, d):
+def work_flash_bwd(b, l, h, d, itemsize=2):
     """Five L x L x d products per (batch, head); q, k, v, o, dO in, dq, dk,
-    dv out (bf16), lse in (fp32)."""
-    return 10 * b * h * l * l * d, 2 * 8 * b * l * h * d + 4 * b * h * l
+    dv out (bf16 or fp32), lse in (fp32). Kernel 6's two-kernel design forms
+    S and dP twice: seven products, FLASH_BWD_DESIGN times the function's."""
+    return 10 * b * h * l * l * d, itemsize * 8 * b * l * h * d + 4 * b * h * l
+
+
+FLASH_BWD_DESIGN = 7 / 5
 
 
 def work_temporal_bwd(rows, c):
@@ -474,6 +540,9 @@ class Case(NamedTuple):
     grads: bool = False   # kernel and plain return tuples of gradients
     tol: float = TOL      # forward check: max|diff| <= tol * max|ref|
     peak: float = PEAK_FLOPS   # the operations' rate in the bound
+    grad_tol: float = BWD_TOL  # backward check: each gradient within grad_tol * max|ref|
+    lse_tol: float = LSE_TOL   # kernel 5's logsumexp, absolute
+    rerun: bool = False   # the kernel must give the same bits on a rerun
 
 
 def sharpen_(attn):
@@ -516,11 +585,11 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
     from torch import nn
 
     latent = latent or LATENT
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     def mods(*ms):
         return [randomize_(torch, m.to(dev, bf), gen) for m in ms]
@@ -577,20 +646,36 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
         yield Case("gn_silu_tconv", cfg, f"ds1 2x16x{h}x{w}x320", 20, work_tconv(2, 16, h, w, 320),
                    lambda: K.tconv.fused_gn_silu_tconv(x, norm, conv, pk),
                    lambda: K.tconv.plain_gn_silu_tconv(x, norm, conv), None, None, {})
-        if cfg == "mdm1024":
-            # ds4 self-attention (C=1280, 20 heads, L=576) and one long shape
-            # that streams 144 K/V tiles per query tile
-            for b, l, heads, sites, label in ((32, tok[2], 20, 5, "ds4"), (2, tok[0], 5, 0, "long")):
-                qkv = rand(b, l, 3, heads, 64)
-                q, k, v = qkv.unbind(2)
-                yield Case("flash_attention", cfg, f"{label} {b}x{l}x{heads}x64", sites,
-                           work_flash(b, l, heads, 64),
-                           lambda: K.flash_attention.flash_attention(q, k, v),
-                           lambda: K.flash_attention.plain_flash_attention(q, k, v),
-                           lambda: torch.nn.functional.scaled_dot_product_attention(
-                               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                           None, {"half the keys": lambda: nn_att.plain_attend(
-                               q, k[:, :l // 2], v[:, :l // 2], with_lse=True)})
+        # kernel 5: in bf16 the ds4 self-attention (C=1280, 20 heads, L=576)
+        # of MDM1024 and one long shape that streams 72 K/V tiles per query
+        # tile; in fp32 (an fp32 forward, sites 0: checked and timed, not in
+        # the row's bf16 sums) every spatial self-attention at L >= 512
+        flash = {"mdm512": [(32, tok[0], 5, 0, "f32 ds1", f32),
+                            (32, tok[1], 10, 0, "f32 ds2", f32)],
+                 "mdm1024": [(32, tok[2], 20, 5, "ds4", bf), (2, tok[0], 5, 0, "long", bf),
+                             (32, tok[2], 20, 0, "f32 ds4", f32)]}[cfg]
+        for b, l, heads, sites, label, dtype in flash:
+            qkv = rand(b, l, 3, heads, 64, dtype=dtype)
+            yield flash_case(torch, K, nn_att, cfg, label, sites, qkv)
+
+
+def flash_case(torch, K, nn_att, cfg, label, sites, qkv):
+    """Kernel 5 on the strided q, k, v views of one (B, L, 3, H, 64) tensor;
+    the planted fault attends to half the keys. fp32 is held to F32_TOL and
+    F32_LSE_TOL, with its bound from FP32 operations."""
+    q, k, v = qkv.unbind(2)
+    b, l, heads, _ = q.shape
+    f32 = q.dtype == torch.float32
+    return Case("flash_attention", cfg, f"{label} {b}x{l}x{heads}x64", sites,
+                work_flash(b, l, heads, 64, q.element_size()),
+                lambda: K.flash_attention.flash_attention(q, k, v),
+                lambda: K.flash_attention.plain_flash_attention(q, k, v),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                None, {"half the keys": lambda: nn_att.plain_attend(
+                    q, k[:, :l // 2], v[:, :l // 2], with_lse=True)},
+                tol=F32_TOL if f32 else TOL, peak=PEAK_FP32 if f32 else PEAK_FLOPS,
+                lse_tol=F32_LSE_TOL if f32 else LSE_TOL)
 
 
 def sdpa_backward(torch, q, k, v, do):
@@ -634,8 +719,8 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     FA, TA, M = K.flash_attention, K.temporal_attn, K.mlp
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     def mods(*ms):
         return [randomize_(torch, m.to(dev), gen) for m in ms]
@@ -644,37 +729,37 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
         dx, *rest = out
         return (dx, *[g for gs in rest for g in (gs if isinstance(gs, tuple) else (gs,))])
 
-    for cfg, labels in (("mdm512", ("ds1", "ds2")), ("mdm1024", ("ds1", "ds2", "ds4"))):
-        h, w = latent[cfg]
-        for label in labels:
-            i = ("ds1", "ds2", "ds4").index(label)
-            l, heads = h * w // 4 ** i, 5 * 2 ** i
-            qkv = rand(TRAIN_FRAMES, l, 3, heads, 64)
-            q0, k0, v = qkv.unbind(2)
-            # kernel 5 at the training shape (~N(0, 1) logits, as in its
-            # forward cases); sites 0: checked and timed, not in the sums
-            yield Case("flash_attention", cfg, f"train {label} {TRAIN_FRAMES}x{l}x{heads}x64", 0,
-                       work_flash(TRAIN_FRAMES, l, heads, 64),
-                       lambda: FA.flash_attention(q0, k0, v),
-                       lambda: FA.plain_flash_attention(q0, k0, v),
-                       lambda: torch.nn.functional.scaled_dot_product_attention(
-                           q0.transpose(1, 2), k0.transpose(1, 2), v.transpose(1, 2)),
-                       None, {"half the keys": lambda: nn_att.plain_attend(
-                           q0, k0[:, :l // 2], v[:, :l // 2], with_lse=True)})
-            q, k = q0 * SHARPEN, k0 * SHARPEN   # peaked logits
-            o, lse = FA.plain_flash_attention(q, k, v)
-            do = rand(TRAIN_FRAMES, l, heads, 64)
-            zero = torch.zeros_like(lse)
-            yield Case("flash_attention_bwd", cfg, f"{label} {TRAIN_FRAMES}x{l}x{heads}x64", 5,
-                       work_flash_bwd(TRAIN_FRAMES, l, heads, 64),
-                       lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
-                       lambda: FA.plain_flash_attention_bwd(q, k, v, o, lse, do),
-                       sdpa_backward(torch, q, k, v, do), None,
-                       {"delta dropped": lambda: FA.plain_flash_attention_bwd(
-                           q, k, v, o, lse, do, delta=zero),
-                        "half the keys": lambda: half_keys_flash_bwd(torch, K, q, k, v, o, lse,
-                                                                      do)},
-                       grads=True)
+    # kernels 5 and 6 at each training length (batch 1 x 16 frames), in
+    # bf16 and, at MDM512 ds1, in fp32; and a tail shape whose L % 128 = 64
+    # (the last 128-row block half empty) with B*H = 9 pairs of blocks
+    flash = [(cfg, label, TRAIN_FRAMES, latent[cfg][0] * latent[cfg][1] // 4 ** i, 5 * 2 ** i,
+              5 if cfg in ("mdm512", "mdm1024") else 0, bf)
+             for cfg, labels in (("mdm512", ("ds1", "ds2")), ("mdm1024", ("ds1", "ds2", "ds4")))
+             for i, label in enumerate(labels)]
+    flash += [("mdm512-f32", "ds1", TRAIN_FRAMES, latent["mdm512"][0] * latent["mdm512"][1], 5,
+               0, torch.float32),
+              ("tail", "L%128=64", 3, 576, 3, 0, bf)]
+    for cfg, label, b, l, heads, sites, dtype in flash:
+        qkv = rand(b, l, 3, heads, 64, dtype=dtype)
+        # kernel 5 at the shape (~N(0, 1) logits, as in its forward cases);
+        # sites 0: checked and timed, not in the sums
+        yield flash_case(torch, K, nn_att, cfg, f"train {label}", 0, qkv)
+        q0, k0, v = qkv.unbind(2)
+        q, k = q0 * SHARPEN, k0 * SHARPEN   # peaked logits
+        o, lse = FA.plain_flash_attention(q, k, v)
+        do = rand(b, l, heads, 64, dtype=dtype)
+        zero = torch.zeros_like(lse)
+        f32 = dtype == torch.float32
+        yield Case("flash_attention_bwd", cfg, f"{label} {b}x{l}x{heads}x64", sites,
+                   work_flash_bwd(b, l, heads, 64, q.element_size()),
+                   lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
+                   lambda: FA.plain_flash_attention_bwd(q, k, v, o, lse, do),
+                   sdpa_backward(torch, q, k, v, do), None,
+                   {"delta dropped": lambda: FA.plain_flash_attention_bwd(
+                       q, k, v, o, lse, do, delta=zero),
+                    "half the keys": lambda: half_keys_flash_bwd(torch, K, q, k, v, o, lse, do)},
+                   grads=True, peak=PEAK_FP32 if f32 else PEAK_FLOPS,
+                   grad_tol=F32_BWD_TOL if f32 else BWD_TOL, rerun=True)
 
     for cfg in ("mdm512", "mdm1024"):
         h, w = latent[cfg]
@@ -796,7 +881,7 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                                                                 x.element_size()),
                     lambda: N.fused_group_norm(x, w, b, 32, eps), plain,
                     lambda: F.group_norm(xc, 32, w.to(dtype), b.to(dtype), eps), None, faults,
-                    tol=checks(dtype)["tol"])
+                    tol=checks(dtype)["tol"], rerun=True)
 
     def ln_case(cfg, shape, sites, dtype):
         x, w, b = norm_input(shape, dtype)
@@ -892,15 +977,17 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                None, None, {}, grads=True)
 
 
-def gn_reruns_bit_for_bit(torch, case):
-    """A GroupNorm case's kernel output is the same bits on a rerun (no
-    atomics: the partial statistics are merged in a fixed order)."""
-    if case.name != "group_norm" or case.grads:
+def reruns_bit_for_bit(torch, case):
+    """A case marked `rerun` gives the same bits on a rerun: no atomics (the
+    GroupNorm merges its partial statistics in a fixed order; kernel 6
+    writes every gradient element from one block)."""
+    if not case.rerun:
         return True
     a, b = case.kernel(), case.kernel()
-    same = torch.equal(a, b)
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
     if not same:
-        log(f"  group_norm {case.label}: a rerun differs")
+        log(f"  {case.name} {case.label}: a rerun differs")
     return same
 
 
@@ -910,7 +997,7 @@ def phase_norm_short(torch, K, N, SA):
     temporal-attention shapes, counts reset just before and read just
     after."""
     rows = run_cases(torch, norm_short_cases(torch, N, SA),
-                     check=lambda case: gn_reruns_bit_for_bit(torch, case))
+                     check=lambda case: reruns_bit_for_bit(torch, case))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     inputs = [torch.randn((b, t, 3, h, d), generator=gen, device="cuda").bfloat16().unbind(2)
               for b, t, h, d in PACKED_SHAPES]
@@ -940,9 +1027,10 @@ class Check(NamedTuple):
 
 def compare_grads(torch, case):
     """A backward kernel against its plain version: each gradient within
-    max|diff| <= BWD_TOL * max|its ref|. err is the largest such ratio
-    (scale 1), a planted fault's the largest ratio over its gradients; each
-    fault must pass BWD_TOL on some gradient."""
+    max|diff| <= case.grad_tol (BWD_TOL, or F32_BWD_TOL in fp32) * max|its
+    ref|. err is the largest such ratio (scale 1), a planted fault's the
+    largest ratio over its gradients; each fault must pass the tolerance on
+    some gradient."""
     got = case.kernel()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -953,18 +1041,19 @@ def compare_grads(torch, case):
         return [d / max(r.float().abs().max().item(), 1e-30) for d, r in zip(diffs, ref)], diffs
 
     rel, diffs = ratios(got)
-    ok = all(bool(torch.isfinite(g).all().item()) for g in got) and max(rel) <= BWD_TOL
+    tol = case.grad_tol
+    ok = all(bool(torch.isfinite(g).all().item()) for g in got) and max(rel) <= tol
     del got
     faults = {}
     for name, fn in case.faults.items():
         faults[name] = max(ratios(fn())[0])
-        ok &= faults[name] > BWD_TOL
-    return Check(ok, max(rel), 1.0, None, faults, BWD_TOL, max(diffs))
+        ok &= faults[name] > tol
+    return Check(ok, max(rel), 1.0, None, faults, tol, max(diffs))
 
 
 def compare(torch, case):
     """The kernel against its plain version on one case: max|diff| <= tol *
-    max|ref| on output - base, kernel 5's lse within LSE_TOL, and every
+    max|ref| on output - base, kernel 5's lse within case.lse_tol, and every
     planted fault beyond tol * max|ref| (else the check could not see it)."""
     if case.grads:
         return compare_grads(torch, case)
@@ -984,7 +1073,7 @@ def compare(torch, case):
     lse_err = None
     if isinstance(got, tuple):
         lse_err = (got[1] - ref[1]).abs().max().item()
-        ok &= lse_err <= LSE_TOL
+        ok &= lse_err <= case.lse_tol
     del got, go
     faults = {}
     for name, fn in case.faults.items():
@@ -995,11 +1084,13 @@ def compare(torch, case):
 
 def phase_kernels(torch, K, nn_att, configs):
     """Each kernel vs its plain version at every shape of `configs`, then
-    each backward kernel at every training shape."""
+    each backward kernel at every training shape; kernel 6 reruns bit for
+    bit."""
     import itertools
 
     return run_cases(torch, itertools.chain(kernel_cases(torch, K, nn_att, configs),
-                                            grad_cases(torch, K, nn_att)))
+                                            grad_cases(torch, K, nn_att)),
+                     check=lambda case: reruns_bit_for_bit(torch, case))
 
 
 def run_cases(torch, cases, check=None):
@@ -1017,7 +1108,8 @@ def run_cases(torch, cases, check=None):
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
         flops, nbytes = case.work
         bms, by = bound(flops, nbytes, case.peak)
-        extra = f", lse max|diff| {chk.lse_err:.3e} <= {LSE_TOL}" if chk.lse_err is not None else ""
+        extra = (f", lse max|diff| {chk.lse_err:.3e} <= {case.lse_tol}"
+                 if chk.lse_err is not None else "")
         extra += "".join(f", {n} {e:.3e}" for n, e in chk.faults.items())
         what = ("max|diff|/max|ref| over the gradients" if case.grads else
                 f"max|diff|{' - x' if case.base is not None else ''}")
@@ -1036,13 +1128,18 @@ def run_cases(torch, cases, check=None):
         if lms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + case.sites * lms
         r["ok"] &= chk.ok
+        if case.name == "flash_attention_bwd":   # the two-kernel design's own bound
+            extra_bound = {"design_bound_ms": bound(flops * FLASH_BWD_DESIGN, nbytes,
+                                                    case.peak)[0]}
+        else:
+            extra_bound = {}
         r["shapes"].append({"config": case.config, "shape": case.label, "sites": case.sites,
                             "max_abs_err": chk.abs_err, "err": chk.err, "tol": chk.tol,
                             "max_abs_ref": chk.scale,
                             "residual_free": case.base is not None, "lse_err": chk.lse_err,
                             "fault_errs": chk.faults, "ms": ms, "plain_ms": pms,
                             "library_ms": lms, "bound_ms": bms, "bound_by": by,
-                            "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+                            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_bound})
         del case, fk, fp, flib
         torch.cuda.empty_cache()
     for r in rows.values():   # what bounds most of the row's forward-weighted bound
@@ -1078,12 +1175,15 @@ def unet_inputs(torch, gen, dtype, cfg):
 def phase_unet(torch, K, U, cfg, paths=("kernels",)):
     """One full-width UNet forward at batch 2 on the plain fp32 path (TF32
     off, switches unset), the plain bf16 path and each kernel path of
-    `paths`: "kernels" (phases 3 and 5) and "switches", with
-    MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 (phase 12a). Each kernel path's
+    `paths`: "kernels" (phases 3 and 5), "switches", with
+    MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 (phase 12a), and "off", the
+    six opt-out switches (phase 13, `phase_opt_out`). Each kernel path's
     relative L2 error against fp32 within 1.5x the plain bf16 path's + 5e-3,
     launches at exactly its sites. With "switches", first an fp32 forward
-    on it (impl="auto": kernels 11 and 12 in fp32) within F32_PATH_TOL
-    relative L2 of the fp32 plain one, launches at SWITCH_SITES_F32."""
+    on it (impl="auto": kernels 11 and 12 and kernel 5 in fp32) within
+    F32_PATH_TOL relative L2 of the fp32 plain one, launches at
+    SWITCH_SITES_F32. Returns the UNet (bf16, packed), the report and, with
+    "off", phase 13's summed launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1127,7 +1227,9 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
     del plain
     log(f"  UNet {n_params:,} params; plain bf16 {ms_p:.1f} ms, rel L2 vs fp32 {e_p:.4e}")
     report.update({"rel_l2_plain_bf16": e_p, "ms_plain": ms_p})
-    for path in paths:
+    if "off" in paths:
+        report["switches_off"], launches = phase_opt_out(torch, K, cfg, run, rel, err_bound)
+    for path in (p for p in paths if p != "off"):
         expect = SITES[cfg] if path == "kernels" else {**SITES[cfg], **SWITCH_SITES[cfg]}
         with switches(path == "switches"), torch.no_grad():
             K.reset_launch_counts()
@@ -1148,7 +1250,37 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
         suffix = "" if path == "kernels" else "_switches"
         report.update({"rel_l2_kernels" + suffix: e_k, "ms_kernels" + suffix: ms_k})
     del ref
-    return unet, report
+    return unet, report, (launches if "off" in paths else None)
+
+
+def phase_opt_out(torch, K, cfg, run, rel, err_bound):
+    """Phase 13: one bf16 UNet forward with each of the JAX package's six
+    kernel opt-out switches set to "0" in-process, then with all six, each
+    restored after: launches at SWITCHES_OFF (counts reset just before each
+    forward, read just after), relative L2 error against fp32 within the
+    phase-3/5 gate; the forward with all six off (kernel 5 at every spatial
+    self-attention with L >= 512) timed. Returns the report and the summed
+    launches."""
+    report, total = {}, {}
+    for name, env, expect in opt_out_cases(cfg):
+        with environ(env), torch.no_grad():
+            K.reset_launch_counts()
+            out = run("auto")
+            counts = K.launch_counts()
+            ms = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1) if name == "all" else None
+        expect = {**dict.fromkeys(counts, 0), **expect}
+        err = rel(out)
+        ok = bool(torch.isfinite(out).all().item()) and err <= err_bound and counts == expect
+        timing = f", forward bf16 {ms:.1f} ms" if ms is not None else ""
+        log(f"  {name}=0: rel L2 vs fp32 {err:.4e} (bound {err_bound:.4e}), launches "
+            f"{ {k: v for k, v in counts.items() if v} }{timing}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}=0: error {err:.4e} (bound {err_bound:.4e}), "
+                                 f"launches {counts} != {expect}")
+        report[name] = {"rel_l2": err, "launches": counts, "ms": ms}
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del out
+    return report, total
 
 
 CATEGORIES = (("port kernels", ("mudg::",)),
@@ -1926,7 +2058,8 @@ def phase_gs_refine(torch, K, G, GT, TT, app, gs_io):
     views = [{"K": kc, "w2c": w2c, "rgb": rgb} for w2c, rgb in zip(track, targets)]
     train = [v for i, v in enumerate(views) if i % 8]
     hold = [v for i, v in enumerate(views) if i % 8 == 0]
-    cfg = GT.GSConfig(densify_every=100)
+    # exact pair buffers, as `refine-gs` runs with its default --max_pairs 0
+    cfg = GT.GSConfig(densify_every=100, max_pairs=None)
 
     ends, dropped, densify_s, grown = [], [], [], []
     densify = GT.densify_and_prune
@@ -2048,7 +2181,7 @@ def gs_layers(torch, G, GT, TT, state, cfg, view, width, height):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -2087,7 +2220,7 @@ def main(argv=None):
 
     report = {}
     t_all = time.perf_counter()
-    for v in SWITCH_VARS:   # the switches are set only inside phase 12's paths
+    for v in SWITCH_VARS + OPT_OUT:   # set only inside phases 12 and 13
         os.environ.pop(v, None)
 
     def timed(n, title, fn, *a):
@@ -2103,19 +2236,24 @@ def main(argv=None):
                      ("mdm512", "mdm1024"))
     launches = {}
     sw = 12 in phases   # phase 12 runs the switch path inside phases 3, 5, 6 and 7's set-up
+    off = 13 in phases   # phase 13 runs inside phases 3 and 5's set-up
 
     def paths(n):
-        return (("kernels",) if n in phases else ()) + (("switches",) if sw else ())
+        return ((("kernels",) if n in phases else ()) + (("switches",) if sw else ())
+                + (("off",) if off and n in (3, 5) else ()))
 
     if 11 in phases:
         rows11, launches["packed_temporal"] = timed(
             11, "kernels 11 and 12 vs plain", phase_norm_short, torch, K, norm_k, short_k)
         rows.update(rows11)
     unet = None
-    if 3 in phases or sw:
-        unet, report["unet_mdm512"] = timed(
-            "3" + (" + 12a" if sw else ""), "MDM512 UNet forward", phase_unet, torch, K, U,
-            "mdm512", paths(3))
+    tag = (" + 12a" if sw else "") + (" + 13" if off else "")
+
+    if 3 in phases or sw or off:
+        unet, report["unet_mdm512"], launches_off = timed(
+            "3" + tag, "MDM512 UNet forward", phase_unet, torch, K, U, "mdm512", paths(3))
+        if launches_off is not None:
+            launches["mdm512_switches_off"] = launches_off
         if args.profile and 3 in phases:
             report["profile_mdm512"] = phase_profile(torch, unet, "mdm512", args.out)
     if 4 in phases:
@@ -2124,10 +2262,11 @@ def main(argv=None):
     del unet
     torch.cuda.empty_cache()
     unet = None
-    if 5 in phases or sw:
-        unet, report["unet_mdm1024"] = timed(
-            "5" + (" + 12a" if sw else ""), "MDM1024 UNet forward", phase_unet, torch, K, U,
-            "mdm1024", paths(5))
+    if 5 in phases or sw or off:
+        unet, report["unet_mdm1024"], launches_off = timed(
+            "5" + tag, "MDM1024 UNet forward", phase_unet, torch, K, U, "mdm1024", paths(5))
+        if launches_off is not None:
+            launches["mdm1024_switches_off"] = launches_off
         if args.profile and 5 in phases:
             report["profile_mdm1024"] = phase_profile(torch, unet, "mdm1024", args.out)
     if 6 in phases or sw:

@@ -5,12 +5,15 @@ Optimizes a fixed-capacity Gaussian set against generated supervision: RGB
 an optional semantic cross-entropy. Per-field Adam with optax's `adam`
 semantics. Adaptive density control (clone / split / prune) runs on the host
 between steps and reuses inactive capacity slots, so shapes never change.
-Steps are plain functions (no compilation); the tile rasterizer sizes its
-pair buffer exactly every call, so no budget is resolved or re-resolved.
+Steps are plain functions (no compilation). The tile rasterizer's pair
+buffer holds at most `GSConfig.max_pairs` pairs (JAX's 1 << 21 by default;
+`fit_scene` warns on a step that drops pairs), or exactly what the view
+needs with `max_pairs=None`, so no budget is resolved or re-resolved.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 from functools import partial
 from typing import NamedTuple
 
@@ -52,7 +55,10 @@ class GSConfig:
                                      # "pallas" are the tile rasterizer
                                      # (kernel 13 on the card), "xla" the
                                      # capped sort+scan path
-    max_pairs: int | None = None     # tile-path pair budget; None = sized
+    max_pairs: int | None = 1 << 21  # tile-path global pair budget per view,
+                                     # as the JAX package's: past it the
+                                     # deepest-sorted pairs are dropped
+                                     # (and fit_scene warns); None = sized
                                      # exactly every call (nothing dropped)
 
 
@@ -354,6 +360,10 @@ def fit_scene(gaussians: Gaussians, views: list[dict], cfg: GSConfig, *, width: 
             td, tm = zeros, zeros
         state, metrics = step_fn(state, v["K"], v["w2c"], v["rgb"], td, tm, v.get("obj_T"),
                                  v.get("obj_vis"), v.get("sem_ids"), vi)
+        nd = int(metrics.get("n_dropped", 0))
+        if nd > 0:
+            print(f"# gs.fit_scene step {i + 1}: {nd} pairs dropped on view {vi} "
+                  f"(max_pairs {cfg.max_pairs})", file=sys.stderr)
         if on_step is not None:
             on_step(i, state, metrics)
         if cfg.opacity_reset_every and (i + 1) % cfg.opacity_reset_every == 0:

@@ -1,20 +1,22 @@
-"""Kernel 5: flash attention forward with its logsumexp (CUDA, `csrc/flash_attn.cu`),
-and kernel 6: its FlashAttention-2 backward (`csrc/flash_attn_bwd.cu`).
+"""Kernel 5: flash attention forward with its logsumexp (CUDA, `csrc/flash_attn.cu`
+in bf16, `csrc/flash_attn_f32.cu` in fp32), and kernel 6: its FlashAttention-2
+backward (`csrc/flash_attn_bwd.cu`, `csrc/flash_attn_f32.cu`).
 
 Computes o = softmax(q k^T / sqrt(64)) v and the natural-log logsumexp of
 every row's logits over q, k, v (B, L, H, 64), non-causal, no bias, equal
-lengths, L % 64 == 0. Replaces `mudg_tpu/kernels/flash_attention.py`'s
-forward (`_oneshot_kernel`, `_fwd_kernel`) and backward (`_bwd_dq_kernel`,
-`_bwd_dkv_kernel` and their chunked long-L bodies); what bounds each on the
-H100 and how the CUDA design answers that is in the note at the top of its
-.cu file.
+lengths, L % 64 == 0, in bf16 or fp32 (the Pallas kernels take any dtype).
+Replaces `mudg_tpu/kernels/flash_attention.py`'s forward (`_oneshot_kernel`,
+`_fwd_kernel`) and backward (`_bwd_dq_kernel`, `_bwd_dkv_kernel` and their
+chunked long-L bodies); what bounds each on the H100 and how the CUDA design
+answers that is in the note at the top of its .cu file.
 
 `flash_attention` and `flash_attention_bwd` are the wrappers: on a CPU (or
 meta) tensor they run `plain_flash_attention` / `plain_flash_attention_bwd`;
-on a CUDA tensor they launch the kernel or raise. q, k and v are read in
-place through their strides (no (B*H, L, D) fold). `flash_attention_train`
-is the op with a gradient (a `torch.autograd.Function` that saves q, k, v,
-o and lse), which the training dispatch uses.
+on a CUDA tensor they launch the kernel of the tensor's dtype or raise. q, k
+and v are read in place through their strides (no (B*H, L, D) fold).
+`flash_attention_train` is the op with a gradient (a
+`torch.autograd.Function` that saves q, k, v, o and lse), which the training
+dispatch uses. `launches` and `bwd_launches` count both dtypes.
 """
 from __future__ import annotations
 
@@ -29,9 +31,14 @@ launches = 0    # calls of the forward wrapper that launched kernel 5
 bwd_launches = 0   # calls of the backward wrapper that launched kernel 6
 
 
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 def eligible(q, k, v) -> bool:
-    """Dispatch predicate for q, k, v of shape (B, L, H, D)."""
-    return (q.dtype == k.dtype == v.dtype == torch.bfloat16 and q.ndim == 4
+    """Dispatch predicate for q, k, v of shape (B, L, H, D): bf16 or fp32,
+    D = 64 and L % 64 == 0. The JAX predicate admits any D % 64 == 0; every
+    MuDG attention at L >= 512 has D = 64, so the kernels take that one."""
+    return (q.dtype == k.dtype == v.dtype and q.dtype in DTYPES and q.ndim == 4
             and q.shape == k.shape == v.shape and q.shape[-1] == D
             and q.shape[1] % 64 == 0)
 
@@ -44,7 +51,8 @@ def plain_flash_attention(q, k, v):
 
 
 def _delta(o, do):
-    """rowsum(o * dO) in fp32, (B*H, L): outside the kernel, as on the TPU."""
+    """rowsum(o * dO) in fp32, (B*H, L): outside the kernels, as on the TPU
+    (the bf16 kernels compute it in their first pass)."""
     b, l, h, _ = o.shape
     return (o.float() * do.float()).sum(-1).permute(0, 2, 1).reshape(b * h, l).contiguous()
 
@@ -81,9 +89,9 @@ def plain_flash_attention_bwd(q, k, v, o, lse, do, *, delta=None):
 def _check_operand(t, name):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+    if t.stride(-1) != 1 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
         raise ValueError(f"{name}: head dim must be contiguous and every stride "
-                         f"a multiple of 8, got strides {t.stride()}")
+                         f"a multiple of 16 bytes, got strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
@@ -107,9 +115,9 @@ def flash_attention(q, k, v):
     o = torch.empty(b, l, h, d, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
     lib = _build.load()
+    fn = lib.mudg_flash_attn if q.dtype == torch.bfloat16 else lib.mudg_flash_attn_f32
     P = _build.ptr
-    err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v),
-                              _build.stream())
+    err = fn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v), _build.stream())
     _build.check(err, "flash_attention")
     launches += 1
     return o, lse
@@ -127,17 +135,30 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         _check_operand(t, name)
     do = do.contiguous()
     b, l, h, _ = q.shape
-    _build.require(do, "dO")
-    for t, name in ((o, "o"), (do, "dO")):   # o is read only by delta's torch op
+    _build.require(do, "dO", q.dtype)
+    for t, name in ((o, "o"), (do, "dO")):
         if t.shape != q.shape:
             raise ValueError(f"{name}: expected {tuple(q.shape)}, got {tuple(t.shape)}")
     _build.require(lse, "lse", torch.float32)
-    delta = _delta(o, do)
+    if tuple(lse.shape) != (b * h, l):
+        raise ValueError(f"lse: expected {(b * h, l)}, got {tuple(lse.shape)}")
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
     lib = _build.load()
     P = _build.ptr
-    err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(do), P(lse), P(delta), P(dq), P(dk),
-                                  P(dv), b, l, h, *_strides(q, k, v), _build.stream())
+    if q.dtype == torch.bfloat16:
+        # the kernels' first pass writes delta and a scaled copy of q
+        o = o.contiguous()
+        _build.require(o, "o")
+        delta = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
+        qs = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+        err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta), P(dq),
+                                      P(dk), P(dv), P(qs), b, l, h, *_strides(q, k, v),
+                                      _build.stream())
+    else:
+        delta = _delta(o, do)
+        err = lib.mudg_flash_attn_bwd_f32(P(q), P(k), P(v), P(do), P(lse), P(delta), P(dq),
+                                          P(dk), P(dv), b, l, h, *_strides(q, k, v),
+                                          _build.stream())
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

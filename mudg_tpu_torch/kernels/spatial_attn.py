@@ -14,6 +14,7 @@ CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -67,6 +68,97 @@ def eligible(shape, dtype, c: int, heads: int) -> bool:
     _, l, cc = shape
     return (dtype == torch.bfloat16 and cc == c == heads * 64
             and l % 64 == 0 and c <= MAX_C)
+
+
+# The JAX package's three tiers of this function and their predicates
+# (mudg_tpu/kernels/spatial_attn.py:111-153, :316-345, :491-525), copied
+# without their TPU-backend term: the VMEM budgets pick which tier a shape
+# takes on the TPU. The CUDA kernel serves all three (and every shape
+# `eligible` admits); the dispatch uses these copies only to name a site's
+# tier, so that MUDG_STREAM_SPATIAL=0 and MUDG_FLASHBLOCK=0 send exactly the
+# sites JAX sends elsewhere (`switched_off`).
+STREAM_BQ = 128
+
+
+def _vmem_est(l, c, bq):
+    return ((l * c * 2) * 2 + 2 * l * c * 2 + bq * l * 4 + 2 * 4 * c * c * 2
+            + 2 * bq * c * 4 + 2 * bq * c * 4)
+
+
+def _pick_bq(l, c):
+    for bq in (l, 512, 320, 256, 128):
+        if l % bq == 0 and _vmem_est(l, c, bq) < 12 * 2**20:
+            return bq
+    return 0
+
+
+def _tier_common(dtype, c, heads):
+    return dtype == torch.bfloat16 and c % heads == 0 and (c // heads) % 64 == 0
+
+
+def whole_eligible(shape, dtype, c, heads) -> bool:
+    """JAX `eligible`: the whole-block tier."""
+    l = shape[1]
+    return _tier_common(dtype, c, heads) and l % 128 == 0 and _pick_bq(l, c) > 0
+
+
+def _stream_vmem_est(l, c, bq=STREAM_BQ):
+    return 2 * l * c * 2 + 4 * c * c * 2 + 4 * bq * c * 2 + 2 * bq * l * 4 + 4 * bq * c * 4
+
+
+def stream_eligible(shape, dtype, c, heads) -> bool:
+    """JAX `stream_eligible`: the streamed tier."""
+    l = shape[1]
+    return (_tier_common(dtype, c, heads) and l % STREAM_BQ == 0
+            and l // STREAM_BQ >= 2 and c % 128 == 0
+            and _stream_vmem_est(l, c) < int(14.5 * 2**20))
+
+
+def _fb_cpad(c):
+    return (c + 127) // 128 * 128
+
+
+def _fb_pick(l, c, heads):
+    cp = _fb_cpad(c)
+    for bq in (512, 256, 128):
+        if l % bq:
+            continue
+        for bkv in (2048, 1536, 1152, 1024, 768, 512):
+            if l % bkv or l // bkv < 2:
+                continue
+            est = (2 * 2 * bkv * cp * 2 + 2 * bq * bkv * 4 + 3 * bq * c * 4
+                   + 2 * 2 * c * c * 2 + 2 * 2 * bq * c * 2 * 2 + 3 * bq * c * 4)
+            if est < int(14.5 * 2**20):
+                return bq, bkv
+    return 0, 0
+
+
+def flashblock_eligible(shape, dtype, c, heads) -> bool:
+    """JAX `flashblock_eligible`: the flash-blocked tier."""
+    return _tier_common(dtype, c, heads) and _fb_pick(shape[1], c, heads)[0] > 0
+
+
+def tier(shape, dtype, c: int, heads: int):
+    """The tier JAX puts a spatial self-attention site of tokens `shape`
+    (B, L, C) on: "fused", "stream", "flashblock" or None, in JAX's order
+    and under its switches (mudg_tpu/nn/attention.py:383-405)."""
+    if whole_eligible(shape, dtype, c, heads):
+        return "fused"
+    if (stream_eligible(shape, dtype, c, heads)
+            and os.environ.get("MUDG_STREAM_SPATIAL", "1") == "1"):
+        return "stream"
+    if (flashblock_eligible(shape, dtype, c, heads)
+            and os.environ.get("MUDG_FLASHBLOCK", "1") == "1"):
+        return "flashblock"
+    return None
+
+
+def switched_off(shape, dtype, c: int, heads: int) -> bool:
+    """True where JAX would put the site on its streamed or flash-blocked
+    tier but MUDG_STREAM_SPATIAL=0 / MUDG_FLASHBLOCK=0 leave it no tier, so
+    JAX sends it to `cross_attention`."""
+    return tier(shape, dtype, c, heads) is None and (
+        stream_eligible(shape, dtype, c, heads) or flashblock_eligible(shape, dtype, c, heads))
 
 
 def plain_self_attention(x, norm, attn, heads: int):

@@ -11,7 +11,11 @@ the JAX dispatch puts its Pallas kernels), "train" (the JAX training
 dispatch, attention.py:34-47: only the kernels with a backward kernel, each as
 an autograd op; kernel 1 is off, kernel 5 takes attention at L >= 512, the
 temporal and FF kernels take the sites their JAX backward predicates admit)
-or "plain" (PyTorch ops only).
+or "plain" (PyTorch ops only). The JAX package's kernel opt-out switches are
+read where it reads them, default "1": MUDG_FUSED_SPATIAL, MUDG_STREAM_SPATIAL
+and MUDG_FLASHBLOCK (kernel 1's sites, by the tier JAX puts them on),
+MUDG_FUSED_FF (kernel 3) and MUDG_FUSED_TEMPORAL (kernel 2); "0" sends their
+sites down the JAX fallback chain (MUDG_FUSED_TCONV is read in `unet3d.py`).
 Relative-position and joint task attention are not ported yet.
 """
 from __future__ import annotations
@@ -96,12 +100,12 @@ def plain_attend(q, k, v, *, causal=False, with_lse=False):
 def attend(q, k, v, *, causal=False, impl="auto"):
     """Scaled dot-product attention (attention.py:63-128), q (B, Lq, H, D),
     k/v (B, Lk, H, D) -> (B, Lq, H, D). With impl="auto" or "train", long
-    equal-length non-causal bf16 self-attention (L >= FLASH_MIN_SEQ,
-    L % 64 == 0) goes to kernel 5 (`kernels/flash_attention.py`; under
+    equal-length non-causal self-attention (L >= FLASH_MIN_SEQ, L % 64 ==
+    0), bf16 or fp32, goes to kernel 5 (`kernels/flash_attention.py`; under
     "train" with kernel 6 as its backward), as the JAX dispatch sends it to
-    its Pallas flash kernel; everything else is `plain_attend`. The kernel
-    takes head dim 64 only, where the JAX predicate admits any multiple of
-    64: no MuDG site has another head dim at L >= 512. Next, under
+    its Pallas flash kernel in any dtype; everything else is `plain_attend`.
+    The kernel takes head dim 64 only, where the JAX predicate admits any
+    multiple of 64: no MuDG site has another head dim at L >= 512. Next, under
     `MUDG_SHORT_ATTN=1`, a CUDA q and k that `short_kv_attention_eligible`
     admits go to kernel 12's short-KV attention (attention.py:100-113; under
     "train" as its autograd op), bf16 or fp32 as the Pallas kernel takes
@@ -200,10 +204,12 @@ class FeedForward(nn.Module):
 
 
 def _ff_kernel_site(ff, x, impl):
-    """The JAX FF dispatch (attention.py:298-303, :347-350): the kernel's
-    own predicate, and under "train" the backward kernel's as well."""
+    """The JAX FF dispatch (attention.py:289-303, :333-350): the kernel's
+    own predicate, and under "train" the backward kernel's as well;
+    MUDG_FUSED_FF=0 keeps the plain FF."""
     inner = ff.net["2"].in_features
-    if impl not in ("auto", "train") or not M.eligible(x.shape, x.dtype, inner):
+    if (impl not in ("auto", "train") or os.environ.get("MUDG_FUSED_FF", "1") != "1"
+            or not M.eligible(x.shape, x.dtype, inner)):
         return False
     c = x.shape[-1]
     return impl == "auto" or M.ff_bwd_eligible(x.numel() // c, c, inner)
@@ -262,11 +268,22 @@ class BasicTransformerBlock(nn.Module):
                     packs[name] = SP.pack_stage(norm, attn, self.heads)
         self.kernel_packs = packs
 
+    def _spatial_kernel_site(self, x, impl):
+        """The JAX spatial dispatch (attention.py:371-405): kernel 1 wherever
+        the CUDA kernel takes the shape (it serves JAX's three tiers).
+        MUDG_FUSED_SPATIAL=0 sends every site, and MUDG_STREAM_SPATIAL=0 /
+        MUDG_FLASHBLOCK=0 the sites JAX puts on their tier (`SP.tier` names
+        it from copies of the JAX predicates), to `cross_attention` (kernel
+        5 at L >= 512), as in JAX."""
+        c = x.shape[-1]
+        return (impl == "auto" and self._self_attn_square(self.attn1)
+                and os.environ.get("MUDG_FUSED_SPATIAL", "1") == "1"
+                and SP.eligible(x.shape, x.dtype, c, self.heads)
+                and not SP.switched_off(x.shape, x.dtype, c, self.heads))
+
     def forward(self, x, context=None, *, image_cross=False, ip_scale=1.0,
                 text_len=77, impl="auto"):
-        c = x.shape[-1]
-        if (impl == "auto" and self._self_attn_square(self.attn1)
-                and SP.eligible(x.shape, x.dtype, c, self.heads)):
+        if self._spatial_kernel_site(x, impl):
             x = SP.fused_self_attention(x.contiguous(), self.norm1, self.attn1, self.heads,
                                         self.kernel_packs.get("attn1"))
         else:
@@ -348,7 +365,8 @@ class TemporalTransformer(nn.Module):
         x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         x = _proj(self.proj_in, x)
         n, t, c = x.shape
-        site = (impl in ("auto", "train") and TA.eligible(x.shape, x.dtype, c, self.heads)
+        site = (impl in ("auto", "train") and os.environ.get("MUDG_FUSED_TEMPORAL", "1") == "1"
+                and TA.eligible(x.shape, x.dtype, c, self.heads)
                 and (impl == "auto" or TA.bwd_eligible(n * t, c)))
         for blk in self.transformer_blocks.values():
             if not site:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Sequence
 
 import torch
@@ -159,8 +160,10 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x, impl="auto", drop=None):
         """drop: None, or the dropout applied before the conv of stages 2-4."""
         stages = self.stages()
-        if impl == "auto" and drop is None and all(
-                TC.eligible(x.shape, x.dtype, conv.weight.shape) for _, conv in stages):
+        # MUDG_FUSED_TCONV=0 keeps the plain stages (the JAX switch,
+        # mudg_tpu/nn/unet3d.py:148-151)
+        if (impl == "auto" and drop is None and os.environ.get("MUDG_FUSED_TCONV", "1") == "1"
+                and all(TC.eligible(x.shape, x.dtype, conv.weight.shape) for _, conv in stages)):
             packs = self.kernel_packs or [None] * 4
             h = x.contiguous()
             for (norm, conv), pack in zip(stages, packs):

@@ -21,7 +21,10 @@ SWITCH_KERNELS = set(CS.SWITCH_KERNELS)
 
 @pytest.mark.parametrize("config", ["mdm512", "mdm1024"])
 def test_chip_smoke_checks_see_planted_faults(config):
-    seen = set()
+    """Every forward kernel's cases at a configuration; kernel 5 in bf16
+    (MDM1024 only: no MDM512 bf16 forward reaches it) and in fp32 (both),
+    held to F32_TOL and F32_LSE_TOL with FP32 operations in its bound."""
+    seen, flash = set(), set()
     # cases are consumed one by one: their closures bind the current inputs
     for case in CS.kernel_cases(torch, K, nn_att, (config,), dev="cpu",
                                 latent={config: (8, 8)}):
@@ -35,20 +38,39 @@ def test_chip_smoke_checks_see_planted_faults(config):
         adds_residual = (case.name in ("spatial_attn", "temporal_attn")
                          or case.label.startswith("block"))
         assert (case.base is not None) == adds_residual, case.label
+        if case.name == "flash_attention":
+            f32 = case.label.startswith("f32")
+            assert (case.tol, case.lse_tol, case.peak) == (
+                (CS.F32_TOL, CS.F32_LSE_TOL, CS.PEAK_FP32) if f32 else
+                (CS.TOL, CS.LSE_TOL, CS.PEAK_FLOPS)), case.label
+            assert case.sites == (5 if case.label.startswith("ds4") else 0), case.label
+            flash.add(f32)
     forward = {n for n in K.KERNELS if not n.endswith("_bwd")} - GS_KERNELS - SWITCH_KERNELS
-    assert seen == forward - ({"flash_attention"} if config == "mdm512" else set())
+    assert seen == forward
+    assert flash == ({True} if config == "mdm512" else {False, True})
 
 
 def test_chip_smoke_grad_checks_see_planted_faults():
-    seen = set()
+    """Every backward kernel's cases (kernel 6 in bf16 at each training
+    length, in fp32 at MDM512 ds1 held to F32_BWD_TOL, and at the 576-row
+    tail shape; each rerun bit for bit), with kernel 5 before each of kernel
+    6's: each passes its check and each planted fault misses it."""
+    seen, flash_bwd = set(), []
     for case in CS.grad_cases(torch, K, nn_att, dev="cpu",
                               latent={"mdm512": (8, 8), "mdm1024": (8, 16)}):
         chk = CS.compare(torch, case)
         assert chk.err == 0.0 and chk.ok, (case.label, chk)
-        bound = CS.BWD_TOL if case.grads else CS.TOL * chk.scale
+        bound = case.grad_tol if case.grads else case.tol * chk.scale
         assert chk.faults and all(e > bound for e in chk.faults.values()), (case.label,
                                                                             chk.faults)
+        assert CS.reruns_bit_for_bit(torch, case)
+        assert case.rerun == (case.name == "flash_attention_bwd"), case.label
+        if case.name == "flash_attention_bwd":
+            flash_bwd.append((case.config, case.label.split()[-1], case.grad_tol))
         seen.add(case.name)
+    assert [c for c, _, tol in flash_bwd if tol == CS.F32_BWD_TOL] == ["mdm512-f32"]
+    assert ("tail", "3x576x3x64", CS.BWD_TOL) in flash_bwd
+    assert sum(c in ("mdm512", "mdm1024") for c, _, _ in flash_bwd) == 5
     # kernel 5's forward at each training length, before kernel 6 there
     assert seen == ({n for n in K.KERNELS if n.endswith("_bwd")} - GS_KERNELS) | {"flash_attention"}
 
@@ -107,7 +129,8 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
         for name, err in chk.faults.items():
             assert err > chk.tol * chk.scale, (case.label, name, err, chk.scale)
             faults.add((case.name, name))
-        assert CS.gn_reruns_bit_for_bit(torch, case)
+        assert CS.reruns_bit_for_bit(torch, case)
+        assert case.rerun == (case.name == "group_norm" and not case.grads), case.label
         seen.add((case.name, case.grads, case.tol))
     assert {n for n, _, _ in seen} == SWITCH_KERNELS
     assert {n for n, g, _ in seen if g} == SWITCH_KERNELS          # every op's gradients

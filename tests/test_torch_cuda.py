@@ -146,10 +146,15 @@ def test_gn_silu_tconv_kernel(dev):
            TC.plain_gn_silu_tconv(x, norm, conv))
 
 
-@pytest.mark.parametrize("b,l,h", [(2, 192, 3), (1, 1024, 2)])
+# kernels 5 and 6: L = 64 (one half-empty block), 192 and 576 (L % 128 = 64,
+# the last block half empty, B*H odd), 640, 1024 and 2560 (MDM512 ds2, ds1)
+FLASH_SHAPES = [(3, 64, 1), (2, 192, 3), (3, 576, 3), (2, 640, 2), (1, 1024, 2), (1, 2560, 5)]
+
+
+@pytest.mark.parametrize("b,l,h", FLASH_SHAPES)
 def test_flash_attention_kernel(dev, b, l, h):
     """Kernel 5 on strided q/k/v views of one packed (B, L, 3, H, 64)
-    tensor, o and lse against the plain version."""
+    tensor, o and lse against the plain version; half the keys must miss."""
     from mudg_tpu_torch.kernels import flash_attention as FA
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -160,8 +165,28 @@ def test_flash_attention_kernel(dev, b, l, h):
     o, lse = FA.flash_attention(q, k, v)
     assert FA.launches == before + 1
     o_ref, lse_ref = FA.plain_flash_attention(q, k, v)
-    _close(o, o_ref)
+    ref = _close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() <= 1e-2
+    _sees(FA.plain_flash_attention(q, k[:, :l // 2].repeat(1, 2, 1, 1),
+                                   v[:, :l // 2].repeat(1, 2, 1, 1))[0], ref, torch.zeros_like(o))
+
+
+@pytest.mark.parametrize("b,l,h", FLASH_SHAPES)
+def test_flash_attention_f32_kernel(dev, b, l, h):
+    """Kernel 5 in fp32 (FMA products, no TF32) on strided views: o within
+    1e-5 * max|ref| of the plain version, lse within 1e-5."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = torch.randn(b, l, 3, h, 64, generator=gen, device=dev).unbind(2)
+    before = FA.launches
+    o, lse = FA.flash_attention(q, k, v)
+    assert FA.launches == before + 1 and o.dtype == torch.float32
+    o_ref, lse_ref = FA.plain_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (o - o_ref).abs().max().item() <= 1e-5 * o_ref.abs().max().item()
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("b,l,c", [(2, 2304, 640), (2, 9216, 320), (144, 9216, 320)])
@@ -202,8 +227,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 128, 2, 64, device=dev).bfloat16()
     with pytest.raises(ValueError):   # head dim 32
         FA.flash_attention(q[..., :32], q[..., :32], q[..., :32])
-    with pytest.raises(ValueError):   # fp32
-        FA.flash_attention(q.float(), q.float(), q.float())
+    # fp32 is taken (the Pallas kernel takes any dtype): it matches plain
+    o, lse = FA.flash_attention(q.float(), q.float(), q.float())
+    o_ref, lse_ref = FA.plain_flash_attention(q.float(), q.float(), q.float())
+    torch.cuda.synchronize()
+    assert (o - o_ref).abs().max().item() <= 1e-5 * o_ref.abs().max().item()
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError):   # fp16
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):   # L not a multiple of 64
+        FA.flash_attention(q[:, :96], q[:, :96], q[:, :96])
 
 
 def test_small_unet_kernel_path_matches_fp32(dev):
@@ -273,7 +306,7 @@ def _bit_equal(a, b):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("b,l,h", [(2, 192, 3), (1, 1024, 2)])
+@pytest.mark.parametrize("b,l,h", FLASH_SHAPES)
 def test_flash_attention_bwd_kernel(dev, b, l, h):
     """Kernel 6 against the plain FA-2 backward on strided q/k/v, with the
     planted faults of chip_smoke.py (delta dropped, half the keys); two runs
@@ -297,6 +330,59 @@ def test_flash_attention_bwd_kernel(dev, b, l, h):
     dq, dk, dv = FA.plain_flash_attention_bwd(q, k[:, :half], v[:, :half], o, lse, do)
     pad = (0, 0, 0, 0, 0, l - half)
     _grads_miss((dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)), ref)
+
+
+@pytest.mark.parametrize("b,l,h", [(3, 576, 3), (1, 2560, 5)])
+def test_flash_attention_bwd_f32_kernel(dev, b, l, h):
+    """Kernel 6 in fp32 against the plain backward, each gradient within
+    1e-4 * max|ref| (fp32 sums in another order), with the planted faults;
+    two runs bit for bit."""
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = torch.randn(b, l, 3, h, 64, generator=gen, device=dev).unbind(2)
+    do = torch.randn(b, l, h, 64, generator=gen, device=dev)
+    o, lse = FA.plain_flash_attention(q, k, v)
+    before = FA.bwd_launches
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert FA.bwd_launches == before + 1
+    ref = FA.plain_flash_attention_bwd(q, k, v, o, lse, do)
+    _grads_close(got, ref, tol=1e-4)
+    _bit_equal(got, FA.flash_attention_bwd(q, k, v, o, lse, do))
+    _grads_miss(FA.plain_flash_attention_bwd(q, k, v, o, lse, do, delta=torch.zeros_like(lse)),
+                ref, tol=1e-4)
+
+
+def test_flash_attention_launches_from_another_thread(dev):
+    """Kernels 5 and 6 launch from a host thread other than the one that
+    first launched them (autograd runs a backward on its own device
+    thread): their raised shared-memory limit holds there too."""
+    import threading
+
+    from mudg_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q, k, v, do = (torch.randn(2, 256, 2, 64, generator=gen, device=dev).bfloat16()
+                   for _ in range(4))
+    o, lse = FA.flash_attention(q, k, v)
+    ref = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    out = []
+
+    def run():
+        try:
+            out.append((FA.flash_attention(q, k, v), FA.flash_attention_bwd(q, k, v, o, lse, do)))
+        except RuntimeError as e:   # a refused launch
+            out.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and len(out) == 1
+    assert not isinstance(out[0], RuntimeError), out[0]
+    (o2, lse2), grads = out[0]
+    _bit_equal((o2, lse2), (o, lse))
+    _bit_equal(grads, ref)
 
 
 def test_flash_attention_train_grads_match_fp32_autograd(dev):
@@ -794,3 +880,82 @@ def test_small_unet_fp32_switch_path_matches_plain(dev, monkeypatch):
     assert all(v == 0 for k, v in counts.items() if k not in switch), counts
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-4
+
+
+OPT_OUT = ("MUDG_FUSED_SPATIAL", "MUDG_STREAM_SPATIAL", "MUDG_FLASHBLOCK", "MUDG_FUSED_FF",
+           "MUDG_FUSED_TEMPORAL", "MUDG_FUSED_TCONV")
+
+
+def _wrapper_calls(cfg, args, monkeypatch):
+    """Calls of kernels 1-5's wrappers in one bf16 forward of a UNet of
+    `cfg` on the meta device, under the current environment."""
+    from mudg_tpu_torch.nn import unet3d as U
+    from mudg_tpu_torch.kernels import flash_attention as FA
+    from mudg_tpu_torch.kernels import mlp as M
+    from mudg_tpu_torch.kernels import spatial_attn as SP
+    from mudg_tpu_torch.kernels import tconv as TC
+    from mudg_tpu_torch.kernels import temporal_attn as TA
+
+    calls = dict.fromkeys(("spatial_attn", "temporal_attn", "geglu_ff", "gn_silu_tconv",
+                           "flash_attention"), 0)
+    with monkeypatch.context() as mp:
+        for mod, fn, name in ((SP, "fused_self_attention", "spatial_attn"),
+                              (TA, "fused_double_self_attn", "temporal_attn"),
+                              (M, "fused_geglu_ff", "geglu_ff"),
+                              (M, "fused_geglu_ff_block", "geglu_ff"),
+                              (TC, "fused_gn_silu_tconv", "gn_silu_tconv"),
+                              (FA, "flash_attention", "flash_attention")):
+            def counted(*a, _orig=getattr(mod, fn), _name=name, **k):
+                calls[_name] += 1
+                return _orig(*a, **k)
+            mp.setattr(mod, fn, counted)
+        with torch.device("meta"), torch.no_grad():
+            meta = U.UNet3D(cfg).to(torch.bfloat16)
+            meta(*(a.to("meta") for a in args[:3]), c_label=args[3].to("meta"))
+    return calls
+
+
+@pytest.mark.parametrize("switch", [*OPT_OUT, "all"])
+def test_small_unet_opt_out_switches(dev, monkeypatch, switch):
+    """The small UNet at 32x32 latents (ds1 L = 1024, so a spatial site off
+    kernel 1 reaches kernel 5) with one of the JAX package's opt-out
+    switches at "0" (or all six): each kernel launches exactly where the
+    dispatch calls its wrapper (the same forward on the meta device; the CPU
+    tests hold that dispatch against a trace of the JAX UNet), the switched
+    kernels not at all, and the gate against the fp32 plain path holds."""
+    import mudg_tpu_torch.kernels as K
+    from mudg_tpu_torch.nn import unet3d as U
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = U.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                       attention_resolutions=(1,), context_dim=32)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    unet = _randomize(U.UNet3D(cfg).to(dev), gen).eval()
+    x = torch.randn(1, 16, 32, 32, 12, generator=gen, device=dev)
+    ctx = torch.randn(1, 77 + 256, 32, generator=gen, device=dev)
+    ts = torch.tensor([500], device=dev)
+    for var in OPT_OUT:
+        monkeypatch.delenv(var, raising=False)
+    with torch.no_grad():
+        ref = unet(x, ts, ctx, c_label=ts * 0)
+        unet.bfloat16()
+        K.prepare_kernels(unet)
+        args = (x.bfloat16(), ts, ctx.bfloat16(), ts * 0)
+        plain = unet(*args[:3], c_label=args[3], impl="plain")
+        for var in OPT_OUT if switch == "all" else (switch,):
+            monkeypatch.setenv(var, "0")
+        expect = _wrapper_calls(cfg, args, monkeypatch)
+        K.reset_launch_counts()
+        got = unet(*args[:3], c_label=args[3])
+    counts = K.launch_counts()
+    assert {k: counts[k] for k in expect} == expect
+    off = {"MUDG_FUSED_SPATIAL": ["spatial_attn"], "MUDG_FUSED_FF": ["geglu_ff"],
+           "MUDG_FUSED_TEMPORAL": ["temporal_attn"], "MUDG_FUSED_TCONV": ["gn_silu_tconv"],
+           "all": ["spatial_attn", "geglu_ff", "temporal_attn", "gn_silu_tconv"]}
+    assert all(expect[k] == 0 for k in off.get(switch, [])), expect
+    if switch in ("MUDG_FUSED_SPATIAL", "all"):
+        assert expect["flash_attention"] > 0
+    e_k = ((got.float() - ref).norm() / ref.norm()).item()
+    e_p = ((plain.float() - ref).norm() / ref.norm()).item()
+    assert e_k <= 1.5 * e_p + 5e-3, (e_k, e_p)

@@ -188,7 +188,10 @@ def test_mdm512_dispatch_sites(monkeypatch):
     """One full-width MDM512 UNet forward (batch 2, 16 frames, 40x64, bf16),
     traced on the meta device, reaches the kernel wrappers at exactly the
     JAX dispatch's sites: 10 spatial, 11 temporal, 33 FF, 20 tconv, and no
-    flash attention (no self-attention there has L >= 512 outside kernel 1)."""
+    flash attention (no self-attention there has L >= 512 outside kernel 1);
+    the plain path at none; in fp32 kernels 1-4 (bf16 only) at none, so the
+    10 spatial self-attentions (L = 2560, 640) reach kernel 5 in fp32, as the
+    JAX dispatch sends them to its flash kernel."""
     calls = count_kernel_calls(monkeypatch)
     bf = torch.bfloat16
     with torch.device("meta"):
@@ -205,8 +208,9 @@ def test_mdm512_dispatch_sites(monkeypatch):
                 calls[k] = 0
             unet(x, ts, ctx, c_label=ts, impl="plain")
             assert sum(calls.values()) == 0
-            unet.float()(x.float(), ts, ctx.float(), c_label=ts)   # fp32: no kernel site
-            assert sum(calls.values()) == 0
+            unet.float()(x.float(), ts, ctx.float(), c_label=ts)   # fp32: kernel 5 only
+            assert calls == {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0,
+                             "gn_silu_tconv": 0, "flash_attention": 10}
 
 
 def test_port_imports_no_jax():

@@ -403,7 +403,7 @@ def test_switch_sites_f32_forward(monkeypatch, config):
         ctx = torch.empty(2, 77 + 256, 1024)
         ts = torch.zeros(2, dtype=torch.int64)
         unet(x, ts, ctx, c_label=ts)
-    assert sites.counts() == sites.expect() == CS.SWITCH_SITES_F32[config]
+    assert sites.counts() == sites.expect() == {k: CS.SWITCH_SITES_F32[config][k] for k in KEYS}
     assert_phase11_covers(sites)
 
 

@@ -288,3 +288,36 @@ def test_refine_gs_main_beside_the_jax_app(scene, tmp_path):
     wm = json.load(open(os.path.join(wd, "metrics.json")))
     assert wm["n_gaussians_active"] == tm["n_gaussians_active"]
     assert np.isfinite(wm["holdout_psnr_mean"])
+
+
+def test_max_pairs_default_and_truncation_match_jax(capsys):
+    """`GSConfig().max_pairs` is JAX's 1 << 21, and the tile rasterizer
+    takes it as its budget. Under a budget a view overflows, both packages
+    drop the same pairs (loss history within 2e-3, as
+    test_fit_scene_with_densify_matches_jax) and `fit_scene` warns on the
+    same steps."""
+    assert TT.GSConfig().max_pairs == JT.GSConfig().max_pairs == 1 << 21
+    assert TT.pick_raster(TT.GSConfig(), 32, 32).keywords["max_pairs"] == 1 << 21
+    f = fields(n=60, capacity=80, sh_k=0)
+    vs = views(n=3)
+    for v in vs:
+        del v["depth"], v["depth_mask"]
+    jc = JT.GSConfig(backend="pallas", max_pairs=96)
+    tc = TT.GSConfig(backend="pallas", max_pairs=96)
+    jstate, jhist = JT.fit_scene(JG.Gaussians(**{k: jnp.asarray(v) for k, v in f.items()}),
+                                 [{k: jnp.asarray(a) for k, a in v.items()} for v in vs], jc,
+                                 width=32, height=32, steps=4, log_every=1, seed=3)
+    jerr = capsys.readouterr().err
+    dropped = []
+    tstate, thist = TT.fit_scene(convert.gaussians_from_arrays(f, device="cpu"),
+                                 [{k: t(a) for k, a in v.items()} for v in vs], tc,
+                                 width=32, height=32, steps=4, log_every=1, seed=3,
+                                 on_step=lambda i, s, m: dropped.append(m["n_dropped"]))
+    terr = capsys.readouterr().err
+    assert all(d > 0 for d in dropped)
+
+    def warned(err):
+        return [line.split(":")[0] for line in err.splitlines()
+                if line.startswith("# gs.fit_scene step")]
+    assert warned(terr) == warned(jerr) == [f"# gs.fit_scene step {i}" for i in range(1, 5)]
+    assert_close([h["loss"] for h in thist], [h["loss"] for h in jhist], 2e-3, name="history")
