@@ -13,9 +13,11 @@ Phases:
      one; kernel 5's logsumexp within 1e-2; a plain version with a planted
      fault, zeroed attention or half the keys, must miss that bound), with
      the median CUDA-event time of the kernel, of its plain version and, for
-     kernel 5, of torch's scaled_dot_product_attention (a yardstick only,
-     never on the port's path), beside the least time the card could take
-     for the same work (bytes or operations at its peaks); then the backward
+     kernel 5, of torch's scaled_dot_product_attention and, for kernel 3,
+     of its two products alone in cuBLAS (F.linear without the LN, the
+     GEGLU or the biases; yardsticks only, never on the port's path),
+     beside the least time the card could take for the same work (bytes
+     or operations at its peaks); then the backward
      kernels 6, 9 and 10 against their plain backward versions at every
      training shape of a batch-1 micro-step at MDM512 and at MDM1024
      (kernel 6 at each spatial self-attention length, each after kernel 5's
@@ -124,9 +126,12 @@ Phases:
      one with all six, set in-process and restored after; launches at
      SWITCHES_OFF, the phase-3/5 gate against fp32; the forward with all six
      off (kernel 5 at every spatial self-attention with L >= 512) timed.
-It prints the kernel table as one JSON line: "ms", "plain_ms", "bound_ms" and
-"library_ms" are one UNet forward's worth of a forward kernel at each of the
-two configurations, summed, and one batch-1 training micro-step's backward
+It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
+back to back, so the host's per-call cost hides behind the device's work),
+"plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
+queued the same way) and kernel 3's "cublas_gemm_ms" are one
+UNet forward's worth of a forward kernel at each of the two
+configurations, summed, and one batch-1 training micro-step's backward
 at each configuration, summed, for a backward kernel (phase 2's per-call
 medians or bounds times the sites; kernel 5 at the training lengths has
 sites 0 there: checked and timed, not summed), and kernel 13's per-call
@@ -335,7 +340,7 @@ KERNEL_ROWS = {
                      "mudg_tpu/kernels/spatial_attn.py:163,365,550"),
     "temporal_attn": ("mudg_tpu_torch/csrc/temporal_attn.cu",
                       "mudg_tpu/kernels/temporal_attn.py:205"),
-    "geglu_ff": ("mudg_tpu_torch/csrc/mlp.cu", "mudg_tpu/kernels/mlp.py:235"),
+    "geglu_ff": ("mudg_tpu_torch/csrc/geglu_ff.cu", "mudg_tpu/kernels/mlp.py:235"),
     "gn_silu_tconv": ("mudg_tpu_torch/csrc/tconv.cu", "mudg_tpu/kernels/tconv.py:128"),
     "flash_attention": ("mudg_tpu_torch/csrc/flash_attn.cu",
                         "mudg_tpu/kernels/flash_attention.py:132,159"),
@@ -349,7 +354,7 @@ KERNEL_ROWS = {
                            "mudg_tpu/gs/tile_raster.py:709"),
     "group_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:87"),
     "layer_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:172"),
-    "short_kv_attention": ("mudg_tpu_torch/csrc/short_attn.cu",
+    "short_kv_attention": ("mudg_tpu_torch/csrc/short_kv.cu",
                            "mudg_tpu/kernels/short_attention.py:214"),
     "packed_short_attention": ("mudg_tpu_torch/csrc/short_attn.cu",
                                "mudg_tpu/kernels/short_attention.py:81"),
@@ -422,6 +427,24 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     torch.cuda.synchronize()
     ts = sorted(a.elapsed_time(b) for a, b in ev)
     return ts[len(ts) // 2]
+
+
+def cuda_ms_queued(torch, fn, iters=10):
+    """Mean CUDA-event time of fn() in ms over `iters` calls queued back to
+    back between two events, as calls are queued on a model's path: the
+    host's per-call cost (checks, tensor maps, the launch) hides behind the
+    device's work where the device takes longer. cuda_ms brackets each call
+    alone, so for a short kernel it also counts the host's cost."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bound(flops, nbytes, peak=PEAK_FLOPS):
@@ -543,6 +566,7 @@ class Case(NamedTuple):
     grad_tol: float = BWD_TOL  # backward check: each gradient within grad_tol * max|ref|
     lse_tol: float = LSE_TOL   # kernel 5's logsumexp, absolute
     rerun: bool = False   # the kernel must give the same bits on a rerun
+    gemms: Callable | None = None   # kernel 3: its two products alone in cuBLAS (timed only)
 
 
 def sharpen_(attn):
@@ -584,9 +608,13 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
     configuration to its (h, w) (default LATENT)."""
     from torch import nn
 
+    F = torch.nn.functional
     latent = latent or LATENT
     bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # kernel 3's cuBLAS yardstick takes its h from a generator of its own, so
+    # every case's inputs stay as they were without it
+    gemm_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     def rand(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
@@ -632,6 +660,8 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
             norm, ff = mods(nn.LayerNorm(c), nn_att.FeedForward(c))
             pk = K.mlp.pack_ff(ff, norm)
             x = rand(m, c)
+            w1, _, w2, _ = K.mlp.ff_params(ff)
+            hy = torch.randn((m, w2.shape[1]), generator=gemm_gen, device=dev).to(bf)
             if block:
                 fk = lambda: K.mlp.fused_geglu_ff_block(x, norm, ff, pk)   # noqa: E731
                 fp = lambda: K.mlp.plain_geglu_ff_block(x, norm, ff)       # noqa: E731
@@ -639,7 +669,8 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                 fk = lambda: K.mlp.fused_geglu_ff(x, ff, pk)               # noqa: E731
                 fp = lambda: K.mlp.plain_geglu_ff(x, ff)                   # noqa: E731
             yield Case("geglu_ff", cfg, f"{'block' if block else 'bare'} {m}x{c}", sites,
-                       work_ff(m, c, block), fk, fp, None, x if block else None, {})
+                       work_ff(m, c, block), fk, fp, None, x if block else None, {},
+                       gemms=lambda: (F.linear(x, w1), F.linear(hy, w2)))
         norm, conv = mods(nn.GroupNorm(32, 320), nn.Conv3d(320, 320, (3, 1, 1)))
         pk = K.tconv.pack_tconv(conv)
         x = rand(2, 16, h, w, 320)
@@ -1106,6 +1137,9 @@ def run_cases(torch, cases, check=None):
         reps = dict(iters=3, warmup=1) if case.grads else {}
         ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, **reps)
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
+        gms = cuda_ms(torch, case.gemms) if case.gemms is not None else None
+        qms = cuda_ms_queued(torch, fk) if not case.grads else None
+        lqms = cuda_ms_queued(torch, flib) if flib is not None and not case.grads else None
         flops, nbytes = case.work
         bms, by = bound(flops, nbytes, case.peak)
         extra = (f", lse max|diff| {chk.lse_err:.3e} <= {case.lse_tol}"
@@ -1115,18 +1149,28 @@ def run_cases(torch, cases, check=None):
                 f"max|diff|{' - x' if case.base is not None else ''}")
         log(f"  {case.name:19s} {case.config:7s} {case.label:26s} "
             f"{what} {chk.err:.4e} <= {chk.tol} * "
-            f"{chk.scale:.3e}{extra}: {'ok' if chk.ok else 'FAIL'}   kernel {ms:.3f} ms   "
-            f"plain {pms:.3f} ms" + (f"   library {lms:.3f} ms" if lms is not None else "")
+            f"{chk.scale:.3e}{extra}: {'ok' if chk.ok else 'FAIL'}   kernel {ms:.3f} ms"
+            + (f" (queued {qms:.3f} ms)" if qms is not None else "")
+            + f"   plain {pms:.3f} ms"
+            + (f"   library {lms:.3f} ms" if lms is not None else "")
+            + (f" (queued {lqms:.3f} ms)" if lqms is not None else "")
+            + (f"   cuBLAS GEMMs {gms:.3f} ms" if gms is not None else "")
             + f"   bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
         r = rows.setdefault(case.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                        "bound_ms": 0.0, "library_ms": None, "ok": True,
-                                        "shapes": []})
+                                        "bound_ms": 0.0, "library_ms": None,
+                                        "cublas_gemm_ms": None, "ok": True, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], chk.abs_err)
         r["ms"] += case.sites * ms
         r["plain_ms"] += case.sites * pms
         r["bound_ms"] += case.sites * bms
         if lms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + case.sites * lms
+        if gms is not None:
+            r["cublas_gemm_ms"] = (r["cublas_gemm_ms"] or 0.0) + case.sites * gms
+        if qms is not None:
+            r["ms_queued"] = r.get("ms_queued", 0.0) + case.sites * qms
+        if lqms is not None:
+            r["library_ms_queued"] = r.get("library_ms_queued", 0.0) + case.sites * lqms
         r["ok"] &= chk.ok
         if case.name == "flash_attention_bwd":   # the two-kernel design's own bound
             extra_bound = {"design_bound_ms": bound(flops * FLASH_BWD_DESIGN, nbytes,
@@ -1137,8 +1181,11 @@ def run_cases(torch, cases, check=None):
                             "max_abs_err": chk.abs_err, "err": chk.err, "tol": chk.tol,
                             "max_abs_ref": chk.scale,
                             "residual_free": case.base is not None, "lse_err": chk.lse_err,
-                            "fault_errs": chk.faults, "ms": ms, "plain_ms": pms,
-                            "library_ms": lms, "bound_ms": bms, "bound_by": by,
+                            "fault_errs": chk.faults, "ms": ms, "ms_queued": qms,
+                            "plain_ms": pms,
+                            "library_ms": lms, "library_ms_queued": lqms,
+                            "cublas_gemm_ms": gms, "bound_ms": bms,
+                            "bound_by": by,
                             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_bound})
         del case, fk, fp, flib
         torch.cuda.empty_cache()
@@ -2179,6 +2226,30 @@ def gs_layers(torch, G, GT, TT, state, cfg, view, width, height):
     return layers
 
 
+def kernel_line(kernels, rows, launches):
+    """The kernel table printed as one JSON line: per kernel its route, source,
+    the TPU kernel it replaces, its launches on the main paths (`launches`:
+    path -> counts) and phase 2/9/11's numbers (`rows`: name -> row of
+    run_cases). "cublas_gemm_ms" is kernel 3's two products alone in cuBLAS
+    (a yardstick, timed only; null for the other kernels); "ms_queued" the
+    forward kernels' time with their calls queued back to back
+    (cuda_ms_queued), "library_ms_queued" the library call's, queued the
+    same way."""
+    line = {"kernels": []}
+    for name in kernels:
+        r = rows.get(name, {})
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": KERNEL_ROWS[name][0],
+            "replaces": KERNEL_ROWS[name][1],
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+            **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "ms_queued", "library_ms", "library_ms_queued",
+                                     "cublas_gemm_ms")},
+            "shapes": r.get("shapes", [])})
+    return line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
@@ -2303,17 +2374,7 @@ def main(argv=None):
         if mod.split(".")[0] in ("jax", "jaxlib", "mudg_tpu"):
             raise AssertionError(f"{mod} was imported")
 
-    table = {"kernels": []}
-    for name in K.KERNELS:
-        r = rows.get(name, {})
-        table["kernels"].append({
-            "name": name, "route": "cuda", "source": KERNEL_ROWS[name][0],
-            "replaces": KERNEL_ROWS[name][1],
-            "launches": sum(c[name] for c in launches.values()),
-            "launches_by_path": {p: c[name] for p, c in launches.items()},
-            **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")},
-            "shapes": r.get("shapes", [])})
+    table = kernel_line(K.KERNELS, rows, launches)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

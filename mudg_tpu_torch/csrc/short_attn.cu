@@ -23,7 +23,10 @@
 // place through their (batch, sequence, head) strides, stage tiles of 64
 // rows in shared memory and multiply with mma.sync m16n8k16 (bf16 in, fp32
 // accumulate), 4 warps of 16 query rows per block:
-//   short-KV: one block per (64 queries, head, batch); K/V stream through
+//   short-KV: (bf16 at head dim 64 and Lk <= 128, every MuDG site, runs on
+//             short_kv.cu's TMA + wgmma kernel instead; this one takes the
+//             rest the predicate admits: Lk up to 1024, head dim 128)
+//             one block per (64 queries, head, batch); K/V stream through
 //             shared memory in 64-key chunks (V transposed) with an online
 //             softmax across chunks, so every Lk <= 1024 and D = 128 fit in
 //             36 KB; keys past Lk are zero-filled and their logits masked to

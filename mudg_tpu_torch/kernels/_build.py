@@ -31,7 +31,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "mudg_spatial_attn": [_P] * 11 + [_I] * 3 + [_P],
     "mudg_temporal_attn_stage": [_P] * 11 + [_I] * 2 + [_P],
-    "mudg_geglu_ff": [_P] * 11 + [_I] * 3 + [_P],
+    "mudg_geglu_ff": [_P] * 10 + [_I] * 3 + [_P],
     "mudg_gn_silu_tconv": [_P] * 6 + [_I] * 4 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_f32": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "mudg_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
     "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_short_kv_attn_f32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
+    "mudg_short_kv_tma": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_packed_attn": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_P],
 }
 # fp32 scratch for the backward kernels' split partials (elements); the split

@@ -1,5 +1,6 @@
-"""Kernel 3: the fused GEGLU feed-forward (CUDA, `csrc/mlp.cu`), and kernel 10:
-its backward (`csrc/mlp_bwd.cu`).
+"""Kernel 3: the fused GEGLU feed-forward (CUDA, `csrc/geglu_ff.cu` on the TMA +
+wgmma GEMM of `csrc/wgmma_gemm.cuh`), and kernel 10: its backward
+(`csrc/mlp_bwd.cu`).
 
 `[LN](x) @ W1 + b1 -> u * gelu_erf(g) -> @ W2 + b2 [+ x]` with W1's outputs
 [value | gate]. Two variants, as in the JAX package: the block form with the
@@ -107,10 +108,14 @@ def plain_geglu_ff_block(x, norm, ff):
 
 
 def _launch(x, packed: PackedFF, block: bool):
+    """Launch kernel 3 on x (..., C). It holds what the kernel requires (bf16,
+    C % 32, inner % 128, at least one row); the rows % 256 of `eligible` is
+    the dispatch's, since the kernel takes any row count (TMA's zero fill
+    and clipped stores cover a partial row tile)."""
     global launches
     c = x.shape[-1]
     inner = packed.w2.shape[1]
-    if not eligible(x.shape, x.dtype, inner):
+    if not (x.dtype == torch.bfloat16 and c % 32 == 0 and inner % 128 == 0 and x.numel() > 0):
         raise ValueError(f"geglu_ff: unsupported input {tuple(x.shape)} {x.dtype}")
     _build.require(x, "x")
     for name, t, dt, shape in (("ln_w", packed.ln_w, torch.float32, (c,)),
@@ -126,12 +131,9 @@ def _launch(x, packed: PackedFF, block: bool):
     rows = x.numel() // c
     out = torch.empty_like(x)
     h = x.new_empty(rows, inner)
-    mean = rstd = None
-    if block:
-        mean = torch.empty(rows, device=x.device, dtype=torch.float32)
-        rstd = torch.empty_like(mean)
+    xn = x.new_empty(rows, c) if block else None
     P = _build.ptr
-    err = lib.mudg_geglu_ff(P(x), P(out), P(h), P(mean), P(rstd),
+    err = lib.mudg_geglu_ff(P(x), P(out), P(h), P(xn),
                             P(packed.ln_w) if block else None,
                             P(packed.ln_b) if block else None,
                             P(packed.w1), P(packed.b1), P(packed.w2), P(packed.b2),

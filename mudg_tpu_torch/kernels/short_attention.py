@@ -1,4 +1,5 @@
-"""Kernel 12: attention over short sequences (CUDA, `csrc/short_attn.cu`).
+"""Kernel 12: attention over short sequences (CUDA, `csrc/short_kv.cu` and
+`csrc/short_attn.cu`).
 
 `short_kv_attention`: q (B, Lq, H, D) over a small K/V (B, Lk, H, D),
 Lk <= 1024 (the UNet's text and image cross-attention).
@@ -6,8 +7,10 @@ Lk <= 1024 (the UNet's text and image cross-attention).
 v (B, T, H, D), T <= 64 (the temporal-attention shape). Both non-causal, fp32 softmax,
 probabilities cast to v's dtype for the P @ V product. Replace
 `mudg_tpu/kernels/short_attention.py`'s `_short_kv_kernel` (pallas_call at
-:214) and `_packed_kernel` (:81); the design note is at the top of the .cu
-file.
+:214) and `_packed_kernel` (:81); the design notes are at the top of the .cu
+files. `short_kv_route` picks the short-KV kernel: `csrc/short_kv.cu` (K/V
+held whole in shared memory) at every MuDG site, `csrc/short_attn.cu`'s
+streaming kernel for the rest of what the predicate admits.
 
 `attend` takes `short_kv_attention` where the JAX dispatch takes its Pallas
 kernel: under `MUDG_SHORT_ATTN=1`, impl "auto" or "train", where the copied
@@ -46,6 +49,20 @@ def short_kv_attention_eligible(q, k) -> bool:
     b, lq, h, d = q.shape
     lk = k.shape[1]
     return lk <= 1024 and d in (64, 128) and lq % 256 == 0
+
+
+SKV_TMA_MAX_KEYS = 128   # csrc/short_kv.cu holds K and V whole up to this
+
+
+def short_kv_route(dtype, d: int, lk: int) -> str:
+    """Which kernel a short-KV call launches: "tma" (`csrc/short_kv.cu`: K/V
+    loaded once per block by TMA, held whole in shared memory; bf16, head dim
+    64, Lk <= 128, every MuDG site) or "stream" (`csrc/short_attn.cu`: K/V
+    streamed in 64-key chunks with an online softmax; the rest the predicate
+    admits, Lk up to 1024 and head dim 128, and every fp32 call)."""
+    if dtype == torch.bfloat16 and d == 64 and 1 <= lk <= SKV_TMA_MAX_KEYS:
+        return "tma"
+    return "stream"
 
 
 def plain_short_attention(q, k, v):
@@ -107,7 +124,10 @@ def short_kv_attention(q, k, v):
     o = torch.empty(b, lq, h, d, device=q.device, dtype=q.dtype)
     lib = _build.load()
     P = _build.ptr
-    fn = lib.mudg_short_kv_attn_f32 if q.dtype == torch.float32 else lib.mudg_short_kv_attn
+    if short_kv_route(q.dtype, d, lk) == "tma":
+        fn = lib.mudg_short_kv_tma
+    else:
+        fn = lib.mudg_short_kv_attn_f32 if q.dtype == torch.float32 else lib.mudg_short_kv_attn
     err = fn(P(q), P(k), P(v), P(o), b, lq, lk, h, d, *_strides(q, k, v), _build.stream())
     _build.check(err, "short_kv_attention")
     launches += 1

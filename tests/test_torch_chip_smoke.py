@@ -35,6 +35,11 @@ def test_chip_smoke_checks_see_planted_faults(config):
             assert err > CS.TOL * chk.scale, (case.label, name, err, chk.scale)
         assert chk.ok
         seen.add(case.name)
+        if case.name == "geglu_ff":   # the cuBLAS yardstick: x W1^T and h W2^T alone
+            m, c = map(int, case.label.split()[-1].split("x"))
+            assert [tuple(p.shape) for p in case.gemms()] == [(m, 8 * c), (m, c)]
+        else:
+            assert case.gemms is None, case.label
         adds_residual = (case.name in ("spatial_attn", "temporal_attn")
                          or case.label.startswith("block"))
         assert (case.base is not None) == adds_residual, case.label
@@ -48,6 +53,33 @@ def test_chip_smoke_checks_see_planted_faults(config):
     forward = {n for n in K.KERNELS if not n.endswith("_bwd")} - GS_KERNELS - SWITCH_KERNELS
     assert seen == forward
     assert flash == ({True} if config == "mdm512" else {False, True})
+
+
+def test_chip_smoke_kernel_line_keys():
+    """The JSON kernel line: every kernel with the contract's keys and
+    kernel 3's cuBLAS yardstick beside its plain time (null elsewhere), the
+    library call's queued time beside the kernel's, launches summed over
+    the main paths, the redesigned kernels' sources."""
+    rows = {"geglu_ff": {"max_abs_err": 0.01, "ms": 2.0, "plain_ms": 3.0, "bound_ms": 1.0,
+                         "bound_by": "operations", "library_ms": None,
+                         "cublas_gemm_ms": 1.5, "shapes": []},
+            "short_kv_attention": {"ms": 0.8, "ms_queued": 0.5, "library_ms": 0.6,
+                                   "library_ms_queued": 0.55, "shapes": []}}
+    launches = {"a": dict.fromkeys(K.KERNELS, 1), "b": dict.fromkeys(K.KERNELS, 2)}
+    line = CS.kernel_line(K.KERNELS, rows, launches)["kernels"]
+    assert [k["name"] for k in line] == list(K.KERNELS)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_queued",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ms_queued",
+            "cublas_gemm_ms"}
+    for k in line:
+        assert keys <= set(k) and k["launches"] == 3 and k["route"] == "cuda"
+    by = {k["name"]: k for k in line}
+    assert by["geglu_ff"]["cublas_gemm_ms"] == 1.5 and by["geglu_ff"]["plain_ms"] == 3.0
+    assert by["spatial_attn"]["cublas_gemm_ms"] is None
+    assert (by["short_kv_attention"]["ms_queued"], by["short_kv_attention"]["library_ms_queued"]
+            ) == (0.5, 0.55)
+    assert by["geglu_ff"]["source"] == "mudg_tpu_torch/csrc/geglu_ff.cu"
+    assert by["short_kv_attention"]["source"] == "mudg_tpu_torch/csrc/short_kv.cu"
 
 
 def test_chip_smoke_grad_checks_see_planted_faults():

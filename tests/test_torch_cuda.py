@@ -120,20 +120,47 @@ def test_temporal_attn_kernel(dev):
     _sees(TA.plain_double_self_attn(x, (n1, _zero_v(a1)), (n2, _zero_v(a2)), 2), ref, x)
 
 
+@pytest.mark.parametrize("rows", [256, 768, 200, 384])
+@pytest.mark.parametrize("c", [96, 320, 640, 1280])
 @pytest.mark.parametrize("block", [True, False])
-def test_geglu_ff_kernel(dev, block):
+def test_geglu_ff_kernel(dev, block, c, rows):
+    """Kernel 3 in both forms at C in {96, 320, 640, 1280}, inner = 4C (C =
+    96 and 320 leave the last 128-column block of the output GEMM partly
+    empty, C = 96 also the last 64-wide K slab of the first). rows = 200 is
+    not a multiple of the 128-row tile and rows = 384 an odd number of
+    them (the dispatch predicate admits only rows % 256 == 0, the wrappers
+    and the kernel any row count).
+    A planted fault (the gate's bias dropped in the bare form, the residual
+    dropped in the block form) misses the tolerance; a rerun gives the same
+    bits."""
     from mudg_tpu_torch.kernels import mlp as M
     from mudg_tpu_torch.nn.attention import FeedForward
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    norm, ff = _mods(dev, gen, nn.LayerNorm(96), FeedForward(96))   # inner 384
-    x = torch.randn(2, 384, 96, generator=gen, device=dev).bfloat16()
+    norm, ff = _mods(dev, gen, nn.LayerNorm(c), FeedForward(c))
+    with torch.no_grad():   # a gate bias of O(1), so that dropping it shows
+        ff.net["0"].proj.bias[4 * c:].add_(1.0)
+    x = torch.randn(rows, c, generator=gen, device=dev).bfloat16()
     packed = M.pack_ff(ff, norm)
+    before = M.launches
     if block:
-        _close(M.fused_geglu_ff_block(x, norm, ff, packed), M.plain_geglu_ff_block(x, norm, ff),
-               base=x)
+        def run():
+            return M.fused_geglu_ff_block(x, norm, ff, packed)
     else:
-        _close(M.fused_geglu_ff(x, ff, packed), M.plain_geglu_ff(x, ff))
+        def run():
+            return M.fused_geglu_ff(x, ff, packed)
+    got = run()
+    assert M.launches == before + 1
+    if block:
+        ref = _close(got, M.plain_geglu_ff_block(x, norm, ff), base=x)
+        _sees(M.plain_geglu_ff(M._layer_norm(x, norm.weight, norm.bias), ff), ref, x)
+    else:
+        ref = _close(got, M.plain_geglu_ff(x, ff))
+        no_gate_bias = copy.deepcopy(ff)
+        with torch.no_grad():
+            no_gate_bias.net["0"].proj.bias[4 * c:].zero_()
+        _sees(M.plain_geglu_ff(x, no_gate_bias), ref, torch.zeros_like(x))
+    assert torch.equal(got, run())
 
 
 def test_gn_silu_tconv_kernel(dev):
@@ -708,6 +735,12 @@ def test_layer_norm_kernel(dev, shape, dtype):
 
 @pytest.mark.parametrize("b,lq,lk,h,d,dtype", [(4, 2560, 77, 5, 64, torch.bfloat16),
                                                (4, 2304, 16, 10, 64, torch.bfloat16),
+                                               (2, 256, 16, 2, 64, torch.bfloat16),
+                                               (2, 256, 77, 2, 64, torch.bfloat16),
+                                               (2, 256, 16, 2, 128, torch.bfloat16),
+                                               (2, 256, 77, 2, 128, torch.bfloat16),
+                                               (3, 512, 128, 2, 64, torch.bfloat16),
+                                               (3, 512, 129, 2, 64, torch.bfloat16),
                                                (2, 256, 1024, 2, 128, torch.bfloat16),
                                                (2, 512, 93, 3, 128, torch.bfloat16),
                                                (2, 256, 1, 2, 64, torch.bfloat16),
@@ -717,8 +750,9 @@ def test_layer_norm_kernel(dev, shape, dtype):
                                                (2, 256, 1, 2, 64, torch.float32)])
 def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
     """Against the dense plain version across the predicate (Lk up to 1024,
-    D 64 and 128; fp32 within 1e-5 * max|ref|); k and v strided; unmasked
-    padded keys are seen."""
+    D 64 and 128, Lq down to 256; fp32 within 1e-5 * max|ref|) on both
+    routes, and both sides of their boundary (Lk 128 and 129 at D 64); k and
+    v strided; unmasked padded keys are seen; a rerun gives the same bits."""
     from mudg_tpu_torch.kernels import short_attention as SA
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -732,6 +766,9 @@ def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
     tol = TOL if dtype == torch.bfloat16 else 1e-5
     assert torch.isfinite(got).all()
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert SA.short_kv_route(dtype, d, lk) == (
+        "tma" if dtype == torch.bfloat16 and d == 64 and lk <= 128 else "stream")
+    assert torch.equal(got, SA.short_kv_attention(q, k, v))
     if lk % 64:
         pad = (0, 0, 0, 0, 0, -lk % 64)
         fault = SA.plain_short_attention(q, torch.nn.functional.pad(k, pad),
