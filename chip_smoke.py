@@ -11,13 +11,17 @@ Phases:
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
      max|ref| on the output less the residual input where the kernel adds
      one; kernel 5's logsumexp within 1e-2; a plain version with a planted
-     fault, zeroed attention or half the keys, must miss that bound), with
-     the median CUDA-event time of the kernel, of its plain version and, for
-     kernel 5, of torch's scaled_dot_product_attention and, for kernel 3,
-     of its two products alone in cuBLAS (F.linear without the LN, the
-     GEGLU or the biases; yardsticks only, never on the port's path),
-     beside the least time the card could take for the same work (bytes
-     or operations at its peaks); then the backward
+     fault must miss that bound: zeroed attention, half the keys, kernel 1
+     with the softmax scale applied twice, kernel 4 with its taps reversed
+     (t - 1 and t + 1 swapped); kernel 4 also at a DC offset of 1e3 against
+     its plain version in float64, where the one-pass variance must miss;
+     kernel 4 reruns bit for bit), with the median CUDA-event time of the
+     kernel, of its plain version and, for kernel 5, of torch's
+     scaled_dot_product_attention, and the YARDSTICKS (library calls for part
+     of a kernel's work, never on the port's path: kernel 3's two products
+     alone in cuBLAS, kernel 1's attention core alone in SDPA, kernel 4's
+     product alone in cuBLAS), beside the least time the card could take for
+     the same work (bytes or operations at its peaks); then the backward
      kernels 6, 9 and 10 against their plain backward versions at every
      training shape of a batch-1 micro-step at MDM512 and at MDM1024
      (kernel 6 at each spatial self-attention length, each after kernel 5's
@@ -124,12 +128,12 @@ Phases:
      MUDG_FUSED_TEMPORAL, MUDG_FUSED_TCONV), inside phases 3 and 5's set-up:
      one bf16 UNet forward per configuration with each set to "0" alone and
      one with all six, set in-process and restored after; launches at
-     SWITCHES_OFF, the phase-3/5 gate against fp32; the forward with all six
-     off (kernel 5 at every spatial self-attention with L >= 512) timed.
+     SWITCHES_OFF, the phase-3/5 gate against fp32; each of these forwards
+     timed (median of 3), beside the kernel path's.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
-queued the same way) and kernel 3's "cublas_gemm_ms" are one
+queued the same way) and the YARDSTICKS (alone and "_queued") are one
 UNet forward's worth of a forward kernel at each of the two
 configurations, summed, and one batch-1 training micro-step's backward
 at each configuration, summed, for a backward kernel (phase 2's per-call
@@ -361,6 +365,17 @@ KERNEL_ROWS = {
 }
 
 
+# Phase 2's yardsticks for part of a kernel's work, each a library call on
+# the same inputs, never on the port's path: kernel 3's two products alone in
+# cuBLAS (F.linear of x by W1 and of h by W2, without the LN, the GEGLU or
+# the biases), kernel 1's attention core alone in SDPA (on the q, k and v of
+# its LN and projections, made outside the timed window) and kernel 4's
+# product alone in cuBLAS (F.linear of the (M, 3C) tap concatenation by
+# wcat, the concatenation made outside the timed window). Each is timed
+# alone (the key) and queued (the key + "_queued").
+YARDSTICKS = ("cublas_gemm_ms", "sdpa_core_ms", "cublas_tap_gemm_ms")
+
+
 def train_launches(cfg, micro_steps):
     """Every kernel's launches in `micro_steps` training micro-steps with remat."""
     sites = TRAIN_SITES[cfg]
@@ -537,10 +552,13 @@ def phase_build(torch, _build):
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     build_log = _build.BUILD_DIR / "build.log"
-    if build_log.exists():
+    if build_log.exists():   # each kernel's registers and spills, by its (mangled) name
+        fn = ""
         for line in build_log.read_text().splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
-                log("  ptxas: " + line.strip())
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                log(f"  ptxas: {fn}: {line.strip()}")
     return card
 
 
@@ -566,7 +584,9 @@ class Case(NamedTuple):
     grad_tol: float = BWD_TOL  # backward check: each gradient within grad_tol * max|ref|
     lse_tol: float = LSE_TOL   # kernel 5's logsumexp, absolute
     rerun: bool = False   # the kernel must give the same bits on a rerun
-    gemms: Callable | None = None   # kernel 3: its two products alone in cuBLAS (timed only)
+    # library calls for part of the kernel's work (timed only, alone and queued):
+    # JSON key -> fn; see YARDSTICKS
+    yardsticks: dict = {}
 
 
 def sharpen_(attn):
@@ -587,6 +607,82 @@ def zero_v(attn):
     with torch.no_grad():
         z.to_v.weight.zero_()
     return z
+
+
+def scale_twice(attn):
+    """A copy of `attn` whose logits take the softmax scale d^-0.5 twice, as
+    from a core that applies kernel 5's 0.125 * log2(e) to a q whose Wq
+    already carries it."""
+    import torch
+
+    z = copy.deepcopy(attn)
+    with torch.no_grad():
+        z.to_q.weight.mul_(64 ** -0.5)
+    return z
+
+
+def taps_reversed(conv):
+    """A copy of the (3, 1, 1) conv with its taps in reverse order (t - 1 and
+    t + 1 swapped), as from a kernel that reads the frames the wrong way."""
+    import torch
+
+    z = copy.deepcopy(conv)
+    with torch.no_grad():
+        z.weight.copy_(conv.weight.flip(2))
+    return z
+
+
+def one_pass_gn_silu_tconv(x, norm, conv):
+    """Kernel 4's plain version with the GroupNorm's one-pass variance
+    E[x^2] - E[x]^2 in fp32 (the Pallas GroupNorm's, norms.py:62-68), which
+    cancels under a DC offset."""
+    from mudg_tpu_torch.kernels import norms as N
+    from mudg_tpu_torch.nn import functional as F
+
+    h = N.plain_group_norm(x, norm.weight, norm.bias, 32, 1e-5, one_pass=True)
+    return F.temporal_conv311(conv, F.silu(h))
+
+
+def f64_gn_silu_tconv(K, x, norm, conv):
+    """Kernel 4's plain version in float64 (weights and x promoted)."""
+    import torch
+
+    n64, c64 = copy.deepcopy(norm).double(), copy.deepcopy(conv).double()
+    return K.tconv.plain_gn_silu_tconv(x.double(), n64, c64).to(torch.float32)
+
+
+def dc_video(torch, gen, shape, dev, offset=DC_OFFSET):
+    """A bf16 video at a DC offset whose groups vary little: offset + 4 s,
+    s in {-1, 0, 1} with P(s = +-1) = 1/128 each (4 is bf16's spacing at
+    1e3), a within-group variance of 0.25. In fp32 the one-pass variance
+    E[x^2] - E[x]^2 rounds its two ~1e6 terms by ~0.06 each, so it is off by
+    far more than the 3e-2 check allows (or negative); the centered form is
+    exact here."""
+    u = torch.rand(shape, generator=gen, device=dev)
+    s = (u < 1 / 128).float() - (u > 1 - 1 / 128).float()
+    return (offset + 4.0 * s).to(torch.bfloat16)
+
+
+def attention_qkv(x, norm, attn, heads):
+    """q, k, v (B, H, L, 64) of kernel 1's LN and projections in plain
+    PyTorch, for the SDPA yardstick of its attention core."""
+    from mudg_tpu_torch.nn import functional as F
+
+    h = F.layer_norm(norm, x)
+    b, l, _ = x.shape
+    return [F.linear(m, h).reshape(b, l, heads, 64).transpose(1, 2).contiguous()
+            for m in (attn.to_q, attn.to_k, attn.to_v)]
+
+
+def tap_concat(torch, x, norm):
+    """[h_{t-1} | h_t | h_{t+1}] (M, 3C) of h = silu(GN(x)) in bf16, zero at
+    the t edges: kernel 4's GEMM operand, for its cuBLAS yardstick."""
+    from mudg_tpu_torch.nn import functional as F
+
+    h = F.silu(F.group_norm(norm, x))
+    z = torch.zeros_like(h[:, :1])
+    cat = torch.cat([torch.cat([z, h[:, :-1]], 1), h, torch.cat([h[:, 1:], z], 1)], -1)
+    return cat.reshape(-1, 3 * x.shape[-1])
 
 
 def half_keys_self_attention(x, norm, attn, heads):
@@ -634,13 +730,18 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
             norm, attn = norm_attention(c)
             pk = K.spatial_attn.pack_stage(norm, attn, heads)
             x = rand(32, l, c)
+            qkv = attention_qkv(x, norm, attn, heads)
             yield Case("spatial_attn", cfg, f"{label} 32x{l}x{c}", 5, work_spatial(32, l, c),
                        lambda: K.spatial_attn.fused_self_attention(x, norm, attn, heads, pk),
                        lambda: K.spatial_attn.plain_self_attention(x, norm, attn, heads), None,
                        x, {"zero attention": lambda: K.spatial_attn.plain_self_attention(
                                x, norm, zero_v(attn), heads),
                            "half the keys": lambda: half_keys_self_attention(
-                               x, norm, attn, heads)})
+                               x, norm, attn, heads),
+                           "softmax scale twice": lambda: K.spatial_attn.plain_self_attention(
+                               x, norm, scale_twice(attn), heads)},
+                       yardsticks={"sdpa_core_ms": lambda: F.scaled_dot_product_attention(
+                           *qkv)})
         for n_seq, c, sites, label in ((2 * tok[0], 320, 5, "ds1"), (2 * tok[0], 512, 1, "init_attn"),
                                        (2 * tok[1], 640, 5, "ds2")):
             heads = c // 64
@@ -670,13 +771,32 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                 fp = lambda: K.mlp.plain_geglu_ff(x, ff)                   # noqa: E731
             yield Case("geglu_ff", cfg, f"{'block' if block else 'bare'} {m}x{c}", sites,
                        work_ff(m, c, block), fk, fp, None, x if block else None, {},
-                       gemms=lambda: (F.linear(x, w1), F.linear(hy, w2)))
+                       yardsticks={"cublas_gemm_ms": lambda: (F.linear(x, w1),
+                                                              F.linear(hy, w2))})
+        # kernel 4 at ds1 (reruns bit for bit); at MDM512 also at a DC offset
+        # of 1e3 against its plain version in float64 (sites 0: checked and
+        # timed, not summed), where the one-pass variance must miss
         norm, conv = mods(nn.GroupNorm(32, 320), nn.Conv3d(320, 320, (3, 1, 1)))
-        pk = K.tconv.pack_tconv(conv)
-        x = rand(2, 16, h, w, 320)
-        yield Case("gn_silu_tconv", cfg, f"ds1 2x16x{h}x{w}x320", 20, work_tconv(2, 16, h, w, 320),
-                   lambda: K.tconv.fused_gn_silu_tconv(x, norm, conv, pk),
-                   lambda: K.tconv.plain_gn_silu_tconv(x, norm, conv), None, None, {})
+        pk = K.tconv.pack_tconv(conv, norm)
+        shape = (2, 16, h, w, 320)
+        dc = (None, dc_video(torch, gen, shape, dev)) if cfg == "mdm512" else (None,)
+        for xdc in dc:
+            x = rand(*shape) if xdc is None else xdc
+            cat, wcat = tap_concat(torch, x, norm), pk.wcat
+            label = f"ds1 {'x'.join(map(str, shape))}"
+            if xdc is None:
+                plain = lambda: K.tconv.plain_gn_silu_tconv(x, norm, conv)   # noqa: E731
+                faults = {"taps reversed": lambda: K.tconv.plain_gn_silu_tconv(
+                    x, norm, taps_reversed(conv))}
+            else:
+                plain = lambda: f64_gn_silu_tconv(K, x, norm, conv)   # noqa: E731
+                faults = {"one-pass variance": lambda: one_pass_gn_silu_tconv(x, norm, conv)}
+                label += f" offset {DC_OFFSET:g}"
+            yield Case("gn_silu_tconv", cfg, label, 20 if xdc is None else 0,
+                       work_tconv(*shape),
+                       lambda: K.tconv.fused_gn_silu_tconv(x, norm, conv, pk), plain, None,
+                       None, faults, rerun=True,
+                       yardsticks={"cublas_tap_gemm_ms": lambda: F.linear(cat, wcat)})
         # kernel 5: in bf16 the ds4 self-attention (C=1280, 20 heads, L=576)
         # of MDM1024 and one long shape that streams 72 K/V tiles per query
         # tile; in fp32 (an fp32 forward, sites 0: checked and timed, not in
@@ -1010,8 +1130,9 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
 
 def reruns_bit_for_bit(torch, case):
     """A case marked `rerun` gives the same bits on a rerun: no atomics (the
-    GroupNorm merges its partial statistics in a fixed order; kernel 6
-    writes every gradient element from one block)."""
+    GroupNorm, alone and in kernel 4, merges its partial statistics in a
+    fixed order; kernel 4's GEMM sums K in one order; kernel 6 writes every
+    gradient element from one block)."""
     if not case.rerun:
         return True
     a, b = case.kernel(), case.kernel()
@@ -1108,7 +1229,11 @@ def compare(torch, case):
     del got, go
     faults = {}
     for name, fn in case.faults.items():
-        faults[name] = (part(fn()) - ro).abs().max().item()
+        # a fault whose output is not finite counts as missing the bound (the
+        # kernel's own check requires finite values), recorded as float32's
+        # largest value so that the JSON stays finite
+        faults[name] = (part(fn()) - ro).abs().nan_to_num(
+            torch.finfo(torch.float32).max).max().item()
         ok &= faults[name] > case.tol * scale
     return Check(ok, err, scale, lse_err, faults, case.tol, err)
 
@@ -1137,7 +1262,8 @@ def run_cases(torch, cases, check=None):
         reps = dict(iters=3, warmup=1) if case.grads else {}
         ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, **reps)
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
-        gms = cuda_ms(torch, case.gemms) if case.gemms is not None else None
+        yms = {k: cuda_ms(torch, fn) for k, fn in case.yardsticks.items()}
+        yms.update({k + "_queued": cuda_ms_queued(torch, fn) for k, fn in case.yardsticks.items()})
         qms = cuda_ms_queued(torch, fk) if not case.grads else None
         lqms = cuda_ms_queued(torch, flib) if flib is not None and not case.grads else None
         flops, nbytes = case.work
@@ -1154,19 +1280,19 @@ def run_cases(torch, cases, check=None):
             + f"   plain {pms:.3f} ms"
             + (f"   library {lms:.3f} ms" if lms is not None else "")
             + (f" (queued {lqms:.3f} ms)" if lqms is not None else "")
-            + (f"   cuBLAS GEMMs {gms:.3f} ms" if gms is not None else "")
+            + "".join(f"   {k} {v:.3f}" for k, v in yms.items())
             + f"   bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
         r = rows.setdefault(case.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                        "bound_ms": 0.0, "library_ms": None,
-                                        "cublas_gemm_ms": None, "ok": True, "shapes": []})
+                                        "bound_ms": 0.0, "library_ms": None, "ok": True,
+                                        "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], chk.abs_err)
         r["ms"] += case.sites * ms
         r["plain_ms"] += case.sites * pms
         r["bound_ms"] += case.sites * bms
         if lms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + case.sites * lms
-        if gms is not None:
-            r["cublas_gemm_ms"] = (r["cublas_gemm_ms"] or 0.0) + case.sites * gms
+        for k, v in yms.items():
+            r[k] = r.get(k, 0.0) + case.sites * v
         if qms is not None:
             r["ms_queued"] = r.get("ms_queued", 0.0) + case.sites * qms
         if lqms is not None:
@@ -1183,8 +1309,8 @@ def run_cases(torch, cases, check=None):
                             "residual_free": case.base is not None, "lse_err": chk.lse_err,
                             "fault_errs": chk.faults, "ms": ms, "ms_queued": qms,
                             "plain_ms": pms,
-                            "library_ms": lms, "library_ms_queued": lqms,
-                            "cublas_gemm_ms": gms, "bound_ms": bms,
+                            "library_ms": lms, "library_ms_queued": lqms, **yms,
+                            "bound_ms": bms,
                             "bound_by": by,
                             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_bound})
         del case, fk, fp, flib
@@ -1305,22 +1431,22 @@ def phase_opt_out(torch, K, cfg, run, rel, err_bound):
     kernel opt-out switches set to "0" in-process, then with all six, each
     restored after: launches at SWITCHES_OFF (counts reset just before each
     forward, read just after), relative L2 error against fp32 within the
-    phase-3/5 gate; the forward with all six off (kernel 5 at every spatial
-    self-attention with L >= 512) timed. Returns the report and the summed
-    launches."""
+    phase-3/5 gate; every forward timed (median of 3), so the kernel path
+    stands beside each path JAX falls back to. Returns the report and the
+    summed launches."""
     report, total = {}, {}
     for name, env, expect in opt_out_cases(cfg):
         with environ(env), torch.no_grad():
             K.reset_launch_counts()
             out = run("auto")
             counts = K.launch_counts()
-            ms = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1) if name == "all" else None
+            ms = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1)
         expect = {**dict.fromkeys(counts, 0), **expect}
         err = rel(out)
         ok = bool(torch.isfinite(out).all().item()) and err <= err_bound and counts == expect
-        timing = f", forward bf16 {ms:.1f} ms" if ms is not None else ""
         log(f"  {name}=0: rel L2 vs fp32 {err:.4e} (bound {err_bound:.4e}), launches "
-            f"{ {k: v for k, v in counts.items() if v} }{timing}: {'ok' if ok else 'FAIL'}")
+            f"{ {k: v for k, v in counts.items() if v} }, forward bf16 {ms:.1f} ms: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}=0: error {err:.4e} (bound {err_bound:.4e}), "
                                  f"launches {counts} != {expect}")
@@ -2230,8 +2356,8 @@ def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
     path -> counts) and phase 2/9/11's numbers (`rows`: name -> row of
-    run_cases). "cublas_gemm_ms" is kernel 3's two products alone in cuBLAS
-    (a yardstick, timed only; null for the other kernels); "ms_queued" the
+    run_cases). YARDSTICKS are library calls for part of a kernel's work,
+    timed alone and queued (null for the other kernels); "ms_queued" the
     forward kernels' time with their calls queued back to back
     (cuda_ms_queued), "library_ms_queued" the library call's, queued the
     same way."""
@@ -2245,7 +2371,7 @@ def kernel_line(kernels, rows, launches):
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             **{k: r.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "ms_queued", "library_ms", "library_ms_queued",
-                                     "cublas_gemm_ms")},
+                                     *YARDSTICKS, *(y + "_queued" for y in YARDSTICKS))},
             "shapes": r.get("shapes", [])})
     return line
 

@@ -86,34 +86,6 @@ __device__ __forceinline__ void pv_accumulate(float o[8][4], float s[2 * KK][4],
   }
 }
 
-// Copy 64 rows x 64 columns (row stride ld elements, columns contiguous)
-// into shared memory, row-major or transposed; SCALE multiplies every value
-// by `scale` in fp32 and rounds back to bf16.
-template <bool TRANSPOSE, bool SCALE>
-__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src,
-                                             long long ld, float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = threadIdx.x + i * 128, r = c >> 3, col = (c & 7) * 8;
-    uint4 v = *reinterpret_cast<const uint4*>(src + r * ld + col);
-    if (SCALE) {
-      uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = unpack_bf16x2(w[j]);
-        w[j] = pack_bf16x2(f.x * scale, f.y * scale);
-      }
-    }
-    if (TRANSPOSE) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(col + j) * AT_LDS + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * AT_LDS + col) = v;
-    }
-  }
-}
-
 // Two bf16 values packed as one mma operand register (a in the low half).
 __device__ __forceinline__ uint32_t pack_pair(bf16 a, bf16 b) {
   return (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16);

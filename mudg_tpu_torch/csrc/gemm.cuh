@@ -1,5 +1,6 @@
-// One bf16 tile GEMM with fp32 accumulation on mma.sync, shared by every
-// kernel of the port: out(M, N) = prologue(A)(M, K) @ B(N, K)^T -> epilogue.
+// One bf16 tile GEMM with fp32 accumulation on mma.sync, shared by kernel
+// 2 and the backward kernels 9 and 10:
+//   out(M, N) = prologue(A)(M, K) @ B(N, K)^T -> epilogue.
 //
 // B is stored (N, K) with K contiguous: the torch layout of a Linear weight
 // (out, in), so a weight is used as it is loaded.
@@ -8,21 +9,14 @@
 //   A_PLAIN  A itself, bf16 (M, K).
 //   A_LN     LayerNorm of A from per-row fp32 mean/rstd and the fp32 affine,
 //            rounded to bf16 as the reference rounds the LN output.
-//   A_TAP3   the 3-tap temporal neighbourhood of a (B, T, HW, C) video:
-//            A[r, tap*C + c] = silu(x[r + (tap-1)*HW, c] * scale[b, c] +
-//            shift[b, c]) in fp32, rounded to bf16, and 0 where t + tap - 1
-//            falls outside [0, T) (the conv's zero padding). Rows are
-//            t-major inside a clip, so a shift by HW rows is one step in t.
 // Epilogues (what is stored, bf16):
 //   E_BIAS      acc + bias (bias may be null)
 //   E_BIAS_RES  acc + bias + res
-//   E_GEGLU     u * gelu_erf(g) with u = acc over W rows [n0, n0+64) + b[j],
-//               g = acc over W rows [inner+n0, ...) + b[inner+j]: each warp
-//               holds the value and gate columns of the same j, so the
-//               product is formed in registers and only (M, inner) is stored.
 //   E_F32       acc + bias (bias may be null), stored fp32 to outf.
-//   E_GEGLU_BWD the GEGLU backward from the recomputed u, g (the E_GEGLU
-//               columns) and the fp32 upstream gradient dh (M, inner):
+//   E_GEGLU_BWD the GEGLU backward from the recomputed u = acc over W rows
+//               [n0, n0+64) + b[j] and g = acc over W rows [inner+n0, ...) +
+//               b[inner+j] (each warp holds the value and gate columns of
+//               the same j) and the fp32 upstream gradient dh (M, inner):
 //               h = u*gelu(g) to out, du = dh*gelu(g) and
 //               dg = dh*u*(Phi(g) + g*pdf(g)) to out2 as [du | dg] (bf16),
 //               and per 64-row warp slab the fp32 column sums of du and dg
@@ -41,12 +35,10 @@
 
 namespace mudg {
 
-enum { A_PLAIN = 0, A_LN = 1, A_TAP3 = 2 };
-enum { E_BIAS = 0, E_BIAS_RES = 1, E_GEGLU = 2, E_F32 = 3, E_GEGLU_BWD = 4 };
+enum { A_PLAIN = 0, A_LN = 1 };
+enum { E_BIAS = 0, E_BIAS_RES = 1, E_F32 = 3, E_GEGLU_BWD = 4 };
 
-__host__ __device__ constexpr bool geglu_cols(int em) {
-  return em == E_GEGLU || em == E_GEGLU_BWD;
-}
+__host__ __device__ constexpr bool geglu_cols(int em) { return em == E_GEGLU_BWD; }
 
 struct GemmArgs {
   const bf16* a;
@@ -64,13 +56,7 @@ struct GemmArgs {
   const float* row_rstd;
   const float* ln_w;
   const float* ln_b;
-  // A_TAP3
-  const float* gn_scale;
-  const float* gn_shift;
-  int frames;
-  int hw;
-  int cin;
-  // E_GEGLU, E_GEGLU_BWD
+  // E_GEGLU_BWD
   int inner;
   // E_F32
   float* outf;
@@ -90,7 +76,7 @@ __device__ __forceinline__ uint4 gemm_load_a(const GemmArgs& p, int row,
   if (row >= p.m) return zero;
   if (AM == A_PLAIN) {
     return *reinterpret_cast<const uint4*>(p.a + (size_t)row * p.lda + col);
-  } else if (AM == A_LN) {
+  } else {
     uint4 raw =
         *reinterpret_cast<const uint4*>(p.a + (size_t)row * p.lda + col);
     const float mu = p.row_mean[row], rs = p.row_rstd[row];
@@ -104,33 +90,11 @@ __device__ __forceinline__ uint4 gemm_load_a(const GemmArgs& p, int row,
       w[i] = pack_bf16x2(f.x, f.y);
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-    const int tap = col / p.cin;
-    const int c = col - tap * p.cin;
-    const int clip = row / (p.frames * p.hw);
-    const int t = (row / p.hw) % p.frames + tap - 1;
-    if (t < 0 || t >= p.frames) return zero;
-    const int src = row + (tap - 1) * p.hw;
-    uint4 raw =
-        *reinterpret_cast<const uint4*>(p.a + (size_t)src * p.lda + c);
-    const float* sc = p.gn_scale + (size_t)clip * p.cin + c;
-    const float* sh = p.gn_shift + (size_t)clip * p.cin + c;
-    uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = unpack_bf16x2(w[i]);
-      f.x = f.x * sc[2 * i] + sh[2 * i];
-      f.y = f.y * sc[2 * i + 1] + sh[2 * i + 1];
-      f.x = f.x / (1.f + expf(-f.x));
-      f.y = f.y / (1.f + expf(-f.y));
-      w[i] = pack_bf16x2(f.x, f.y);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// Row `r` of the B tile: for E_GEGLU rows 0..63 are value rows n0.. and rows
-// 64..127 the matching gate rows inner+n0..
+// Row `r` of the B tile: for E_GEGLU_BWD rows 0..63 are value rows n0.. and
+// rows 64..127 the matching gate rows inner+n0..
 template <int EM>
 __device__ __forceinline__ uint4 gemm_load_b(const GemmArgs& p, int n0, int r,
                                              int col) {
@@ -301,39 +265,24 @@ __global__ void __launch_bounds__(GEMM_THREADS)
       const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
       if (row >= p.m) continue;
       bf16* orow = p.out + (size_t)row * p.ldo;
-      if (EM == E_GEGLU) {
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          const int col = n0 + wn * 16 + nj * 8 + 2 * q;
-          float h[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float u = acc[mi][nj][half * 2 + e] + p.bias[col + e];
-            const float gt = acc[mi][nj + 2][half * 2 + e] + p.bias[p.inner + col + e];
-            h[e] = u * gt * 0.5f * (1.f + erff(gt * 0.70710678118654752f));
-          }
-          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(h[0], h[1]);
+      for (int nj = 0; nj < 4; ++nj) {
+        const int col = n0 + gemm_col<EM>(wn, nj) + 2 * q;
+        if (col >= p.n) continue;
+        float v0 = acc[mi][nj][half * 2], v1 = acc[mi][nj][half * 2 + 1];
+        if (p.bias != nullptr) {
+          v0 += p.bias[col];
+          v1 += p.bias[col + 1];
         }
-      } else {
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          const int col = n0 + gemm_col<EM>(wn, nj) + 2 * q;
-          if (col >= p.n) continue;
-          float v0 = acc[mi][nj][half * 2], v1 = acc[mi][nj][half * 2 + 1];
-          if (p.bias != nullptr) {
-            v0 += p.bias[col];
-            v1 += p.bias[col + 1];
-          }
-          if (EM == E_BIAS_RES) {
-            const float2 r = unpack_bf16x2(lds32(p.res + (size_t)row * p.ldr + col));
-            v0 += r.x;
-            v1 += r.y;
-          }
-          if (EM == E_F32) {
-            *reinterpret_cast<float2*>(p.outf + (size_t)row * p.ldo + col) = make_float2(v0, v1);
-          } else {
-            *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(v0, v1);
-          }
+        if (EM == E_BIAS_RES) {
+          const float2 r = unpack_bf16x2(lds32(p.res + (size_t)row * p.ldr + col));
+          v0 += r.x;
+          v1 += r.y;
+        }
+        if (EM == E_F32) {
+          *reinterpret_cast<float2*>(p.outf + (size_t)row * p.ldo + col) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(v0, v1);
         }
       }
     }

@@ -3,8 +3,8 @@
 // copies into shared memory, TMA tensor stores from shared memory, wgmma
 // with shared-memory descriptors under the 128-byte swizzle (m64nNk16 for N
 // a multiple of 16 up to 128), setmaxnreg, the async-proxy fence, and the
-// host-side encoding of tensor maps for a strided (B, L, H, 64) bf16
-// operand and for a row-major (rows, cols) bf16 matrix.
+// host-side encoding of bf16 tensor maps (any rank up to 5; a strided (B,
+// L, H, 64) operand and a row-major (rows, cols) matrix by name).
 //
 // Shared-memory tiles that TMA fills and wgmma reads are rows of 64 bf16
 // (128 bytes: one swizzle row), 8-row groups 1024 bytes apart, every tile
@@ -90,15 +90,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA and bulk copies ---------------------------------------------------
 
+// A box of a 3-D tensor map at (c0, c1, c2) into dst; completion is
+// counted on bar in bytes. Elements outside the tensor (a negative
+// coordinate included) arrive as zeros, and count as loaded.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box of a 4-D tensor map at (c0, c1, c2, c3) into dst, as tma_load_3d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // A box of the 4-D tensor map (dims 64, H, L, B) at (0, h, row, b) into dst;
 // completion is counted on bar in bytes. Rows past L arrive as zeros.
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
                                               int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
+  tma_load_4d(dst, map, bar, 0, h, row, b);
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
@@ -135,15 +154,22 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// A box from shared memory to a 4-D tensor map at (c0, c1, c2, c3);
+// elements outside the tensor are not written (as tma_store_2d).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A box from shared memory to the 4-D tensor map (64, H, L, B) at (0, h,
 // row, b); rows past L are not written.
 __device__ __forceinline__ void tma_store_rows(const CUtensorMap* map, const void* src, int h,
                                                int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_addr(src)), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
+  tma_store_4d(map, src, 0, h, row, b);
 }
 
 // Closes this thread's group of TMA stores issued since the last commit.
@@ -504,45 +530,45 @@ static inline int sm_count() {
   return sms;
 }
 
-// A tensor map over a (batch, seq, heads, 64) bf16 tensor with element
-// strides sb, sl, sh (head dim contiguous), as dims (64, heads, seq, batch)
-// with boxes of 64 sequence rows of one head, 128-byte swizzled; rows past
-// seq read as zeros. Returns cudaErrorInvalidValue if the driver refuses it
-// (a stride not a multiple of 16 bytes, an unaligned base).
-static inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int batch, int seq,
-                                        int heads, long long sb, long long sl, long long sh) {
+// A tensor map over a bf16 tensor of `rank` dims (innermost first, the
+// innermost contiguous) with the byte strides of dims 1.., boxes of `box`
+// elements, 128-byte swizzled (box[0] = 64: one swizzle row); elements
+// outside the tensor read as zeros and are not written by a store. Returns
+// cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses it (a stride not
+// a multiple of 16 bytes, an unaligned base, a box side over 256).
+static inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A tensor map over a (batch, seq, heads, 64) bf16 tensor with element
+// strides sb, sl, sh (head dim contiguous), as dims (64, heads, seq, batch)
+// with boxes of 64 sequence rows of one head; rows past seq read as zeros.
+static inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int batch, int seq,
+                                        int heads, long long sb, long long sl, long long sh) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return bf16_map(map, base, 4, dims, strides, box);
+}
+
 // A tensor map over a row-major (rows, cols) bf16 matrix with a row pitch
 // of `ld` elements, as dims (cols, rows), with boxes of 64 columns x
-// `box_rows` rows, 128-byte swizzled; elements past the matrix read as
-// zeros and are not written by a store. Returns cudaErrorInvalidValue if
-// cuTensorMapEncodeTiled refuses it (a pitch not a multiple of 16 bytes, an
-// unaligned base, box_rows > 256).
+// `box_rows` rows (box_rows <= 256).
 static inline cudaError_t bf16_matrix_map(CUtensorMap* map, const void* base, long long rows,
                                           long long cols, long long ld, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return bf16_map(map, base, 2, dims, strides, box);
 }
 
 }  // namespace mudg_host

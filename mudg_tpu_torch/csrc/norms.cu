@@ -88,7 +88,26 @@ __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, flo
 }
 
 // Block layout of both GN passes: tpr = C / 8 threads per row, k = blockDim.x
-// / tpr rows per step; thread (slot, cv) owns channels 8 cv .. 8 cv + 7.
+// / tpr rows per step; thread (slot, cv) owns channels 8 cv .. 8 cv + 7 and
+// walks rows r, r + k, ..; it loads GN_UNROLL of them before using any, so
+// that a few blocks (kernel 4 has two samples: 128 blocks) still keep
+// enough loads in flight. The order of the updates is the walk's.
+constexpr int GN_UNROLL = 4;
+
+// One Welford step of this thread's 8 channels by v (x - shift).
+__device__ __forceinline__ void welford8(float& cnt, float (&mean)[8], float (&m2)[8],
+                                         const float (&v)[8], const float (&shift)[8]) {
+  cnt += 1.f;
+  const float inv = 1.f / cnt;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float y = v[j] - shift[j];
+    const float d = y - mean[j];
+    mean[j] += d * inv;
+    m2[j] += d * (y - mean[j]);
+  }
+}
+
 template <typename T>
 __global__ void gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ part,
                                 int rows, int c, int groups, int per, int chunks) {
@@ -105,18 +124,18 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ pa
     mean[j] = m2[j] = 0.f;
     shift[j] = to_float(xs[(c0 + j) / cg * cg]);
   }
-  for (int r = r0 + slot; r < r1; r += k) {
+  int r = r0 + slot;
+  for (; r + (GN_UNROLL - 1) * k < r1; r += GN_UNROLL * k) {
+    float v[GN_UNROLL][8];
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) load8(xs + (size_t)(r + u * k) * c + c0, v[u]);
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) welford8(cnt, mean, m2, v[u], shift);
+  }
+  for (; r < r1; r += k) {
     float v[8];
     load8(xs + (size_t)r * c + c0, v);
-    cnt += 1.f;
-    const float inv = 1.f / cnt;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] -= shift[j];
-      const float d = v[j] - mean[j];
-      mean[j] += d * inv;
-      m2[j] += d * (v[j] - mean[j]);
-    }
+    welford8(cnt, mean, m2, v, shift);
   }
   float* smean = sm;
   float* sm2 = sm + k * c;
@@ -147,7 +166,9 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ pa
   }
 }
 
-template <typename T>
+// SILU: y = silu(GN(x)), the GroupNorm output passed through SiLU in fp32
+// before its one rounding to T (kernel 4's first two steps).
+template <typename T, bool SILU>
 __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                                 const float* __restrict__ w, const float* __restrict__ b,
                                 const float2* __restrict__ part, int rows, int c, int groups,
@@ -184,11 +205,28 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
   const int r0 = chunk * per, r1 = min(rows, r0 + per);
   const size_t base = (size_t)n * rows * c + c0;
-  for (int r = r0 + slot; r < r1; r += k) {
+  auto apply = [&](float (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = ((v[j] - sh[j]) - mu[j]) * rs[j] * ww[j] + bb[j];
+      if (SILU) v[j] = v[j] / (1.f + expf(-v[j]));
+    }
+  };
+  int r = r0 + slot;
+  for (; r + (GN_UNROLL - 1) * k < r1; r += GN_UNROLL * k) {
+    float v[GN_UNROLL][8];
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) load8(x + base + (size_t)(r + u * k) * c, v[u]);
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) {
+      apply(v[u]);
+      store8(y + base + (size_t)(r + u * k) * c, v[u]);
+    }
+  }
+  for (; r < r1; r += k) {
     float v[8];
     load8(x + base + (size_t)r * c, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = ((v[j] - sh[j]) - mu[j]) * rs[j] * ww[j] + bb[j];
+    apply(v);
     store8(y + base + (size_t)r * c, v);
   }
 }
@@ -242,7 +280,7 @@ __global__ void __launch_bounds__(256) ln_kernel(const T* __restrict__ x, T* __r
   }
 }
 
-template <typename T>
+template <typename T, bool SILU = false>
 cudaError_t launch_gn(const T* x, T* y, const float* w, const float* b, float2* part, int n,
                       int rows, int c, int groups, int per, int chunks, float eps,
                       cudaStream_t stream) {
@@ -252,7 +290,7 @@ cudaError_t launch_gn(const T* x, T* y, const float* w, const float* b, float2* 
       x, part, rows, c, groups, per, chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_apply_kernel<T><<<grid, tpr * k, 3 * groups * sizeof(float), stream>>>(
+  gn_apply_kernel<T, SILU><<<grid, tpr * k, 3 * groups * sizeof(float), stream>>>(
       x, y, w, b, part, rows, c, groups, per, chunks, eps);
   return cudaGetLastError();
 }
@@ -290,6 +328,17 @@ extern "C" int mudg_group_norm(const void* x, void* y, const void* w, const void
                      rows, c, groups, per, chunks, eps, s);
   return launch_gn(static_cast<const bf16*>(x), static_cast<bf16*>(y), wf, bf, pp, n, rows,
                    c, groups, per, chunks, eps, s);
+}
+
+// y = silu(GroupNorm(x)) in fp32, rounded to bf16 once; x, y: (n, rows, c)
+// bf16, the rest as mudg_group_norm (kernel 4's statistics and h).
+extern "C" int mudg_group_norm_silu(const void* x, void* y, const void* w, const void* b,
+                                    void* part, int n, int rows, int c, int groups, int per,
+                                    int chunks, float eps, void* stream) {
+  return launch_gn<bf16, true>(static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                               static_cast<const float*>(w), static_cast<const float*>(b),
+                               static_cast<float2*>(part), n, rows, c, groups, per, chunks, eps,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // x, y: (rows, c) contiguous, bf16 or fp32 as above; w, b: (c) fp32.

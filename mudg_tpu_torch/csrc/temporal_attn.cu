@@ -78,7 +78,9 @@ __global__ void __launch_bounds__(128)
 using namespace mudg;
 
 // One stage. x, out: (rows, c) bf16 with rows % 64 == 0 and sequences of 16
-// consecutive rows. Scratch and weights as in mudg_spatial_attn.
+// consecutive rows. Scratch: qkv (rows, 3c) bf16, attn (rows, c) bf16,
+// mean/rstd (rows) fp32. Weights: ln_w, ln_b, bo fp32 (c); wqkv (3c, c) bf16
+// with the softmax scale folded into its first c rows; wo (c, c) bf16.
 extern "C" int mudg_temporal_attn_stage(const void* x, void* out, void* qkv,
                                         void* attn, void* mean, void* rstd,
                                         const void* ln_w, const void* ln_b,

@@ -5,7 +5,10 @@
 // weight (out, in), used as it is loaded).
 //
 // Epilogues (the output is bf16):
-//   WG_BIAS      acc + bias[col]
+//   WG_BIAS      acc + bias[col] (a null bias is zero: the launcher points it
+//                at WG_ZEROS zeros in device memory; a null test in the
+//                epilogue, or an epilogue without the bias, made ptxas spill
+//                ~600 bytes a thread at the 168-register cap)
 //   WG_BIAS_RES  acc + bias[col] + res[row, col] (res read by TMA)
 //   WG_GEGLU     u * gelu_erf(g), u = acc over B rows [n0, n0 + 64) +
 //                bias[col], g = acc over B rows [gate + n0, ..) +
@@ -34,6 +37,23 @@
 // zero fill covers the K tail and the M and N tails of the loads, and its
 // stores clip the M and N tails, so any M, any K % 8 == 0 and any N % 8 ==
 // 0 run (N % 64 == 0 and gate % 64 == 0 for WG_GEGLU).
+//
+// Sources (where A, B and the output come from):
+//   WG_MATRIX  row-major matrices through 2-D tensor maps, as above.
+//   WG_TAP3    the (3, 1, 1) temporal convolution of a video h (B, T, HW,
+//              C) as one GEMM with K = 3 taps x C: A's row r of frame (b,
+//              t) over tap tau's C columns is h[b, t + tau - 1, r], B is the
+//              packed weight wcat (C_out, 3, C_in). A comes through a 4-D map
+//              (C, HW, T, B): a tile is 128 rows of HW inside one frame, and
+//              for tap tau it loads frame t + tau - 1, which TMA fills with
+//              zeros where it falls outside [0, T), so the zero fill is the
+//              conv's padding and a tile never reads a neighbouring clip's
+//              frame. B comes through a 3-D map (C_in, 3, C_out), so a tap's
+//              last K slab at C_in % 64 != 0 is zero-filled and does not read
+//              the next tap's columns. The output leaves through the 4-D map
+//              of A's shape (the HW tail clipped on the store). Tiles walk
+//              (b, t, HW block) with the column blocks innermost, so any HW
+//              runs.
 #pragma once
 
 #include "hopper.cuh"
@@ -41,6 +61,7 @@
 namespace mudg {
 
 enum { WG_BIAS = 0, WG_BIAS_RES = 1, WG_GEGLU = 2 };
+enum { WG_MATRIX = 0, WG_TAP3 = 1 };
 
 constexpr int WG_BM = 128;                 // tile rows
 constexpr int WG_THREADS = 288;            // two consumer warpgroups + the producer warp
@@ -59,16 +80,39 @@ __host__ __device__ constexpr int wg_smem(int epi) {
 
 struct WgGemmArgs {
   const float* bias;   // fp32: (N) or, for WG_GEGLU, (2 * gate)
-  int m, n, k;         // n: output columns (= gate for WG_GEGLU)
+  int n;               // output columns (= gate for WG_GEGLU)
+  int nk;              // 64-column K slabs per tile
   int gate;            // WG_GEGLU: first B row of the gate half
   int n_tiles, tiles;  // column blocks, all tiles
+  // WG_TAP3: frames per clip, 128-row tiles per frame, K slabs per tap
+  int frames, hw_tiles, kc;
 };
+
+// Where tile t's rows lie: m0 for WG_MATRIX; the first row hw0 of HW, the
+// frame t and the clip b for WG_TAP3 (row block mt = (b * T + t) *
+// hw_tiles + hw0 / 128).
+struct WgRows {
+  int m0, hw0, t, b;
+};
+
+template <int SRC>
+__device__ __forceinline__ WgRows wg_rows(const WgGemmArgs& p, int mt) {
+  WgRows r;
+  r.m0 = mt * WG_BM;
+  if (SRC == WG_TAP3) {
+    const int frame = mt / p.hw_tiles;
+    r.hw0 = (mt - frame * p.hw_tiles) * WG_BM;
+    r.t = frame % p.frames;
+    r.b = frame / p.frames;
+  }
+  return r;
+}
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return g * 0.5f * (1.f + erff(g * 0.70710678118654752f));
 }
 
-template <int EPI>
+template <int EPI, int SRC>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tb,
@@ -81,7 +125,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * wg_staging(EPI));
   uint64_t* empty = full + S;
   uint64_t* res_bar = empty + S;      // per consumer warpgroup
-  const int nk = (p.k + 63) / 64;
+  const int nk = p.nk;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -98,13 +142,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (threadIdx.x == 256) {
       int it = 0;
       for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-        const int m0 = (t / p.n_tiles) * WG_BM, n0 = (t % p.n_tiles) * TN;
+        const WgRows rw = wg_rows<SRC>(p, t / p.n_tiles);
+        const int n0 = (t % p.n_tiles) * TN;
         for (int ks = 0; ks < nk; ++ks, ++it) {
           const int s = it % S;
           if (it >= S) mbar_wait(&empty[s], ((it / S) - 1) & 1);
           uint8_t* st = ring + s * WG_STAGE;
           mbar_expect_tx(&full[s], WG_STAGE);
-          tma_load_2d(st, &ta, &full[s], ks * 64, m0);
+          if (SRC == WG_TAP3) {   // tap tau = ks / kc reads frame t + tau - 1
+            const int tap = ks / p.kc, k0 = (ks - tap * p.kc) * 64;
+            tma_load_4d(st, &ta, &full[s], k0, rw.hw0, rw.t + tap - 1, rw.b);
+            tma_load_3d(st + WG_SLAB, &tb, &full[s], k0, tap, n0);
+            continue;
+          }
+          tma_load_2d(st, &ta, &full[s], ks * 64, rw.m0);
           if (EPI == WG_GEGLU) {   // 64 value rows, then the 64 gate rows
             tma_load_2d(st + WG_SLAB, &tb, &full[s], ks * 64, n0);
             tma_load_2d(st + WG_SLAB + WG_SLAB / 2, &tb, &full[s], ks * 64, p.gate + n0);
@@ -131,7 +182,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   for (int i = cw; i < ntiles; i += 2, ++j) {
     const int t = blockIdx.x + i * gridDim.x;
     named_bar_sync(3 + cw, 256);
-    const int m0 = (t / p.n_tiles) * WG_BM, n0 = (t % p.n_tiles) * TN;
+    const WgRows rw = wg_rows<SRC>(p, t / p.n_tiles);
+    const int n0 = (t % p.n_tiles) * TN;
     // 64-column boxes of this tile that hold output columns (N tail)
     const int boxes = min(TN / 64, (p.n - n0 + 63) / 64);
     if (EPI == WG_BIAS_RES && tid == 0) {
@@ -140,7 +192,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       bulk_wait_read<0>();
       mbar_expect_tx(&res_bar[cw], boxes * WG_BM * 128);
       for (int bx = 0; bx < boxes; ++bx)
-        tma_load_2d(stg + bx * WG_BM * 128, &tres, &res_bar[cw], n0 + 64 * bx, m0);
+        tma_load_2d(stg + bx * WG_BM * 128, &tres, &res_bar[cw], n0 + 64 * bx, rw.m0);
     }
 
     int it = i * nk, prev = 0;
@@ -208,8 +260,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     fence_proxy_async();
     named_bar_sync(1 + cw, 128);
     if (tid == 0) {
-      for (int bx = 0; bx < boxes; ++bx)
-        tma_store_2d(&tout, stg + bx * WG_BM * 128, n0 + 64 * bx, m0);
+      for (int bx = 0; bx < boxes; ++bx) {
+        if (SRC == WG_TAP3)
+          tma_store_4d(&tout, stg + bx * WG_BM * 128, n0 + 64 * bx, rw.hw0, rw.t, rw.b);
+        else
+          tma_store_2d(&tout, stg + bx * WG_BM * 128, n0 + 64 * bx, rw.m0);
+      }
       bulk_commit();
     }
   }
@@ -220,28 +276,44 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   if (tid == 0) bulk_wait<0>();
 }
 
-// Launches out = epilogue(A @ B^T) on persistent blocks, one per SM or one
-// per tile where there are fewer tiles. a: (m, k)
-// with row pitch lda, b: (rows_b, k) with pitch ldb (rows_b = n, or 2 *
-// gate for WG_GEGLU), out: (m, n) with pitch ldo, res: (m, n) with pitch
-// ldr (WG_BIAS_RES). Pitches are multiples of 8 elements, pointers 16-byte
-// aligned.
+// The bias of a WG_BIAS product without one.
+constexpr int WG_ZEROS = 4096;
+static __device__ float wg_zeros[WG_ZEROS] = {};
+
+// Launches the kernel on persistent blocks, one per SM or one per tile
+// where there are fewer tiles; p.tiles and p.n_tiles set.
+template <int EPI, int SRC>
+static inline cudaError_t wg_launch(const CUtensorMap& ta, const CUtensorMap& tb,
+                                    const CUtensorMap& tout, const CUtensorMap& tres,
+                                    const WgGemmArgs& p, cudaStream_t stream) {
+  // the dynamic shared-memory limit is raised once per host thread (a
+  // launch from a thread that has not raised it is refused)
+  thread_local bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(wgmma_gemm_kernel<EPI, SRC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg_smem(EPI));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int sms = mudg_host::sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  wgmma_gemm_kernel<EPI, SRC><<<grid, WG_THREADS, wg_smem(EPI), stream>>>(ta, tb, tout, tres, p);
+  return cudaGetLastError();
+}
+
+// out = epilogue(A @ B^T). a: (m, k) with row pitch lda, b: (rows_b, k)
+// with pitch ldb (rows_b = n, or 2 * gate for WG_GEGLU), out: (m, n) with
+// pitch ldo, res: (m, n) with pitch ldr (WG_BIAS_RES); bias null for none
+// (WG_BIAS, n <= WG_ZEROS). Pitches are multiples of 8 elements, pointers
+// 16-byte aligned.
 template <int EPI>
 static inline cudaError_t launch_wgmma_gemm(const bf16* a, long long lda, const bf16* b,
                                             long long ldb, bf16* out, long long ldo,
                                             const bf16* res, long long ldr, const float* bias,
                                             int m, int n, int k, int gate,
                                             cudaStream_t stream) {
-  // the dynamic shared-memory limit is raised once per host thread (a
-  // launch from a thread that has not raised it is refused)
-  thread_local bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(wgmma_gemm_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         wg_smem(EPI));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
   using mudg_host::bf16_matrix_map;
   const bool geglu = EPI == WG_GEGLU;
   CUtensorMap ta, tb, tout, tres;
@@ -251,19 +323,21 @@ static inline cudaError_t launch_wgmma_gemm(const bf16* a, long long lda, const 
   if (e == cudaSuccess) e = bf16_matrix_map(&tres, res != nullptr ? res : out, m, n,
                                             res != nullptr ? ldr : ldo, WG_BM);
   if (e != cudaSuccess) return e;
-  WgGemmArgs p;
+  if (bias == nullptr) {   // the current device's copy of wg_zeros
+    if (EPI != WG_BIAS || n > WG_ZEROS) return cudaErrorInvalidValue;
+    void* zeros = nullptr;
+    e = cudaGetSymbolAddress(&zeros, wg_zeros);
+    if (e != cudaSuccess) return e;
+    bias = static_cast<const float*>(zeros);
+  }
+  WgGemmArgs p = {};
   p.bias = bias;
-  p.m = m;
   p.n = n;
-  p.k = k;
+  p.nk = (k + 63) / 64;
   p.gate = gate;
   p.n_tiles = (n + wg_tn(EPI) - 1) / wg_tn(EPI);
   p.tiles = ((m + WG_BM - 1) / WG_BM) * p.n_tiles;
-  const int sms = mudg_host::sm_count();
-  if (sms < 1) return cudaErrorInvalidDevice;
-  const int grid = p.tiles < sms ? p.tiles : sms;
-  wgmma_gemm_kernel<EPI><<<grid, WG_THREADS, wg_smem(EPI), stream>>>(ta, tb, tout, tres, p);
-  return cudaGetLastError();
+  return wg_launch<EPI, WG_MATRIX>(ta, tb, tout, tres, p, stream);
 }
 
 }  // namespace mudg

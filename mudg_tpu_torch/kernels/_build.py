@@ -29,10 +29,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # c_void_p (a c_int would cut a 64-bit pointer), sizes as c_int, element
 # strides as c_longlong, eps as c_float
 _SIGNATURES = {
-    "mudg_spatial_attn": [_P] * 11 + [_I] * 3 + [_P],
+    "mudg_spatial_attn": [_P] * 9 + [_I] * 3 + [_P],
     "mudg_temporal_attn_stage": [_P] * 11 + [_I] * 2 + [_P],
     "mudg_geglu_ff": [_P] * 10 + [_I] * 3 + [_P],
-    "mudg_gn_silu_tconv": [_P] * 6 + [_I] * 4 + [_P],
+    "mudg_gn_silu_tconv": [_P] * 8 + [_I] * 6 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_f32": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_bwd": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],

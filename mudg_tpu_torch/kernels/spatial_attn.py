@@ -6,7 +6,9 @@ of d = 64. Replaces `mudg_tpu/kernels/spatial_attn.py:_kernel`
 (fused_self_attention) and its long-L tiers `_stream_kernel` and `_fb_kernel`
 (MDM1024 ds2 and ds1), which compute the same function; what bounds it on
 the H100 and how the CUDA design answers that is in the note at the top of
-the .cu file.
+the .cu file: kernel 11's LayerNorm, the q|k|v and out-projection GEMMs on
+`csrc/wgmma_gemm.cuh` and kernel 5's TMA + wgmma attention core
+(`csrc/flash_fwd.cuh`) with the softmax scale already in Wq (qscale 1).
 
 `fused_self_attention` is the wrapper: on a CPU (or meta) tensor it runs
 `plain_self_attention`, the unfused reference math (the JAX `_xla_impl`); on a
@@ -198,14 +200,12 @@ def fused_self_attention(x, norm, attn, heads: int, packed: PackedStage | None =
     lib = _build.load()
     rows = b * l
     out = torch.empty_like(x)
+    xn = x.new_empty(rows, c)        # LN(x), then the attention output
     qkv = x.new_empty(rows, 3 * c)
-    o = x.new_empty(rows, c)
-    mean = torch.empty(rows, device=x.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
     P = _build.ptr
-    err = lib.mudg_spatial_attn(P(x), P(out), P(qkv), P(o), P(mean), P(rstd),
-                                P(packed.ln_w), P(packed.ln_b), P(packed.wqkv),
-                                P(packed.wo), P(packed.bo), b, l, c, _build.stream())
+    err = lib.mudg_spatial_attn(P(x), P(out), P(xn), P(qkv), P(packed.ln_w), P(packed.ln_b),
+                                P(packed.wqkv), P(packed.wo), P(packed.bo), b, l, c,
+                                _build.stream())
     _build.check(err, "spatial_attn")
     launches += 1
     return out

@@ -3,9 +3,11 @@
 
 One TemporalConvBlock stage over a video x (B, T, H, W, C). Replaces
 `mudg_tpu/kernels/tconv.py:_kernel` (fused_gn_silu_tconv); the design note is
-at the top of the .cu file. As in the JAX package the GroupNorm statistics
-are folded outside the kernel (`gn_fold`, plain torch, two-pass variance)
-into per-(B, C) scale/shift.
+at the top of the .cu file: the GroupNorm statistics and h = silu(GN(x)) by
+kernel 11's GroupNorm passes, then the three-tap GEMM on
+`csrc/wgmma_gemm.cuh`. The JAX package folds the statistics outside its
+kernel into per-(B, C) scale/shift; `gn_fold` is that fold in plain torch
+(two-pass variance), the statistics' plain version.
 
 `fused_gn_silu_tconv` is the wrapper: on a CPU (or meta) tensor it runs
 `plain_gn_silu_tconv` (the JAX `_xla_math`); on a CUDA tensor it launches the
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .norms import gn_chunks
 
 # The JAX dispatch admits c < 640 only (C = 640 measured slower than XLA on
 # the TPU); the port keeps the same sites.
@@ -29,16 +32,20 @@ launches = 0
 class PackedTConv(NamedTuple):
     wcat: torch.Tensor   # (C, 3C) bf16, wcat[o, tap*C + i] = W[o, i, tap]
     bias: torch.Tensor   # (C,) fp32
+    gn_w: torch.Tensor   # (C,) fp32, the GroupNorm's weight
+    gn_b: torch.Tensor   # (C,) fp32, and bias
 
 
 @torch.no_grad()
-def pack_tconv(conv) -> PackedTConv:
-    """conv: Conv3d module with weight (C, C, 3, 1, 1)."""
+def pack_tconv(conv, norm) -> PackedTConv:
+    """conv: Conv3d module with weight (C, C, 3, 1, 1); norm: the GroupNorm
+    before it."""
     w = conv.weight
     c = w.shape[0]
     wcat = w[..., 0, 0].permute(0, 2, 1).reshape(c, 3 * w.shape[1])
     bias = conv.bias if conv.bias is not None else w.new_zeros(c)
-    return PackedTConv(wcat.to(torch.bfloat16).contiguous(), bias.float().contiguous())
+    return PackedTConv(wcat.to(torch.bfloat16).contiguous(), bias.float().contiguous(),
+                       norm.weight.float().contiguous(), norm.bias.float().contiguous())
 
 
 def eligible(shape, dtype, weight_shape) -> bool:
@@ -92,15 +99,21 @@ def fused_gn_silu_tconv(x, norm, conv, packed: PackedTConv | None = None):
     b, t, h, w, c = x.shape
     _build.require(x, "x")
     _build.require(packed.wcat, "wcat")
-    _build.require(packed.bias, "bias", torch.float32)
-    if tuple(packed.wcat.shape) != (c, 3 * c) or tuple(packed.bias.shape) != (c,):
+    for name in ("bias", "gn_w", "gn_b"):
+        _build.require(getattr(packed, name), name, torch.float32)
+    if (tuple(packed.wcat.shape) != (c, 3 * c)
+            or any(tuple(v.shape) != (c,) for v in packed[1:])):
         raise ValueError("gn_silu_tconv: packed weights do not match the input")
-    scale, shift = gn_fold(norm, x)
+    rows = t * h * w
+    chunks, per = gn_chunks(b, rows, c)
     lib = _build.load()
     out = torch.empty_like(x)
+    hs = torch.empty_like(x)   # silu(GN(x)), the GEMM's A
+    part = torch.empty(b * chunks * 32 * 2, device=x.device, dtype=torch.float32)
     P = _build.ptr
-    err = lib.mudg_gn_silu_tconv(P(x), P(out), P(scale), P(shift), P(packed.wcat),
-                                 P(packed.bias), b, t, h * w, c, _build.stream())
+    err = lib.mudg_gn_silu_tconv(P(x), P(out), P(hs), P(part), P(packed.gn_w), P(packed.gn_b),
+                                 P(packed.wcat), P(packed.bias), b, t, h * w, c, per, chunks,
+                                 _build.stream())
     _build.check(err, "gn_silu_tconv")
     launches += 1
     return out

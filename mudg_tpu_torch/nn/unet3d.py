@@ -154,7 +154,7 @@ class TemporalConvBlock(nn.Module):
 
     def pack_kernel_weights(self):
         c = self.conv1["2"].weight.shape[0]
-        self.kernel_packs = ([TC.pack_tconv(conv) for _, conv in self.stages()]
+        self.kernel_packs = ([TC.pack_tconv(conv, norm) for norm, conv in self.stages()]
                              if c <= TC.MAX_C else None)
 
     def forward(self, x, impl="auto", drop=None):

@@ -169,8 +169,63 @@ def test_gn_silu_tconv_kernel(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     norm, conv = _mods(dev, gen, nn.GroupNorm(32, 64), nn.Conv3d(64, 64, (3, 1, 1)))
     x = (torch.randn(2, 5, 6, 10, 64, generator=gen, device=dev) * 2 + 1).bfloat16()
-    _close(TC.fused_gn_silu_tconv(x, norm, conv, TC.pack_tconv(conv)),
+    _close(TC.fused_gn_silu_tconv(x, norm, conv, TC.pack_tconv(conv, norm)),
            TC.plain_gn_silu_tconv(x, norm, conv))
+
+
+def _taps_reversed(conv):
+    z = copy.deepcopy(conv)
+    with torch.no_grad():
+        z.weight.copy_(conv.weight.flip(2))
+    return z
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 9, 15, 96), (1, 16, 40, 64, 320), (3, 2, 8, 16, 320),
+                                   (2, 3, 16, 16, 608)])
+def test_gn_silu_tconv_kernel_shapes(dev, shape):
+    """Kernel 4 (GN statistics, h = silu(GN(x)), the three-tap TMA + wgmma
+    GEMM) at H*W = 135 (no multiple of the 128-row tile) with C = 96 (a
+    tap's last K slab half empty), at the MDM512 ds1 frame, at T = 2 (every
+    frame has one tap outside [0, T)) and at C = 608, the widest C % 32 == 0
+    the dispatch admits: within the tolerance of the plain version, the
+    taps reversed must miss it, a rerun gives the same bits."""
+    from mudg_tpu_torch.kernels import tconv as TC
+
+    c = shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    norm, conv = _mods(dev, gen, nn.GroupNorm(32, c), nn.Conv3d(c, c, (3, 1, 1)))
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).bfloat16()
+    packed = TC.pack_tconv(conv, norm)
+    before = TC.launches
+    got = TC.fused_gn_silu_tconv(x, norm, conv, packed)
+    assert TC.launches == before + 1
+    zero = torch.zeros_like(x)
+    ref = _close(got, TC.plain_gn_silu_tconv(x, norm, conv), base=zero)
+    _sees(TC.plain_gn_silu_tconv(x, norm, _taps_reversed(conv)), ref, zero)
+    assert torch.equal(got, TC.fused_gn_silu_tconv(x, norm, conv, packed))
+
+
+def test_gn_silu_tconv_kernel_at_a_dc_offset(dev):
+    """Kernel 4 on a video at a DC offset of 1e3 whose groups vary little
+    (1e3 + 4 s, P(s = +-1) = 1/128 each): within the tolerance of the plain
+    version run in float64, where the one-pass variance misses it (or
+    turns negative)."""
+    from mudg_tpu_torch.kernels import norms as N
+    from mudg_tpu_torch.kernels import tconv as TC
+    from mudg_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    norm, conv = _mods(dev, gen, nn.GroupNorm(32, 320), nn.Conv3d(320, 320, (3, 1, 1)))
+    u = torch.rand(2, 16, 20, 32, 320, generator=gen, device=dev)
+    x = (1e3 + 4.0 * ((u < 1 / 128).float() - (u > 1 - 1 / 128).float())).bfloat16()
+    got = TC.fused_gn_silu_tconv(x, norm, conv, TC.pack_tconv(conv, norm))
+    n64, c64 = copy.deepcopy(norm).double(), copy.deepcopy(conv).double()
+    ref = TC.plain_gn_silu_tconv(x.double(), n64, c64).float()
+    _close(got, ref)
+    one_pass = F.temporal_conv311(conv, F.silu(N.plain_group_norm(
+        x, norm.weight, norm.bias, 32, 1e-5, one_pass=True)))
+    err = (one_pass.float() - ref).abs().nan_to_num(math.inf).max().item()
+    assert err > TOL * ref.abs().max().item(), err
 
 
 # kernels 5 and 6: L = 64 (one half-empty block), 192 and 576 (L % 128 = 64,
@@ -214,6 +269,32 @@ def test_flash_attention_f32_kernel(dev, b, l, h):
     torch.cuda.synchronize()
     assert (o - o_ref).abs().max().item() <= 1e-5 * o_ref.abs().max().item()
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,l,c", [(2, 576, 640), (3, 576, 320)])
+def test_spatial_attn_kernel_tail(dev, b, l, c):
+    """Kernel 1 at L = 576 (L % 128 == 64: the flash core's last 128-row
+    block half empty, its keys past L masked) and C = 640 (10 heads, the
+    q|k|v GEMM's N = 1920): within the tolerance of the plain version; the
+    softmax scale applied twice (the core's qscale 0.125 * log2(e) on the
+    folded Wq) and zeroed attention must miss it."""
+    from mudg_tpu_torch.kernels import spatial_attn as SP
+    from mudg_tpu_torch.nn.attention import CrossAttention
+
+    heads = c // 64
+    gen = torch.Generator(device=dev).manual_seed(8)
+    norm, attn = _mods(dev, gen, nn.LayerNorm(c), CrossAttention(c, heads=heads))
+    _sharpen(attn)
+    x = torch.randn(b, l, c, generator=gen, device=dev).bfloat16()
+    before = SP.launches
+    got = SP.fused_self_attention(x, norm, attn, heads, SP.pack_stage(norm, attn, heads))
+    assert SP.launches == before + 1
+    ref = _close(got, SP.plain_self_attention(x, norm, attn, heads), base=x)
+    twice = copy.deepcopy(attn)
+    with torch.no_grad():
+        twice.to_q.weight.mul_(64 ** -0.5)
+    _sees(SP.plain_self_attention(x, norm, twice, heads), ref, x)
+    _sees(SP.plain_self_attention(x, norm, _zero_v(attn), heads), ref, x)
 
 
 @pytest.mark.parametrize("b,l,c", [(2, 2304, 640), (2, 9216, 320), (144, 9216, 320)])

@@ -249,7 +249,7 @@ def test_tconv_gn_fold_and_packed_weights():
     scale, shift = TC.gn_fold(norm, x)
     assert_close(scale, ref_sc, XLA_TOL, 1e-6)
     assert_close(shift, ref_sh, XLA_TOL, 1e-6)
-    packed = TC.pack_tconv(conv)
+    packed = TC.pack_tconv(conv, norm)
     with torch.no_grad():
         a = x * scale[:, None, None, None] + shift[:, None, None, None]
         a = a * torch.sigmoid(a)
