@@ -5,20 +5,24 @@
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
-     versions, and the nvcc build of every kernel from csrc/;
+     versions, and the nvcc build of every kernel from csrc/, with ptxas's
+     register and spill report (it fails if kernel 2's or kernel 10's wgmma
+     kernels spill, NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
      max|ref| on the output less the residual input where the kernel adds
      one; kernel 5's logsumexp within 1e-2; a plain version with a planted
      fault must miss that bound: zeroed attention, half the keys, kernel 1
-     with the softmax scale applied twice, kernel 4 with its taps reversed
-     (t - 1 and t + 1 swapped); kernel 4 also at a DC offset of 1e3 against
+     with the softmax scale applied twice, kernel 2 with heads 0 and 1's key
+     projections swapped (a mis-packed head order), kernel 4 with its taps
+     reversed (t - 1 and t + 1 swapped); kernel 2 also at a tail shape, rows
+     % 128 == 64; kernel 4 also at a DC offset of 1e3 against
      its plain version in float64, where the one-pass variance must miss;
      kernel 4 reruns bit for bit), with the median CUDA-event time of the
      kernel, of its plain version and, for kernel 5, of torch's
      scaled_dot_product_attention, and the YARDSTICKS (library calls for part
-     of a kernel's work, never on the port's path: kernel 3's two products
+     of a kernel's work, never on the port's path: kernels 2 and 3's products
      alone in cuBLAS, kernel 1's attention core alone in SDPA, kernel 4's
      product alone in cuBLAS), beside the least time the card could take for
      the same work (bytes or operations at its peaks); then the backward
@@ -31,8 +35,9 @@ Phases:
      dropped and with half the keys, kernel 9 without the softmax
      Jacobian's row-sum term, kernel 10 without the g * pdf(g) term, each of
      which must miss it), kernel 6 beside the backward of torch's
-     scaled_dot_product_attention under autograd (timed only); kernel 6
-     reruns bit for bit at every shape; kernels 5 and 6 in fp32 (kernel 5
+     scaled_dot_product_attention under autograd (timed only), kernel 10
+     beside its six products alone in cuBLAS (a yardstick); kernels 6 and 10
+     rerun bit for bit at every shape; kernels 5 and 6 in fp32 (kernel 5
      at MDM512 ds1 and ds2 and MDM1024 ds4, kernel 6 at the MDM512 ds1
      training shape; within 1e-5 * max|ref| and lse within 1e-5, each
      gradient within 1e-4 * max|ref|; the same planted faults; bounds from
@@ -156,6 +161,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -180,6 +186,11 @@ SHARPEN = math.sqrt(3.0)
 PEAK_FLOPS = 989e12   # bf16 tensor cores
 PEAK_FP32 = 67e12     # FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
+# Mangled names of kernel instantiations that must not spill (phase 1 fails
+# otherwise): kernel 2's q|k|v GEMM with its attention epilogue
+# (wgmma_gemm_kernel<WG_TATTN, ..>), kernel 10's GEGLU backward tile
+# (<WG_GEGLU_BWD, ..>) and its weight-gradient GEMM
+NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_wgrad_kernel")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
 # and 12 only with their switches set (phase 12)
@@ -366,9 +377,13 @@ KERNEL_ROWS = {
 
 
 # Phase 2's yardsticks for part of a kernel's work, each a library call on
-# the same inputs, never on the port's path: kernel 3's two products alone in
-# cuBLAS (F.linear of x by W1 and of h by W2, without the LN, the GEGLU or
-# the biases), kernel 1's attention core alone in SDPA (on the q, k and v of
+# the same inputs, never on the port's path: a kernel's products alone in
+# cuBLAS ("cublas_gemm_ms": kernel 3's x by W1 and h by W2, without the LN,
+# the GEGLU or the biases; kernel 2's xn by Wqkv^T and o by Wo^T of both
+# stages, without the LN, the attention or the residual; kernel 10's six:
+# x by W1's value and gate halves, dy by W2, [du | dg] by W1, dy^T h and
+# [du | dg]^T x, on random xn, o, h and [du | dg] made outside the timed
+# window), kernel 1's attention core alone in SDPA (on the q, k and v of
 # its LN and projections, made outside the timed window) and kernel 4's
 # product alone in cuBLAS (F.linear of the (M, 3C) tap concatenation by
 # wcat, the concatenation made outside the timed window). Each is timed
@@ -552,13 +567,20 @@ def phase_build(torch, _build):
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     build_log = _build.BUILD_DIR / "build.log"
+    spilled = []
     if build_log.exists():   # each kernel's registers and spills, by its (mangled) name
         fn = ""
         for line in build_log.read_text().splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line.strip()
-            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if "registers" in line or (spill and spill.group(1, 2) != ("0", "0")):
                 log(f"  ptxas: {fn}: {line.strip()}")
+            if spill and spill.group(1, 2) != ("0", "0") and any(k in fn for k in NO_SPILL):
+                spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"ptxas spilled in {spilled}")
     return card
 
 
@@ -606,6 +628,19 @@ def zero_v(attn):
     z = copy.deepcopy(attn)
     with torch.no_grad():
         z.to_v.weight.zero_()
+    return z
+
+
+def swap_k_heads(attn):
+    """A copy of `attn` whose key projections of heads 0 and 1 are swapped,
+    as from kernel 2 reading a packing with k_0 and k_1 in each other's
+    place."""
+    import torch
+
+    z = copy.deepcopy(attn)
+    with torch.no_grad():
+        w = attn.to_k.weight
+        z.to_k.weight.copy_(torch.cat([w[64:128], w[:64], w[128:]]))
     return z
 
 
@@ -742,19 +777,31 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                                x, norm, scale_twice(attn), heads)},
                        yardsticks={"sdpa_core_ms": lambda: F.scaled_dot_product_attention(
                            *qkv)})
-        for n_seq, c, sites, label in ((2 * tok[0], 320, 5, "ds1"), (2 * tok[0], 512, 1, "init_attn"),
-                                       (2 * tok[1], 640, 5, "ds2")):
+        # kernel 2 at its sites and, at MDM512, at a tail shape whose rows %
+        # 128 == 64 (the last 128-row block half empty; sites 0: checked and
+        # timed, not summed)
+        temporal = [(2 * tok[0], 320, 5, "ds1"), (2 * tok[0], 512, 1, "init_attn"),
+                    (2 * tok[1], 640, 5, "ds2")]
+        if cfg == "mdm512":
+            temporal.append((2 * tok[0] + 4, 320, 0, "tail"))
+        for n_seq, c, sites, label in temporal:
             heads = c // 64
             (n1, a1), (n2, a2) = norm_attention(c), norm_attention(c)
-            pk = (K.spatial_attn.pack_stage(n1, a1, heads), K.spatial_attn.pack_stage(n2, a2, heads))
+            pk = (K.temporal_attn.pack_stage(n1, a1, heads), K.temporal_attn.pack_stage(n2, a2, heads))
             x = rand(n_seq, 16, c)
+            xo = torch.randn((2, n_seq * 16, c), generator=gemm_gen, device=dev).to(bf)
             yield Case("temporal_attn", cfg, f"{label} {n_seq * 16}x{c}", sites,
                        work_temporal(n_seq, 16, c),
                        lambda: K.temporal_attn.fused_double_self_attn(x, (n1, a1), (n2, a2), heads, pk),
                        lambda: K.temporal_attn.plain_double_self_attn(x, (n1, a1), (n2, a2), heads),
                        None, x,
                        {"zero attention": lambda: K.temporal_attn.plain_double_self_attn(
-                           x, (n1, zero_v(a1)), (n2, zero_v(a2)), heads)})
+                           x, (n1, zero_v(a1)), (n2, zero_v(a2)), heads),
+                        "mis-packed heads": lambda: K.temporal_attn.plain_double_self_attn(
+                           x, (n1, swap_k_heads(a1)), (n2, swap_k_heads(a2)), heads)},
+                       yardsticks={"cublas_gemm_ms": lambda: [
+                           F.linear(xo[i], w) for i, w in ((0, pk[0].wqkv), (1, pk[0].wo),
+                                                           (0, pk[1].wqkv), (1, pk[1].wo))]})
         for m, c, block, sites in ((32 * tok[0], 320, True, 10), (32 * tok[0], 512, True, 1),
                                    (32 * tok[1], 640, False, 10), (32 * tok[2], 1280, False, 10),
                                    (32 * tok[3], 1280, False, 2)):
@@ -868,6 +915,9 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
     latent = latent or LATENT
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    # kernel 10's cuBLAS yardstick takes its h and [du | dg] from a generator
+    # of its own, so every case's inputs stay as they were without it
+    gemm_gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     FA, TA, M = K.flash_attention, K.temporal_attn, K.mlp
 
     def rand(*shape, dtype=bf):
@@ -950,7 +1000,23 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
                        lambda: M.geglu_ff_bwd(x, dy, w1, b1, w2),
                        lambda: M.plain_geglu_ff_bwd(x, dy, w1, b1, w2), None, None,
                        {"g pdf(g) term dropped": lambda: M.plain_geglu_ff_bwd(
-                           x, dy, w1, b1, w2, drop_pdf_term=True)}, grads=True)
+                           x, dy, w1, b1, w2, drop_pdf_term=True)}, grads=True, rerun=True,
+                       yardsticks={"cublas_gemm_ms": ff_bwd_products(torch, x, dy, w1, w2,
+                                                                     gemm_gen)})
+
+
+def ff_bwd_products(torch, x, dy, w1, w2, gen):
+    """Kernel 10's six products alone in cuBLAS on its inputs and random h
+    and [du | dg] (made here, outside the timed call): x by W1's value and
+    gate halves, dy by W2, [du | dg] by W1, dy^T h, [du | dg]^T x, all
+    bf16."""
+    inner = w2.shape[1]
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    h, dudg = (torch.randn((x.shape[0], n), generator=gen, device=x.device).to(torch.bfloat16)
+               for n in (inner, 2 * inner))
+    F = torch.nn.functional
+    return lambda: (F.linear(x, w1b[:inner]), F.linear(x, w1b[inner:]), dy @ w2b, dudg @ w1b,
+                    dy.T @ h, dudg.T @ x)
 
 
 def _plain_double_bwd(TA, x, h1, dy, p1, p2, heads):
@@ -1132,7 +1198,8 @@ def reruns_bit_for_bit(torch, case):
     """A case marked `rerun` gives the same bits on a rerun: no atomics (the
     GroupNorm, alone and in kernel 4, merges its partial statistics in a
     fixed order; kernel 4's GEMM sums K in one order; kernel 6 writes every
-    gradient element from one block)."""
+    gradient element from one block; kernel 10 adds its split partials and
+    column sums in a fixed order)."""
     if not case.rerun:
         return True
     a, b = case.kernel(), case.kernel()
@@ -1240,8 +1307,8 @@ def compare(torch, case):
 
 def phase_kernels(torch, K, nn_att, configs):
     """Each kernel vs its plain version at every shape of `configs`, then
-    each backward kernel at every training shape; kernel 6 reruns bit for
-    bit."""
+    each backward kernel at every training shape; kernels 4, 6 and 10 rerun
+    bit for bit."""
     import itertools
 
     return run_cases(torch, itertools.chain(kernel_cases(torch, K, nn_att, configs),

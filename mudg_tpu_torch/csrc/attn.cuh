@@ -1,8 +1,10 @@
-// Attention cores over a packed (rows, 3C) q|k|v buffer (head h in columns
-// h*64 .. h*64+63 of each third), head dim 64, 4 warps per block, each warp
-// owning 16 query rows. Logits arrive in base 2: the wrapper folds
-// d^-0.5 * log2(e) into Wq, so the softmax uses exp2. fp32 softmax, P is
-// rounded to bf16 for the P @ V product as in the reference kernels.
+// mma.sync helpers of the 16-row attention cores: kernel 9's over a packed
+// (rows, 3C) q|k|v buffer (head h in columns h*64 .. h*64+63 of each
+// third), head dim 64, 4 warps per block, each warp owning 16 query rows,
+// and the quad reductions of the softmax rows that kernel 2's GEMM epilogue
+// and short-KV share. Logits arrive in base 2: the wrapper folds d^-0.5 *
+// log2(e) into Wq, so the softmax uses exp2. fp32 softmax, P is rounded to
+// bf16 for the P @ V product as in the reference kernels.
 #pragma once
 
 #include "common.cuh"
@@ -13,22 +15,14 @@ constexpr int AT_ROWS = 64;   // query rows (and key rows) per tile
 constexpr int AT_LDS = 72;    // padded row of a 64-wide bf16 tile
 
 // Copy a 64x64 tile (rows row0.., columns col0..) of a row-major bf16 matrix
-// with leading dimension ld into shared memory, row-major or transposed.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src,
-                                            size_t row0, int ld, int col0) {
+// with leading dimension ld into shared memory.
+__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* src, size_t row0, int ld,
+                                            int col0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = threadIdx.x + i * 128, r = c >> 3, col = (c & 7) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        src + (row0 + r) * (size_t)ld + col0 + col);
-    if (TRANSPOSE) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(col + j) * AT_LDS + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * AT_LDS + col) = v;
-    }
+    *reinterpret_cast<uint4*>(dst + r * AT_LDS + col) =
+        *reinterpret_cast<const uint4*>(src + (row0 + r) * (size_t)ld + col0 + col);
   }
 }
 
@@ -61,27 +55,6 @@ __device__ __forceinline__ void qk_logits(float s[NF][4], const uint32_t qf[4][4
       const bf16* kr = ks_tile + (key0 + nj * 8 + g) * AT_LDS + ks * 16 + 2 * q;
       const uint32_t b[2] = {lds32(kr), lds32(kr + 8)};
       mma_16816(s[nj], qf[ks], b);
-    }
-  }
-}
-
-// o[dj] += P(16 x 16*KK) @ V over keys key0.. ; P comes from the logits'
-// accumulator fragments (their layout is the A-fragment layout).
-template <int KK>
-__device__ __forceinline__ void pv_accumulate(float o[8][4], float s[2 * KK][4],
-                                              const bf16* vt_tile, int key0,
-                                              int g, int q) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dj = 0; dj < 8; ++dj) {
-      const bf16* vr = vt_tile + (dj * 8 + g) * AT_LDS + key0 + kk * 16 + 2 * q;
-      const uint32_t b[2] = {lds32(vr), lds32(vr + 8)};
-      mma_16816(o[dj], a, b);
     }
   }
 }

@@ -2,7 +2,8 @@
 // kernels: mbarriers, TMA tensor loads (cp.async.bulk.tensor) and plain bulk
 // copies into shared memory, TMA tensor stores from shared memory, wgmma
 // with shared-memory descriptors under the 128-byte swizzle (m64nNk16 for N
-// a multiple of 16 up to 128), setmaxnreg, the async-proxy fence, and the
+// a multiple of 16 up to 128; m64n64k16 with both operands MN-major),
+// movmatrix's 8x8 transpose, setmaxnreg, the async-proxy fence, and the
 // host-side encoding of bf16 tensor maps (any rank up to 5; a strided (B,
 // L, H, 64) operand and a row-major (rows, cols) matrix by name).
 //
@@ -476,6 +477,38 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..31] (+)= A(64x16, smem) * B(16x64, smem), both MN-major (transposed):
+// A stored as 16 K rows of the 64 M values, B as 16 K rows of the 64 N
+// values, each one 128-byte swizzle row per K row (advance MNMAJOR_K16 per
+// k16 step)
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The transpose of the 8x8 bf16 matrix whose row lane / 4, columns 2 (lane %
+// 4) and + 1 this thread holds (the mma fragment layout): this thread
+// receives the same positions of the transpose.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t v) {
+  uint32_t t;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(t) : "r"(v));
+  return t;
 }
 
 // The A operand of k16 step kk from the fp32 accumulator of a product over

@@ -57,10 +57,10 @@ __global__ void __launch_bounds__(128)
   const int ld = 3 * c;
   const int r0 = warp * 16;   // this warp's sequence inside the tiles
 
-  load_tile64<false>(qs, qkv, row0, ld, h * 64);
-  load_tile64<false>(ks, qkv, row0, ld, c + h * 64);
-  load_tile64<false>(vs, qkv, row0, ld, 2 * c + h * 64);
-  load_tile64<false>(dos, dout, row0, c, h * 64);
+  load_tile64(qs, qkv, row0, ld, h * 64);
+  load_tile64(ks, qkv, row0, ld, c + h * 64);
+  load_tile64(vs, qkv, row0, ld, 2 * c + h * 64);
+  load_tile64(dos, dout, row0, c, h * 64);
   __syncthreads();
   uint32_t qf[4][4], dof[4][4];
   load_q_frags(qf, qs, warp, g, q);

@@ -30,7 +30,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # strides as c_longlong, eps as c_float
 _SIGNATURES = {
     "mudg_spatial_attn": [_P] * 9 + [_I] * 3 + [_P],
-    "mudg_temporal_attn_stage": [_P] * 11 + [_I] * 2 + [_P],
+    "mudg_temporal_attn_stage": [_P] * 9 + [_I] * 2 + [_P],
     "mudg_geglu_ff": [_P] * 10 + [_I] * 3 + [_P],
     "mudg_gn_silu_tconv": [_P] * 8 + [_I] * 6 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
@@ -38,7 +38,7 @@ _SIGNATURES = {
     "mudg_flash_attn_bwd": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_bwd_f32": [_P] * 9 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_temporal_attn_stage_bwd": [_P] * 21 + [_LL] + [_I] * 2 + [_P],
-    "mudg_geglu_ff_bwd": [_P] * 16 + [_LL] + [_I] * 3 + [_P],
+    "mudg_geglu_ff_bwd": [_P] * 15 + [_LL] + [_I] * 3 + [_P],
     "mudg_tile_composite": [_P] * 4 + [_I] * 3 + [_P],
     "mudg_tile_composite_bwd": [_P] * 6 + [_I] * 3 + [_P],
     "mudg_group_norm": [_P] * 5 + [_I] * 7 + [_F] + [_P],

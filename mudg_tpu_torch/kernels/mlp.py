@@ -211,16 +211,15 @@ def geglu_ff_bwd(x, dy, w1, b1, w2):
     w2t = w2.to(bf).t().contiguous()
     b1f = (b1 if b1 is not None else w1.new_zeros(2 * inner)).float().contiguous()
     dx = torch.empty_like(x)
-    dh = torch.empty(rows, inner, **f32)
     h = x.new_empty(rows, inner)
     dudg = x.new_empty(rows, 2 * inner)
-    slab = torch.empty(2 * ((rows + 127) // 128), 2 * inner, **f32)
+    slab = torch.empty((rows + 63) // 64, 2 * inner, **f32)   # per 64-row tile: colsum du | dg
     dw1, dw2 = torch.empty(2 * inner, c, **f32), torch.empty(c, inner, **f32)
     db1, db2 = torch.empty(2 * inner, **f32), torch.empty(c, **f32)
     work = torch.empty(_build.WORK_ELEMS, **f32)
     P = _build.ptr
     err = _build.load().mudg_geglu_ff_bwd(
-        P(x), P(dy), P(dx), P(w1b), P(b1f), P(w2t), P(w1t), P(dh), P(h), P(dudg), P(slab),
+        P(x), P(dy), P(dx), P(w1b), P(b1f), P(w2t), P(w1t), P(h), P(dudg), P(slab),
         P(dw1), P(db1), P(dw2), P(db2), P(work), _build.WORK_ELEMS, rows, c, inner,
         _build.stream())
     _build.check(err, "geglu_ff_bwd")

@@ -7,6 +7,11 @@ Two consecutive [LN -> self-attention over T = 16 -> out-projection + bias ->
 (fused_double_self_attn) and `_bwd_stage_kernel` (`_bwd_one_stage`); the
 design notes are at the top of the .cu files.
 
+Kernel 2 reads Wq|Wk|Wv packed per head, rows 192 h .. 192 h + 191 =
+[Wq'_h | Wk_h | Wv_h] (`pack_stage`, `pack_stage_params`): one tile of its
+GEMM is 64 rows by one head, whose attention runs in the GEMM's epilogue.
+Kernel 9 reads kernel 1's packing (`spatial_attn.pack_stage_params`).
+
 `fused_double_self_attn` (inference, weights packed once by
 `prepare_kernels`) and `double_self_attn_bwd` are the wrappers: on a CPU (or
 meta) tensor they run the plain versions (`plain_double_self_attn`, the JAX
@@ -24,7 +29,8 @@ import math
 import torch
 
 from . import _build
-from .spatial_attn import LOG2E, PackedStage, check_packed, pack_stage_params
+from . import spatial_attn as SP
+from .spatial_attn import LOG2E, PackedStage, check_packed
 
 T = 16          # sequence length the kernel takes: one 16-row mma tile
 # The JAX dispatch keeps C = 1280 in XLA (`_pick_group(5120, 1280, 1) == 0`).
@@ -40,6 +46,25 @@ def eligible(shape, dtype, c: int, heads: int) -> bool:
     n, t, cc = shape
     return (dtype == torch.bfloat16 and t == T and cc == c == heads * 64
             and (n * t) % 64 == 0 and c <= MAX_C)
+
+
+def pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads: int) -> PackedStage:
+    """Kernel 2's weights of one stage: kernel 1's packing (the softmax scale
+    and log2(e) folded into Wq in bf16) with the rows of Wq'|Wk|Wv in head
+    order, rows 192 h .. 192 h + 191 = [Wq'_h | Wk_h | Wv_h]."""
+    pk = SP.pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads)
+    c = pk.wqkv.shape[1]
+    wqkv = pk.wqkv.reshape(3, heads, c // heads, c).transpose(0, 1).reshape(3 * c, c)
+    return pk._replace(wqkv=wqkv.contiguous())
+
+
+@torch.no_grad()
+def pack_stage(norm, attn, heads: int) -> PackedStage:
+    """norm: LayerNorm module; attn: CrossAttention module (self-attention,
+    no q/k/v biases); packed once for inference."""
+    out = attn.to_out["0"]
+    return pack_stage_params(norm.weight, norm.bias, attn.to_q.weight, attn.to_k.weight,
+                             attn.to_v.weight, out.weight, out.bias, heads)
 
 
 def _bwd_vmem_est(g: int, c: int) -> int:
@@ -97,15 +122,13 @@ def _launch_double(tokens, packed):
     rows = n * t
     h1 = torch.empty_like(tokens)
     out = torch.empty_like(tokens)
-    qkv = tokens.new_empty(rows, 3 * c)
-    o = tokens.new_empty(rows, c)
-    mean = torch.empty(rows, device=tokens.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
+    xn = tokens.new_empty(rows, c)   # LN(x)
+    o = tokens.new_empty(rows, c)    # the heads' attention outputs
     P = _build.ptr
     for src, dst, p in ((tokens, h1, packed[0]), (h1, out, packed[1])):
         err = lib.mudg_temporal_attn_stage(
-            P(src), P(dst), P(qkv), P(o), P(mean), P(rstd), P(p.ln_w), P(p.ln_b),
-            P(p.wqkv), P(p.wo), P(p.bo), rows, c, _build.stream())
+            P(src), P(dst), P(xn), P(o), P(p.ln_w), P(p.ln_b), P(p.wqkv), P(p.wo), P(p.bo),
+            rows, c, _build.stream())
         _build.check(err, "temporal_attn")
     launches += 1
     return out, h1
@@ -185,7 +208,7 @@ def _launch_stage_bwd(x, dy, params, heads):
     rows = n * t
     d = c // heads
     ln_w, ln_b, wq, wk, wv, wo, bo = params
-    pk = pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads)
+    pk = SP.pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads)
     check_packed(pk, c)
     wqkv_t = pk.wqkv.t().contiguous()
     wo_t = wo.to(torch.bfloat16).t().contiguous()

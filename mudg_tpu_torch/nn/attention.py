@@ -236,12 +236,15 @@ def feed_forward_block(ff, norm, x, impl="auto", packed=None):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> FF with pre-LN residuals (attention.py:359-438)."""
+    """self-attn -> cross-attn -> FF with pre-LN residuals (attention.py:359-438).
+    `temporal`: a block of a TemporalTransformer, whose two self-attentions
+    kernel 2 takes (packed in its head order) instead of kernel 1."""
 
     def __init__(self, dim, *, heads, dim_head, context_dim=None, image_cross=False,
-                 alpha_learnable=False):
+                 alpha_learnable=False, temporal=False):
         super().__init__()
         self.heads = heads
+        self.temporal = temporal
         self.attn1 = CrossAttention(dim, heads=heads, dim_head=dim_head)
         self.attn2 = CrossAttention(dim, context_dim, heads=heads, dim_head=dim_head,
                                     image_cross=image_cross,
@@ -261,11 +264,12 @@ class BasicTransformerBlock(nn.Module):
         """Kernel-side weights of this block's sites, packed once."""
         c = self.norm1.weight.shape[0]
         packs = {"ff": M.pack_ff(self.ff, self.norm3)}
+        pack_stage = TA.pack_stage if self.temporal else SP.pack_stage
         if c <= SP.MAX_C and c == self.heads * 64:
             for name, norm, attn in (("attn1", self.norm1, self.attn1),
                                      ("attn2", self.norm2, self.attn2)):
                 if self._self_attn_square(attn):
-                    packs[name] = SP.pack_stage(norm, attn, self.heads)
+                    packs[name] = pack_stage(norm, attn, self.heads)
         self.kernel_packs = packs
 
     def _spatial_kernel_site(self, x, impl):
@@ -354,7 +358,7 @@ class TemporalTransformer(nn.Module):
         self.norm = nn.GroupNorm(32, in_channels)
         self.proj_in = _make_proj(in_channels, inner, use_linear)
         self.transformer_blocks = nn.ModuleDict({
-            str(d): BasicTransformerBlock(inner, heads=heads, dim_head=dim_head)
+            str(d): BasicTransformerBlock(inner, heads=heads, dim_head=dim_head, temporal=True)
             for d in range(depth)})
         self.proj_out = _make_proj(inner, in_channels, use_linear)
 

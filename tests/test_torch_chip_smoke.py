@@ -1,9 +1,10 @@
 """chip_smoke.py's kernel checks at tiny latents on the CPU, where every
 wrapper runs its plain version: each case must pass its own check, and each
 planted fault (zeroed attention, half the keys, kernel 1's softmax scale
-applied twice, kernel 4's taps reversed and its one-pass variance at a DC
-offset; for the backward kernels delta dropped, the softmax Jacobian's
-row-sum term dropped, the g * pdf(g) term dropped) must fail it. This holds the checks' power to see a wrong
+applied twice, kernel 2's heads mis-packed, kernel 4's taps reversed and its
+one-pass variance at a DC offset; for the backward kernels delta dropped,
+the softmax Jacobian's row-sum term dropped, the g * pdf(g) term dropped)
+must fail it. This holds the checks' power to see a wrong
 kernel, not the kernels themselves (those run only on the card)."""
 from __future__ import annotations
 
@@ -25,11 +26,12 @@ def test_chip_smoke_checks_see_planted_faults(config):
     """Every forward kernel's cases at a configuration; kernel 5 in bf16
     (MDM1024 only: no MDM512 bf16 forward reaches it) and in fp32 (both),
     held to F32_TOL and F32_LSE_TOL with FP32 operations in its bound;
+    kernel 2 at MDM512 also at a tail shape (rows % 128 == 64, sites 0);
     kernel 4 at MDM512 also at a DC offset of 1e3 against float64, where
     only that case's kernel (here the bf16 plain version) may differ from
     its reference. Each kernel's yardsticks compute their part of its
     work."""
-    seen, flash, faults, offsets = set(), set(), {}, 0
+    seen, flash, faults, offsets, tails = set(), set(), {}, 0, []
     # cases are consumed one by one: their closures bind the current inputs
     for case in CS.kernel_cases(torch, K, nn_att, (config,), dev="cpu",
                                 latent={config: (8, 8)}):
@@ -51,6 +53,13 @@ def test_chip_smoke_checks_see_planted_faults(config):
         elif case.name == "spatial_attn":   # the core alone in SDPA, (B, H, L, 64)
             b, l, c = map(int, case.label.split()[-1].split("x"))
             assert tuple(shapes["sdpa_core_ms"].shape) == (b, c // 64, l, 64)
+        elif case.name == "temporal_attn":   # both stages' xn Wqkv^T and o Wo^T alone
+            rows, c = map(int, case.label.split()[-1].split("x"))
+            assert [tuple(p.shape) for p in shapes["cublas_gemm_ms"]] == [
+                (rows, 3 * c), (rows, c)] * 2
+            if case.label.startswith("tail"):
+                assert rows % 128 == 64 and case.sites == 0, case.label
+                tails.append(case.label)
         elif case.name == "gn_silu_tconv":   # (M, 3C) taps by wcat: (M, C)
             assert case.rerun, case.label
             b, t, h, w, c = map(int, case.label.split()[1].split("x"))
@@ -72,6 +81,8 @@ def test_chip_smoke_checks_see_planted_faults(config):
     assert seen == forward
     assert flash == ({True} if config == "mdm512" else {False, True})
     assert faults["spatial_attn"] == {"zero attention", "half the keys", "softmax scale twice"}
+    assert faults["temporal_attn"] == {"zero attention", "mis-packed heads"}
+    assert len(tails) == (config == "mdm512")
     assert faults["gn_silu_tconv"] == (
         {"taps reversed", "one-pass variance"} if config == "mdm512" else {"taps reversed"})
     assert offsets == (config == "mdm512")
@@ -117,8 +128,9 @@ def test_chip_smoke_kernel_line_keys():
 def test_chip_smoke_grad_checks_see_planted_faults():
     """Every backward kernel's cases (kernel 6 in bf16 at each training
     length, in fp32 at MDM512 ds1 held to F32_BWD_TOL, and at the 576-row
-    tail shape; each rerun bit for bit), with kernel 5 before each of kernel
-    6's: each passes its check and each planted fault misses it."""
+    tail shape; kernels 6 and 10 each rerun bit for bit), with kernel 5
+    before each of kernel 6's: each passes its check and each planted fault
+    misses it. Kernel 10's yardstick computes its six products alone."""
     seen, flash_bwd = set(), []
     for case in CS.grad_cases(torch, K, nn_att, dev="cpu",
                               latent={"mdm512": (8, 8), "mdm1024": (8, 16)}):
@@ -128,7 +140,13 @@ def test_chip_smoke_grad_checks_see_planted_faults():
         assert chk.faults and all(e > bound for e in chk.faults.values()), (case.label,
                                                                             chk.faults)
         assert CS.reruns_bit_for_bit(torch, case)
-        assert case.rerun == (case.name == "flash_attention_bwd"), case.label
+        assert case.rerun == (case.name in ("flash_attention_bwd", "geglu_ff_bwd")), case.label
+        if case.name == "geglu_ff_bwd":   # x W1v^T, x W1g^T, dy W2, [du | dg] W1, dy^T h, [du | dg]^T x
+            m, c = map(int, case.label.split("x"))
+            assert [tuple(p.shape) for p in case.yardsticks["cublas_gemm_ms"]()] == [
+                (m, 4 * c), (m, 4 * c), (m, 4 * c), (m, c), (c, 4 * c), (8 * c, c)]
+        else:
+            assert not case.yardsticks, case.label
         if case.name == "flash_attention_bwd":
             flash_bwd.append((case.config, case.label.split()[-1], case.grad_tol))
         seen.add(case.name)

@@ -105,7 +105,6 @@ def test_spatial_attn_kernel(dev):
 
 
 def test_temporal_attn_kernel(dev):
-    from mudg_tpu_torch.kernels import spatial_attn as SP
     from mudg_tpu_torch.kernels import temporal_attn as TA
     from mudg_tpu_torch.nn.attention import CrossAttention
 
@@ -114,10 +113,47 @@ def test_temporal_attn_kernel(dev):
                            nn.LayerNorm(128), CrossAttention(128, heads=2))
     _sharpen(a1, a2)
     x = torch.randn(12, 16, 128, generator=gen, device=dev).bfloat16()
-    packed = (SP.pack_stage(n1, a1, 2), SP.pack_stage(n2, a2, 2))
+    packed = (TA.pack_stage(n1, a1, 2), TA.pack_stage(n2, a2, 2))
     got = TA.fused_double_self_attn(x, (n1, a1), (n2, a2), 2, packed)
     ref = _close(got, TA.plain_double_self_attn(x, (n1, a1), (n2, a2), 2), base=x)
     _sees(TA.plain_double_self_attn(x, (n1, _zero_v(a1)), (n2, _zero_v(a2)), 2), ref, x)
+
+
+def _swap_k_heads(attn):
+    """A copy of attn with heads 0 and 1's key projections swapped, as from
+    kernel 2 reading a mis-packed head order (a planted fault)."""
+    z = copy.deepcopy(attn)
+    with torch.no_grad():
+        w = attn.to_k.weight
+        z.to_k.weight.copy_(torch.cat([w[64:128], w[:64], w[128:]]))
+    return z
+
+
+@pytest.mark.parametrize("n,c", [(512, 320), (512, 512), (512, 640), (516, 320), (82944, 320)])
+def test_temporal_attn_kernel_shapes(dev, n, c):
+    """Kernel 2 at the UNet's widths (C = 320, 512, 640); at n = 516
+    sequences (rows % 128 == 64: the last 128-row block half empty); and at
+    ds1 of a 3-task, 3-variant MDM1024 batch, 9 x 9216 sequences (1.33e6
+    rows). Mis-packed heads (heads 0 and 1's keys swapped) miss the
+    tolerance."""
+    from mudg_tpu_torch.kernels import temporal_attn as TA
+    from mudg_tpu_torch.nn.attention import CrossAttention
+
+    heads = c // 64
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n1, a1, n2, a2 = _mods(dev, gen, nn.LayerNorm(c), CrossAttention(c, heads=heads),
+                           nn.LayerNorm(c), CrossAttention(c, heads=heads))
+    _sharpen(a1, a2)
+    x = torch.randn(n, 16, c, generator=gen, device=dev).bfloat16()
+    packed = (TA.pack_stage(n1, a1, heads), TA.pack_stage(n2, a2, heads))
+    with torch.no_grad():   # the plain versions keep no autograd graph
+        before = TA.launches
+        got = TA.fused_double_self_attn(x, (n1, a1), (n2, a2), heads, packed)
+        assert TA.launches == before + 1
+        ref = _close(got, TA.plain_double_self_attn(x, (n1, a1), (n2, a2), heads), base=x)
+        del got
+        _sees(TA.plain_double_self_attn(x, (n1, _swap_k_heads(a1)), (n2, _swap_k_heads(a2)),
+                                        heads), ref, x)
 
 
 @pytest.mark.parametrize("rows", [256, 768, 200, 384])
@@ -589,6 +625,27 @@ def test_geglu_ff_bwd_kernel(dev):
         before = M.bwd_launches
         got = M.geglu_ff_bwd(x, dy, w1, b1, w2)
         assert M.bwd_launches == before + 1
+        ref = M.plain_geglu_ff_bwd(x, dy, w1, b1, w2)
+        _grads_close(got, ref)
+        _bit_equal(got, M.geglu_ff_bwd(x, dy, w1, b1, w2))
+        _grads_miss(M.plain_geglu_ff_bwd(x, dy, w1, b1, w2, drop_pdf_term=True), ref)
+
+
+@pytest.mark.parametrize("m,c", [(8192, 320), (2048, 1280)])
+def test_geglu_ff_bwd_kernel_widths(dev, m, c):
+    """Kernel 10 at C = 320 and 1280 (inner 1280 and 5120) against the plain
+    GEGLU backward, the planted fault missing; a rerun gives the same bits
+    (fixed-order split and column sums)."""
+    from mudg_tpu_torch.kernels import mlp as M
+    from mudg_tpu_torch.nn.attention import FeedForward
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    ff = _randomize(FeedForward(c).to(dev), gen)
+    w1, b1, w2, _ = M.ff_params(ff)
+    x = torch.randn(m, c, generator=gen, device=dev).bfloat16()
+    dy = torch.randn(m, c, generator=gen, device=dev).bfloat16()
+    with torch.no_grad():
+        got = M.geglu_ff_bwd(x, dy, w1, b1, w2)
         ref = M.plain_geglu_ff_bwd(x, dy, w1, b1, w2)
         _grads_close(got, ref)
         _bit_equal(got, M.geglu_ff_bwd(x, dy, w1, b1, w2))
