@@ -7,7 +7,7 @@ Phases:
   1. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc build of every kernel from csrc/, with ptxas's
      register and spill report (it fails if kernel 2's or kernel 10's wgmma
-     kernels spill, NO_SPILL);
+     kernels or fp32 kernels 5 and 6's tf32 wgmma kernels spill, NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
@@ -38,12 +38,14 @@ Phases:
      scaled_dot_product_attention under autograd (timed only), kernel 10
      beside its six products alone in cuBLAS (a yardstick); kernels 6 and 10
      rerun bit for bit at every shape; kernels 5 and 6 in fp32 (kernel 5
-     at MDM512 ds1 and ds2 and MDM1024 ds4, kernel 6 at the MDM512 ds1
-     training shape; within 1e-5 * max|ref| and lse within 1e-5, each
-     gradient within 1e-4 * max|ref|; the same planted faults; bounds from
-     FP32 operations at 67 TFLOP/s, SDPA in fp32 as the yardstick) and in
-     bf16 at a tail shape, 3 x 576 x 3 heads (the last 128-row block half
-     empty);
+     at MDM512 ds1 and ds2 and MDM1024 ds1, ds2 and ds4, kernel 6 at the
+     MDM512 ds1 and ds2 training shapes; within 1e-5 * max|ref| and lse
+     within 1e-5, each gradient within 1e-4 * max|ref|; the same planted
+     faults and "1xTF32", the plain version on operands rounded once to
+     TF32; bounds from three TF32 products per product at 495 TFLOP/s,
+     with the FMA bound at 67 TFLOP/s beside them, SDPA in fp32 as the
+     yardstick) and both dtypes at a tail shape, 3 x 576 x 3 heads (the
+     last 128-row block half empty);
   3. one full-width MDM512 UNetConfig() forward at batch 2 (40x64 latent,
      re-randomized weights) on three paths: kernels bf16, plain bf16, plain
      fp32 (TF32 off, impl="plain"); the kernel path's relative L2 error against fp32 must
@@ -124,7 +126,8 @@ Phases:
      1-5's sites and kernels 11-12's as the JAX predicates admit them,
      SWITCH_SITES; and an fp32 forward with impl="auto", where kernels 11
      and 12 and kernel 5 take fp32 and kernels 1-4 do not run, within 1e-4
-     relative L2 of the fp32 plain forward, launches at SWITCH_SITES_F32),
+     relative L2 of the fp32 plain forward, launches at SWITCH_SITES_F32,
+     timed (median of 3, as phases 3 and 5's forwards)),
      (b) one MDM1024 `sample` clip as phase 6 with its s/clip beside phase
      6's, (c) one MDM512 training micro-step's gradients as phase 7's check,
      with kernel 11-12 launches at the training sites;
@@ -147,8 +150,8 @@ sites 0 there: checked and timed, not summed), and kernel 13's per-call
 times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
-packed path of phase 11, phase 12's clip and micro-step, and phase 13's
-forwards). Then the
+packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
+and phase 13's forwards). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -185,12 +188,19 @@ SHARPEN = math.sqrt(3.0)
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_FLOPS = 989e12   # bf16 tensor cores
 PEAK_FP32 = 67e12     # FP32 outside the tensor cores
+PEAK_TF32 = 495e12    # TF32 tensor cores
+# fp32 flash attention (kernels 5 and 6 in fp32) forms each product from
+# three TF32 products (3xTF32): its bound is TF32_PASSES x its operations at
+# PEAK_TF32, with the FMA bound (PEAK_FP32) beside it
+TF32_PASSES = 3
 PEAK_BYTES = 3.35e12  # HBM3
 # Mangled names of kernel instantiations that must not spill (phase 1 fails
 # otherwise): kernel 2's q|k|v GEMM with its attention epilogue
 # (wgmma_gemm_kernel<WG_TATTN, ..>), kernel 10's GEGLU backward tile
-# (<WG_GEGLU_BWD, ..>) and its weight-gradient GEMM
-NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_wgrad_kernel")
+# (<WG_GEGLU_BWD, ..>) and its weight-gradient GEMM, and fp32 kernels 5 and
+# 6's three tf32 wgmma kernels
+NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_wgrad_kernel",
+            "flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
 # and 12 only with their switches set (phase 12)
@@ -479,8 +489,10 @@ def cuda_ms_queued(torch, fn, iters=10):
 
 def bound(flops, nbytes, peak=PEAK_FLOPS):
     """(ms, "bytes" | "operations"): the least time the card could take for
-    `flops` operations at `peak` (bf16 by default) and `nbytes` bytes moved."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    `flops` operations at `peak` (bf16 by default) and `nbytes` bytes moved;
+    at PEAK_TF32 each operation is TF32_PASSES tf32 operations (3xTF32)."""
+    passes = TF32_PASSES if peak == PEAK_TF32 else 1
+    t_ops, t_bytes = passes * flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -851,28 +863,42 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
         flash = {"mdm512": [(32, tok[0], 5, 0, "f32 ds1", f32),
                             (32, tok[1], 10, 0, "f32 ds2", f32)],
                  "mdm1024": [(32, tok[2], 20, 5, "ds4", bf), (2, tok[0], 5, 0, "long", bf),
+                             (32, tok[0], 5, 0, "f32 ds1", f32),
+                             (32, tok[1], 10, 0, "f32 ds2", f32),
                              (32, tok[2], 20, 0, "f32 ds4", f32)]}[cfg]
         for b, l, heads, sites, label, dtype in flash:
             qkv = rand(b, l, 3, heads, 64, dtype=dtype)
             yield flash_case(torch, K, nn_att, cfg, label, sites, qkv)
 
 
+def tf32_rounded(torch, x):
+    """x rounded once to TF32 (to nearest, ties away from zero, as
+    cvt.rna.tf32.f32), in fp32."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def flash_case(torch, K, nn_att, cfg, label, sites, qkv):
     """Kernel 5 on the strided q, k, v views of one (B, L, 3, H, 64) tensor;
     the planted fault attends to half the keys. fp32 is held to F32_TOL and
-    F32_LSE_TOL, with its bound from FP32 operations."""
+    F32_LSE_TOL, with its bound from three TF32 products per product
+    (PEAK_TF32), and must see one more fault: "1xTF32", the plain attention
+    on operands rounded once to TF32."""
     q, k, v = qkv.unbind(2)
     b, l, heads, _ = q.shape
     f32 = q.dtype == torch.float32
+    faults = {"half the keys": lambda: nn_att.plain_attend(
+        q, k[:, :l // 2], v[:, :l // 2], with_lse=True)}
+    if f32:
+        faults["1xTF32"] = lambda: nn_att.plain_attend(
+            *(tf32_rounded(torch, t) for t in (q, k, v)), with_lse=True)
     return Case("flash_attention", cfg, f"{label} {b}x{l}x{heads}x64", sites,
                 work_flash(b, l, heads, 64, q.element_size()),
                 lambda: K.flash_attention.flash_attention(q, k, v),
                 lambda: K.flash_attention.plain_flash_attention(q, k, v),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                None, {"half the keys": lambda: nn_att.plain_attend(
-                    q, k[:, :l // 2], v[:, :l // 2], with_lse=True)},
-                tol=F32_TOL if f32 else TOL, peak=PEAK_FP32 if f32 else PEAK_FLOPS,
+                None, faults,
+                tol=F32_TOL if f32 else TOL, peak=PEAK_TF32 if f32 else PEAK_FLOPS,
                 lse_tol=F32_LSE_TOL if f32 else LSE_TOL)
 
 
@@ -931,15 +957,18 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
         return (dx, *[g for gs in rest for g in (gs if isinstance(gs, tuple) else (gs,))])
 
     # kernels 5 and 6 at each training length (batch 1 x 16 frames), in
-    # bf16 and, at MDM512 ds1, in fp32; and a tail shape whose L % 128 = 64
-    # (the last 128-row block half empty) with B*H = 9 pairs of blocks
-    flash = [(cfg, label, TRAIN_FRAMES, latent[cfg][0] * latent[cfg][1] // 4 ** i, 5 * 2 ** i,
-              5 if cfg in ("mdm512", "mdm1024") else 0, bf)
-             for cfg, labels in (("mdm512", ("ds1", "ds2")), ("mdm1024", ("ds1", "ds2", "ds4")))
+    # bf16 and, at MDM512 ds1 and ds2, in fp32; and a tail shape whose L %
+    # 128 = 64 (the last 128-row block half empty) with B*H = 9 pairs of
+    # blocks, in bf16 and in fp32
+    flash = [(cfg, label, TRAIN_FRAMES, latent[base][0] * latent[base][1] // 4 ** i,
+              5 * 2 ** i, 5 if cfg == base else 0, dtype)
+             for cfg, base, labels, dtype in (
+                 ("mdm512", "mdm512", ("ds1", "ds2"), bf),
+                 ("mdm1024", "mdm1024", ("ds1", "ds2", "ds4"), bf),
+                 ("mdm512-f32", "mdm512", ("ds1", "ds2"), torch.float32))
              for i, label in enumerate(labels)]
-    flash += [("mdm512-f32", "ds1", TRAIN_FRAMES, latent["mdm512"][0] * latent["mdm512"][1], 5,
-               0, torch.float32),
-              ("tail", "L%128=64", 3, 576, 3, 0, bf)]
+    flash += [("tail", "L%128=64", 3, 576, 3, 0, bf),
+              ("tail-f32", "L%128=64", 3, 576, 3, 0, torch.float32)]
     for cfg, label, b, l, heads, sites, dtype in flash:
         qkv = rand(b, l, 3, heads, 64, dtype=dtype)
         # kernel 5 at the shape (~N(0, 1) logits, as in its forward cases);
@@ -951,15 +980,18 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
         do = rand(b, l, heads, 64, dtype=dtype)
         zero = torch.zeros_like(lse)
         f32 = dtype == torch.float32
+        faults = {"delta dropped": lambda: FA.plain_flash_attention_bwd(
+                      q, k, v, o, lse, do, delta=zero),
+                  "half the keys": lambda: half_keys_flash_bwd(torch, K, q, k, v, o, lse, do)}
+        if f32:
+            faults["1xTF32"] = lambda: FA.plain_flash_attention_bwd(
+                *(tf32_rounded(torch, t) for t in (q, k, v)), o, lse, tf32_rounded(torch, do))
         yield Case("flash_attention_bwd", cfg, f"{label} {b}x{l}x{heads}x64", sites,
                    work_flash_bwd(b, l, heads, 64, q.element_size()),
                    lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
                    lambda: FA.plain_flash_attention_bwd(q, k, v, o, lse, do),
-                   sdpa_backward(torch, q, k, v, do), None,
-                   {"delta dropped": lambda: FA.plain_flash_attention_bwd(
-                       q, k, v, o, lse, do, delta=zero),
-                    "half the keys": lambda: half_keys_flash_bwd(torch, K, q, k, v, o, lse, do)},
-                   grads=True, peak=PEAK_FP32 if f32 else PEAK_FLOPS,
+                   sdpa_backward(torch, q, k, v, do), None, faults,
+                   grads=True, peak=PEAK_TF32 if f32 else PEAK_FLOPS,
                    grad_tol=F32_BWD_TOL if f32 else BWD_TOL, rerun=True)
 
     for cfg in ("mdm512", "mdm1024"):
@@ -1335,6 +1367,12 @@ def run_cases(torch, cases, check=None):
         lqms = cuda_ms_queued(torch, flib) if flib is not None and not case.grads else None
         flops, nbytes = case.work
         bms, by = bound(flops, nbytes, case.peak)
+        extra_bound = {}
+        if case.name == "flash_attention_bwd":   # the two-kernel design's own bound
+            extra_bound["design_bound_ms"] = bound(flops * FLASH_BWD_DESIGN, nbytes,
+                                                   case.peak)[0]
+        if case.peak == PEAK_TF32:   # the same work on the FMA units
+            extra_bound["fma_bound_ms"] = bound(flops, nbytes, PEAK_FP32)[0]
         extra = (f", lse max|diff| {chk.lse_err:.3e} <= {case.lse_tol}"
                  if chk.lse_err is not None else "")
         extra += "".join(f", {n} {e:.3e}" for n, e in chk.faults.items())
@@ -1348,7 +1386,9 @@ def run_cases(torch, cases, check=None):
             + (f"   library {lms:.3f} ms" if lms is not None else "")
             + (f" (queued {lqms:.3f} ms)" if lqms is not None else "")
             + "".join(f"   {k} {v:.3f}" for k, v in yms.items())
-            + f"   bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)")
+            + f"   bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)"
+            + (f"   FMA bound {extra_bound['fma_bound_ms']:.4f} ms"
+               if "fma_bound_ms" in extra_bound else ""))
         r = rows.setdefault(case.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                         "bound_ms": 0.0, "library_ms": None, "ok": True,
                                         "shapes": []})
@@ -1365,11 +1405,6 @@ def run_cases(torch, cases, check=None):
         if lqms is not None:
             r["library_ms_queued"] = r.get("library_ms_queued", 0.0) + case.sites * lqms
         r["ok"] &= chk.ok
-        if case.name == "flash_attention_bwd":   # the two-kernel design's own bound
-            extra_bound = {"design_bound_ms": bound(flops * FLASH_BWD_DESIGN, nbytes,
-                                                    case.peak)[0]}
-        else:
-            extra_bound = {}
         r["shapes"].append({"config": case.config, "shape": case.label, "sites": case.sites,
                             "max_abs_err": chk.abs_err, "err": chk.err, "tol": chk.tol,
                             "max_abs_ref": chk.scale,
@@ -1438,15 +1473,19 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
                 K.reset_launch_counts()
                 f32 = unet(x, t, ctx, c_label=lab, fs=fs, impl="auto")
                 counts = K.launch_counts()
+                ms_32 = cuda_ms(torch, lambda: unet(x, t, ctx, c_label=lab, fs=fs, impl="auto"),
+                                iters=3, warmup=1)
             e32 = ((f32 - ref).norm() / ref.norm()).item()
             expect = {**dict.fromkeys(counts, 0), **SWITCH_SITES_F32[cfg]}
             log(f"  fp32 switch path: rel L2 vs fp32 plain {e32:.4e} (bound {F32_PATH_TOL}), "
+                f"forward fp32 {ms_32:.1f} ms, kernel 5 at {counts['flash_attention']} sites, "
                 f"launches {counts}")
             if not bool(torch.isfinite(f32).all().item()) or e32 > F32_PATH_TOL:
                 raise AssertionError(f"fp32 switch-path error {e32:.4e} exceeds {F32_PATH_TOL}")
             if counts != expect:
                 raise AssertionError(f"launch counts {counts} != {expect}")
-            report["rel_l2_switches_f32"] = e32
+            report.update({"rel_l2_switches_f32": e32, "ms_switches_f32": ms_32,
+                           "launches_switches_f32": counts})
             del f32
         unet.to(torch.bfloat16)
         K.prepare_kernels(unet)
@@ -2518,6 +2557,8 @@ def main(argv=None):
             "3" + tag, "MDM512 UNet forward", phase_unet, torch, K, U, "mdm512", paths(3))
         if launches_off is not None:
             launches["mdm512_switches_off"] = launches_off
+        if sw:
+            launches["mdm512_f32_forward"] = report["unet_mdm512"]["launches_switches_f32"]
         if args.profile and 3 in phases:
             report["profile_mdm512"] = phase_profile(torch, unet, "mdm512", args.out)
     if 4 in phases:
@@ -2531,6 +2572,8 @@ def main(argv=None):
             "5" + tag, "MDM1024 UNet forward", phase_unet, torch, K, U, "mdm1024", paths(5))
         if launches_off is not None:
             launches["mdm1024_switches_off"] = launches_off
+        if sw:
+            launches["mdm1024_f32_forward"] = report["unet_mdm1024"]["launches_switches_f32"]
         if args.profile and 5 in phases:
             report["profile_mdm1024"] = phase_profile(torch, unet, "mdm1024", args.out)
     if 6 in phases or sw:

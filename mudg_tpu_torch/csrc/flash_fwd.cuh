@@ -73,25 +73,26 @@ __device__ __forceinline__ void mask_tail(float (&sc)[64], int valid) {
     if (8 * j >= valid) sc[4 * j] = sc[4 * j + 1] = sc[4 * j + 2] = sc[4 * j + 3] = -INFINITY;
 }
 
-// The base-2 online softmax of one S tile in place (P = 2^(S - m)), for this
-// thread's rows g and g + 8: the running max m, the row sums l (this
+// The base-2 online softmax of one S tile of N / 2 columns (N registers) in
+// place (P = 2^(S - m)), for this thread's rows g and g + 8: the running max m, the row sums l (this
 // thread's columns; summed over the quad at the end) and the factor alpha
 // by which O must be rescaled before it takes this tile's P V.
-template <bool FIRST>
-__device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m)[2], float (&l)[2],
+template <bool FIRST, int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2]) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+    for (int j = 0; j < N / 4; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
     mx = quad_max(mx);
     const float mnew = FIRST ? mx : fmaxf(m[hh], mx);
     alpha[hh] = FIRST ? 1.f : exp2f(m[hh] - mnew);
     m[hh] = mnew;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       sc[4 * j + 2 * hh] = exp2f(sc[4 * j + 2 * hh] - mnew);
       sc[4 * j + 2 * hh + 1] = exp2f(sc[4 * j + 2 * hh + 1] - mnew);
       sum += sc[4 * j + 2 * hh] + sc[4 * j + 2 * hh + 1];

@@ -2,10 +2,12 @@
 // kernels: mbarriers, TMA tensor loads (cp.async.bulk.tensor) and plain bulk
 // copies into shared memory, TMA tensor stores from shared memory, wgmma
 // with shared-memory descriptors under the 128-byte swizzle (m64nNk16 for N
-// a multiple of 16 up to 128; m64n64k16 with both operands MN-major),
-// movmatrix's 8x8 transpose, setmaxnreg, the async-proxy fence, and the
-// host-side encoding of bf16 tensor maps (any rank up to 5; a strided (B,
-// L, H, 64) operand and a row-major (rows, cols) matrix by name).
+// a multiple of 16 up to 128; m64n64k16 with both operands MN-major; tf32
+// m64nNk8 for N = 32 and 64, K-major, A from shared memory or registers,
+// with the cvt.rna hi/lo split of an fp32 value), movmatrix's 8x8
+// transpose, setmaxnreg, the async-proxy fence, and the host-side encoding
+// of tensor maps (bf16 or fp32, any rank up to 5; a strided bf16 (B, L, H,
+// 64) operand and a row-major bf16 (rows, cols) matrix by name).
 //
 // Shared-memory tiles that TMA fills and wgmma reads are rows of 64 bf16
 // (128 bytes: one swizzle row), 8-row groups 1024 bytes apart, every tile
@@ -502,6 +504,99 @@ __device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// ---- tf32 wgmma (fp32 kept by three products, flash_attn_f32.cu) ----------
+//
+// A tf32 operand is an fp32 word whose low 13 mantissa bits the tensor core
+// ignores. Tiles are rows of fp32 under the 128-byte swizzle, 32 columns per
+// 128-byte row: a 64-column tile of R rows is two boxes of 32 columns, R *
+// 128 bytes apart. Both operands are K-major (the tf32 shapes have no
+// transpose bit), and a k8 step is 32 bytes along the swizzled row, as a
+// bf16 k16 step. The register A fragment of m64k8 (per warp, g = lane / 4,
+// q = lane % 4): a0 = (row 16w + g, k q), a1 = (row 16w + g + 8, k q),
+// a2 = (row 16w + g, k q + 4), a3 = (row 16w + g + 8, k q + 4).
+
+// x rounded to tf32, to nearest with ties away from zero (cvt.rna).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to about 22 bits: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact in fp32).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Descriptor step (16-byte units) to k8 step kk of a K-major fp32 tile of
+// ROWS rows stored as 32-column boxes.
+template <int ROWS>
+__device__ __forceinline__ uint64_t tf32_kstep(int kk) {
+  return (uint64_t)(((kk >> 2) * ROWS * 128 + (kk & 3) * 32) >> 4);
+}
+
+// d (+)= A(64x8, smem) * B(8xN, smem) in tf32, both K-major, N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..31] (+)= A(64x8, registers) * B(8x64, smem) in tf32, B K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // The transpose of the 8x8 bf16 matrix whose row lane / 4, columns 2 (lane %
 // 4) and + 1 this thread holds (the mma fragment layout): this thread
 // receives the same positions of the transpose.
@@ -563,23 +658,30 @@ static inline int sm_count() {
   return sms;
 }
 
-// A tensor map over a bf16 tensor of `rank` dims (innermost first, the
+// A tensor map over a tensor of `rank` dims of `type` (innermost first, the
 // innermost contiguous) with the byte strides of dims 1.., boxes of `box`
-// elements, 128-byte swizzled (box[0] = 64: one swizzle row); elements
-// outside the tensor read as zeros and are not written by a store. Returns
-// cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses it (a stride not
-// a multiple of 16 bytes, an unaligned base, a box side over 256).
-static inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const cuuint64_t* dims, const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+// elements, 128-byte swizzled (box[0] is one swizzle row: 64 bf16 or 32
+// fp32); elements outside the tensor read as zeros and are not written by
+// a store. Returns cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses
+// it (a stride not a multiple of 16 bytes, an unaligned base, a box side
+// over 256).
+static inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                                    const void* base, int rank, const cuuint64_t* dims,
+                                    const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tiled_map over a bf16 tensor.
+static inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 // A tensor map over a (batch, seq, heads, 64) bf16 tensor with element

@@ -34,9 +34,9 @@ _SIGNATURES = {
     "mudg_geglu_ff": [_P] * 10 + [_I] * 3 + [_P],
     "mudg_gn_silu_tconv": [_P] * 8 + [_I] * 6 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
-    "mudg_flash_attn_f32": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
+    "mudg_flash_attn_f32": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_bwd": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],
-    "mudg_flash_attn_bwd_f32": [_P] * 9 + [_I] * 3 + [_LL] * 9 + [_P],
+    "mudg_flash_attn_bwd_f32": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_temporal_attn_stage_bwd": [_P] * 21 + [_LL] + [_I] * 2 + [_P],
     "mudg_geglu_ff_bwd": [_P] * 15 + [_LL] + [_I] * 3 + [_P],
     "mudg_tile_composite": [_P] * 4 + [_I] * 3 + [_P],

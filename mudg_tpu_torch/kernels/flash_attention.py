@@ -51,8 +51,8 @@ def plain_flash_attention(q, k, v):
 
 
 def _delta(o, do):
-    """rowsum(o * dO) in fp32, (B*H, L): outside the kernels, as on the TPU
-    (the bf16 kernels compute it in their first pass)."""
+    """rowsum(o * dO) in fp32, (B*H, L), as XLA computes it outside the
+    TPU kernels (the CUDA kernels compute it in their first pass)."""
     b, l, h, _ = o.shape
     return (o.float() * do.float()).sum(-1).permute(0, 2, 1).reshape(b * h, l).contiguous()
 
@@ -115,9 +115,15 @@ def flash_attention(q, k, v):
     o = torch.empty(b, l, h, d, device=q.device, dtype=q.dtype)
     lse = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
     lib = _build.load()
-    fn = lib.mudg_flash_attn if q.dtype == torch.bfloat16 else lib.mudg_flash_attn_f32
     P = _build.ptr
-    err = fn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v), _build.stream())
+    if q.dtype == torch.bfloat16:
+        err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v),
+                                  _build.stream())
+    else:
+        # the kernels' first pass writes tf32 hi and lo copies of q (scaled), k and v^T
+        work = torch.empty(3, 2, b * h, l, D, device=q.device, dtype=torch.float32)
+        err = lib.mudg_flash_attn_f32(P(q), P(k), P(v), P(o), P(lse), P(work), b, l, h,
+                                      *_strides(q, k, v), _build.stream())
     _build.check(err, "flash_attention")
     launches += 1
     return o, lse
@@ -145,20 +151,21 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
     lib = _build.load()
     P = _build.ptr
+    # the kernels' first pass writes delta and, in bf16, a scaled copy of q,
+    # in fp32 tf32 hi and lo copies of q (scaled), k, v, dO, q^T, k^T and dO^T
+    o = o.contiguous()
+    _build.require(o, "o", q.dtype)
+    delta = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
     if q.dtype == torch.bfloat16:
-        # the kernels' first pass writes delta and a scaled copy of q
-        o = o.contiguous()
-        _build.require(o, "o")
-        delta = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
         qs = torch.empty(q.shape, device=q.device, dtype=q.dtype)
         err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta), P(dq),
                                       P(dk), P(dv), P(qs), b, l, h, *_strides(q, k, v),
                                       _build.stream())
     else:
-        delta = _delta(o, do)
-        err = lib.mudg_flash_attn_bwd_f32(P(q), P(k), P(v), P(do), P(lse), P(delta), P(dq),
-                                          P(dk), P(dv), b, l, h, *_strides(q, k, v),
-                                          _build.stream())
+        work = torch.empty(7, 2, b * h, l, D, device=q.device, dtype=torch.float32)
+        err = lib.mudg_flash_attn_bwd_f32(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta),
+                                          P(dq), P(dk), P(dv), P(work), b, l, h,
+                                          *_strides(q, k, v), _build.stream())
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

@@ -24,14 +24,16 @@ SWITCH_KERNELS = set(CS.SWITCH_KERNELS)
 @pytest.mark.parametrize("config", ["mdm512", "mdm1024"])
 def test_chip_smoke_checks_see_planted_faults(config):
     """Every forward kernel's cases at a configuration; kernel 5 in bf16
-    (MDM1024 only: no MDM512 bf16 forward reaches it) and in fp32 (both),
-    held to F32_TOL and F32_LSE_TOL with FP32 operations in its bound;
+    (MDM1024 only: no MDM512 bf16 forward reaches it) and in fp32 at every
+    length an fp32 forward gives it (ds1 and ds2, and ds4 at MDM1024), held
+    to F32_TOL and F32_LSE_TOL with three TF32 products per product in its
+    bound and one more planted fault, "1xTF32";
     kernel 2 at MDM512 also at a tail shape (rows % 128 == 64, sites 0);
     kernel 4 at MDM512 also at a DC offset of 1e3 against float64, where
     only that case's kernel (here the bf16 plain version) may differ from
     its reference. Each kernel's yardsticks compute their part of its
     work."""
-    seen, flash, faults, offsets, tails = set(), set(), {}, 0, []
+    seen, flash, faults, offsets, tails, f32_labels = set(), set(), {}, 0, [], set()
     # cases are consumed one by one: their closures bind the current inputs
     for case in CS.kernel_cases(torch, K, nn_att, (config,), dev="cpu",
                                 latent={config: (8, 8)}):
@@ -42,7 +44,9 @@ def test_chip_smoke_checks_see_planted_faults(config):
         assert chk.scale > 0.0, (case.label, chk)
         assert chk.lse_err in (None, 0.0), (case.label, chk)
         for name, err in chk.faults.items():
-            assert err > CS.TOL * chk.scale, (case.label, name, err, chk.scale)
+            # one TF32 product is held to the fp32 tolerance, the others miss bf16's too
+            tol = CS.F32_TOL if name == "1xTF32" else CS.TOL
+            assert err > tol * chk.scale, (case.label, name, err, chk.scale)
         assert chk.ok
         seen.add(case.name)
         faults.setdefault(case.name, set()).update(chk.faults)
@@ -73,13 +77,18 @@ def test_chip_smoke_checks_see_planted_faults(config):
         if case.name == "flash_attention":
             f32 = case.label.startswith("f32")
             assert (case.tol, case.lse_tol, case.peak) == (
-                (CS.F32_TOL, CS.F32_LSE_TOL, CS.PEAK_FP32) if f32 else
+                (CS.F32_TOL, CS.F32_LSE_TOL, CS.PEAK_TF32) if f32 else
                 (CS.TOL, CS.LSE_TOL, CS.PEAK_FLOPS)), case.label
+            assert set(chk.faults) == ({"half the keys", "1xTF32"} if f32 else
+                                       {"half the keys"}), case.label
             assert case.sites == (5 if case.label.startswith("ds4") else 0), case.label
             flash.add(f32)
+            if f32:
+                f32_labels.add(case.label.split()[1])
     forward = {n for n in K.KERNELS if not n.endswith("_bwd")} - GS_KERNELS - SWITCH_KERNELS
     assert seen == forward
     assert flash == ({True} if config == "mdm512" else {False, True})
+    assert f32_labels == ({"ds1", "ds2"} if config == "mdm512" else {"ds1", "ds2", "ds4"})
     assert faults["spatial_attn"] == {"zero attention", "half the keys", "softmax scale twice"}
     assert faults["temporal_attn"] == {"zero attention", "mis-packed heads"}
     assert len(tails) == (config == "mdm512")
@@ -127,10 +136,12 @@ def test_chip_smoke_kernel_line_keys():
 
 def test_chip_smoke_grad_checks_see_planted_faults():
     """Every backward kernel's cases (kernel 6 in bf16 at each training
-    length, in fp32 at MDM512 ds1 held to F32_BWD_TOL, and at the 576-row
-    tail shape; kernels 6 and 10 each rerun bit for bit), with kernel 5
-    before each of kernel 6's: each passes its check and each planted fault
-    misses it. Kernel 10's yardstick computes its six products alone."""
+    length, in fp32 at MDM512 ds1 and ds2 held to F32_BWD_TOL with the
+    "1xTF32" fault and three TF32 products per product in its bound, and at
+    the 576-row tail shape in both dtypes; kernels 6 and 10 each rerun bit
+    for bit), with kernel 5 before each of kernel 6's: each passes its check
+    and each planted fault misses it. Kernel 10's yardstick computes its six
+    products alone."""
     seen, flash_bwd = set(), []
     for case in CS.grad_cases(torch, K, nn_att, dev="cpu",
                               latent={"mdm512": (8, 8), "mdm1024": (8, 16)}):
@@ -149,9 +160,14 @@ def test_chip_smoke_grad_checks_see_planted_faults():
             assert not case.yardsticks, case.label
         if case.name == "flash_attention_bwd":
             flash_bwd.append((case.config, case.label.split()[-1], case.grad_tol))
+            f32 = case.grad_tol == CS.F32_BWD_TOL
+            assert case.peak == (CS.PEAK_TF32 if f32 else CS.PEAK_FLOPS), case.label
+            assert ("1xTF32" in chk.faults) == f32, case.label
         seen.add(case.name)
-    assert [c for c, _, tol in flash_bwd if tol == CS.F32_BWD_TOL] == ["mdm512-f32"]
+    assert [c for c, _, tol in flash_bwd if tol == CS.F32_BWD_TOL] == [
+        "mdm512-f32", "mdm512-f32", "tail-f32"]
     assert ("tail", "3x576x3x64", CS.BWD_TOL) in flash_bwd
+    assert ("tail-f32", "3x576x3x64", CS.F32_BWD_TOL) in flash_bwd
     assert sum(c in ("mdm512", "mdm1024") for c, _, _ in flash_bwd) == 5
     # kernel 5's forward at each training length, before kernel 6 there
     assert seen == ({n for n in K.KERNELS if n.endswith("_bwd")} - GS_KERNELS) | {"flash_attention"}
@@ -242,3 +258,19 @@ def test_chip_smoke_switch_launch_expectations():
     for cfg in ("mdm512", "mdm1024"):
         assert all(CS.SITES[cfg][k] == 0 for k in CS.SWITCH_KERNELS)
     assert all(v == 0 for k, v in CS.train_launches("mdm512", 2).items() if k in CS.OFF)
+
+
+def test_chip_smoke_tf32_bound():
+    """fp32 flash attention's bound: three TF32 products per product at 495
+    TFLOP/s (the MDM512 ds1 forward, 32 x 2560 x 5 heads, 268.4 GFLOP:
+    1.627 ms), the FMA bound at 67 TFLOP/s beside it (4.007 ms); the bf16
+    and FMA bounds are unchanged."""
+    flops, nbytes = CS.work_flash(32, 2560, 5, 64, 4)
+    assert flops == pytest.approx(268.4e9, rel=1e-3)
+    ms, by = CS.bound(flops, nbytes, CS.PEAK_TF32)
+    assert by == "operations" and ms == pytest.approx(3e3 * flops / 495e12)
+    assert ms == pytest.approx(1.627, abs=1e-3)
+    assert CS.bound(flops, nbytes, CS.PEAK_FP32)[0] == pytest.approx(4.007, abs=1e-3)
+    assert CS.bound(flops, nbytes)[0] == pytest.approx(1e3 * flops / 989e12)
+    bflops, bbytes = CS.work_flash_bwd(16, 2560, 5, 64, 4)
+    assert CS.bound(bflops, bbytes, CS.PEAK_TF32)[0] == pytest.approx(2.033, abs=1e-3)

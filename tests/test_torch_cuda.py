@@ -289,22 +289,46 @@ def test_flash_attention_kernel(dev, b, l, h):
                                    v[:, :l // 2].repeat(1, 2, 1, 1))[0], ref, torch.zeros_like(o))
 
 
+def _perm8(x):
+    """x (B, L, ...) with the sequence permuted inside each 8-group by [0, 2,
+    4, 6, 1, 3, 5, 7]: the fp32 kernels' order of P's and dS's keys in
+    their register fragments, applied to one operand of a product alone (a
+    planted fault)."""
+    idx = torch.arange(x.shape[1], device=x.device).view(-1, 8)[:, [0, 2, 4, 6, 1, 3, 5, 7]]
+    return x[:, idx.reshape(-1)]
+
+
+def _tf32(x):
+    """x rounded to TF32 (to nearest, ties away from zero), as one TF32
+    product would take it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 @pytest.mark.parametrize("b,l,h", FLASH_SHAPES)
 def test_flash_attention_f32_kernel(dev, b, l, h):
-    """Kernel 5 in fp32 (FMA products, no TF32) on strided views: o within
-    1e-5 * max|ref| of the plain version, lse within 1e-5."""
+    """Kernel 5 in fp32 (3xTF32 wgmma products) on strided views of one
+    (B, L, 3, H, 64) tensor: o within 1e-5 * max|ref| of the plain version,
+    lse within 1e-5; V's keys permuted as P's fragments order them (the
+    fragment fault) and one TF32 product must miss."""
     from mudg_tpu_torch.kernels import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(16)
     q, k, v = torch.randn(b, l, 3, h, 64, generator=gen, device=dev).unbind(2)
+    assert not q.is_contiguous()
     before = FA.launches
     o, lse = FA.flash_attention(q, k, v)
     assert FA.launches == before + 1 and o.dtype == torch.float32
     o_ref, lse_ref = FA.plain_flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert (o - o_ref).abs().max().item() <= 1e-5 * o_ref.abs().max().item()
+    scale = o_ref.abs().max().item()
+    assert (o - o_ref).abs().max().item() <= 1e-5 * scale
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+    fault = FA.plain_flash_attention(q, k, _perm8(v))[0]
+    assert (fault - o_ref).abs().max().item() > 1e-5 * scale
+    one_pass = FA.plain_flash_attention(*(_tf32(t) for t in (q, k, v)))[0]
+    assert (one_pass - o_ref).abs().max().item() > 1e-5 * scale
 
 
 @pytest.mark.parametrize("b,l,c", [(2, 576, 640), (3, 576, 320)])
@@ -476,11 +500,13 @@ def test_flash_attention_bwd_kernel(dev, b, l, h):
     _grads_miss((dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)), ref)
 
 
-@pytest.mark.parametrize("b,l,h", [(3, 576, 3), (1, 2560, 5)])
+@pytest.mark.parametrize("b,l,h", [(2, 192, 3), (3, 576, 3), (2, 640, 2), (1, 2560, 5)])
 def test_flash_attention_bwd_f32_kernel(dev, b, l, h):
-    """Kernel 6 in fp32 against the plain backward, each gradient within
-    1e-4 * max|ref| (fp32 sums in another order), with the planted faults;
-    two runs bit for bit."""
+    """Kernel 6 in fp32 (3xTF32 wgmma products) on strided views of one
+    (B, L, 3, H, 64) tensor against the plain backward, each gradient within
+    1e-4 * max|ref| (fp32 sums in another order), with the planted faults
+    (delta dropped; V's keys permuted as P's fragments order them; one TF32
+    product); two runs bit for bit."""
     from mudg_tpu_torch.kernels import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -495,6 +521,9 @@ def test_flash_attention_bwd_f32_kernel(dev, b, l, h):
     _grads_close(got, ref, tol=1e-4)
     _bit_equal(got, FA.flash_attention_bwd(q, k, v, o, lse, do))
     _grads_miss(FA.plain_flash_attention_bwd(q, k, v, o, lse, do, delta=torch.zeros_like(lse)),
+                ref, tol=1e-4)
+    _grads_miss(FA.plain_flash_attention_bwd(q, k, _perm8(v), o, lse, do), ref, tol=1e-4)
+    _grads_miss(FA.plain_flash_attention_bwd(*(_tf32(t) for t in (q, k, v)), o, lse, _tf32(do)),
                 ref, tol=1e-4)
 
 
