@@ -6,8 +6,9 @@
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc build of every kernel from csrc/, with ptxas's
-     register and spill report (it fails if kernel 2's or kernel 10's wgmma
-     kernels or fp32 kernels 5 and 6's tf32 wgmma kernels spill, NO_SPILL);
+     register and spill report (it fails if kernels 2, 9 or 10's wgmma
+     kernels or fp32 kernels 5, 6 and 12's tf32 wgmma kernels spill,
+     NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
@@ -36,8 +37,9 @@ Phases:
      Jacobian's row-sum term, kernel 10 without the g * pdf(g) term, each of
      which must miss it), kernel 6 beside the backward of torch's
      scaled_dot_product_attention under autograd (timed only), kernel 10
-     beside its six products alone in cuBLAS (a yardstick); kernels 6 and 10
-     rerun bit for bit at every shape; kernels 5 and 6 in fp32 (kernel 5
+     beside its six products alone in cuBLAS and kernel 9 beside its five
+     products per stage (yardsticks); kernels 6, 9 and 10 rerun bit for bit
+     at every shape; kernels 5 and 6 in fp32 (kernel 5
      at MDM512 ds1 and ds2 and MDM1024 ds1, ds2 and ds4, kernel 6 at the
      MDM512 ds1 and ds2 training shapes; within 1e-5 * max|ref| and lse
      within 1e-5, each gradient within 1e-4 * max|ref|; the same planted
@@ -108,9 +110,10 @@ Phases:
      resampler and in the VAE at a training encode chunk, and the packed
      kernel at the temporal attention's (B*H*W, 16, heads, 64), all bf16,
      plus GN, LN and short-KV in fp32 (max|diff| <= 3e-2 * max|ref| in
-     bf16, 1e-5 * max|ref| in fp32), GN in fp32 at a DC offset of 1e3
-     against the plain version run
-     in float64; planted faults: GN with the one-pass variance (at the
+     bf16, 1e-5 * max|ref| in fp32; fp32 short-KV also against "1xTF32",
+     with its bound from three TF32 products per product and the FMA bound
+     beside it, and rerun SKV_RERUNS times bit for bit), GN in fp32 at a DC
+     offset of 1e3 against the plain version run in float64; planted faults: GN with the one-pass variance (at the
      offset) and with the channel-to-group map shifted by one channel, LN
      without its mean subtraction, short-KV with the padded keys unmasked
      and with half the keys, packed with another sequence's keys; each
@@ -189,18 +192,22 @@ SHARPEN = math.sqrt(3.0)
 PEAK_FLOPS = 989e12   # bf16 tensor cores
 PEAK_FP32 = 67e12     # FP32 outside the tensor cores
 PEAK_TF32 = 495e12    # TF32 tensor cores
-# fp32 flash attention (kernels 5 and 6 in fp32) forms each product from
-# three TF32 products (3xTF32): its bound is TF32_PASSES x its operations at
-# PEAK_TF32, with the FMA bound (PEAK_FP32) beside it
+# fp32 flash attention (kernels 5 and 6 in fp32) and fp32 short-KV (kernel
+# 12) form each product from three TF32 products (3xTF32): their bound is
+# TF32_PASSES x their operations at PEAK_TF32, with the FMA bound
+# (PEAK_FP32) beside it
 TF32_PASSES = 3
 PEAK_BYTES = 3.35e12  # HBM3
 # Mangled names of kernel instantiations that must not spill (phase 1 fails
 # otherwise): kernel 2's q|k|v GEMM with its attention epilogue
 # (wgmma_gemm_kernel<WG_TATTN, ..>), kernel 10's GEGLU backward tile
-# (<WG_GEGLU_BWD, ..>) and its weight-gradient GEMM, and fp32 kernels 5 and
-# 6's three tf32 wgmma kernels
-NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_wgrad_kernel",
-            "flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")
+# (<WG_GEGLU_BWD, ..>) and the weight-gradient GEMM (kernels 9 and 10),
+# kernel 9's attention-backward tile (<WG_TATTN_BWD, ..>) and fp32-output
+# GEMM (<WG_F32, ..>), fp32 kernels 5 and 6's three tf32 wgmma kernels and
+# fp32 kernel 12's
+NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_gemm_kernelILi5E",
+            "wgmma_gemm_kernelILi6E", "wgmma_wgrad_kernel", "flash_fwd_tf32_kernel",
+            "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel", "short_kv_tf32_kernel")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
 # and 12 only with their switches set (phase 12)
@@ -343,6 +350,7 @@ SKV_SHAPES = {
 # the temporal attention's (B*H*W, 16, heads, 64) at C = 320, 640, 1280 of MDM512
 PACKED_SHAPES = ((5120, 16, 5, 64), (1280, 16, 10, 64), (320, 16, 20, 64))
 F32_TOL = 1e-5   # fp32 forward: max|diff| <= 1e-5 * max|ref|
+SKV_RERUNS = 30  # fp32 short-KV's reruns, each compared bit for bit with the first call
 DC_OFFSET = 1e3
 
 
@@ -379,7 +387,7 @@ KERNEL_ROWS = {
                            "mudg_tpu/gs/tile_raster.py:709"),
     "group_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:87"),
     "layer_norm": ("mudg_tpu_torch/csrc/norms.cu", "mudg_tpu/kernels/norms.py:172"),
-    "short_kv_attention": ("mudg_tpu_torch/csrc/short_kv.cu",
+    "short_kv_attention": ("mudg_tpu_torch/csrc/short_kv.cu,mudg_tpu_torch/csrc/short_kv_f32.cu",
                            "mudg_tpu/kernels/short_attention.py:214"),
     "packed_short_attention": ("mudg_tpu_torch/csrc/short_attn.cu",
                                "mudg_tpu/kernels/short_attention.py:81"),
@@ -393,8 +401,10 @@ KERNEL_ROWS = {
 # stages, without the LN, the attention or the residual; kernel 10's six:
 # x by W1's value and gate halves, dy by W2, [du | dg] by W1, dy^T h and
 # [du | dg]^T x, on random xn, o, h and [du | dg] made outside the timed
-# window), kernel 1's attention core alone in SDPA (on the q, k and v of
-# its LN and projections, made outside the timed window) and kernel 4's
+# window; kernel 9's five per stage, both stages: xn by Wqkv'^T, dy by Wo,
+# dqkv^T xn, dy^T o and dqkv by Wqkv', on random xn, o and dqkv), kernel
+# 1's attention core alone in SDPA (on the q, k and v of its LN and
+# projections, made outside the timed window) and kernel 4's
 # product alone in cuBLAS (F.linear of the (M, 3C) tap concatenation by
 # wcat, the concatenation made outside the timed window). Each is timed
 # alone (the key) and queued (the key + "_queued").
@@ -617,7 +627,7 @@ class Case(NamedTuple):
     peak: float = PEAK_FLOPS   # the operations' rate in the bound
     grad_tol: float = BWD_TOL  # backward check: each gradient within grad_tol * max|ref|
     lse_tol: float = LSE_TOL   # kernel 5's logsumexp, absolute
-    rerun: bool = False   # the kernel must give the same bits on a rerun
+    reruns: int = 0       # reruns that must give the first call's bits
     # library calls for part of the kernel's work (timed only, alone and queued):
     # JSON key -> fn; see YARDSTICKS
     yardsticks: dict = {}
@@ -854,7 +864,7 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
             yield Case("gn_silu_tconv", cfg, label, 20 if xdc is None else 0,
                        work_tconv(*shape),
                        lambda: K.tconv.fused_gn_silu_tconv(x, norm, conv, pk), plain, None,
-                       None, faults, rerun=True,
+                       None, faults, reruns=1,
                        yardsticks={"cublas_tap_gemm_ms": lambda: F.linear(cat, wcat)})
         # kernel 5: in bf16 the ds4 self-attention (C=1280, 20 heads, L=576)
         # of MDM1024 and one long shape that streams 72 K/V tiles per query
@@ -992,7 +1002,7 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
                    lambda: FA.plain_flash_attention_bwd(q, k, v, o, lse, do),
                    sdpa_backward(torch, q, k, v, do), None, faults,
                    grads=True, peak=PEAK_TF32 if f32 else PEAK_FLOPS,
-                   grad_tol=F32_BWD_TOL if f32 else BWD_TOL, rerun=True)
+                   grad_tol=F32_BWD_TOL if f32 else BWD_TOL, reruns=1)
 
     for cfg in ("mdm512", "mdm1024"):
         h, w = latent[cfg]
@@ -1016,7 +1026,9 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
                        work_temporal_bwd(n_seq * 16, c),
                        lambda: flat(TA.double_self_attn_bwd(x, h1, dy, p1, p2, heads)),
                        lambda: flat(_plain_double_bwd(TA, x, h1, dy, p1, p2, heads)),
-                       None, None, {"row-sum term dropped": faulty}, grads=True)
+                       None, None, {"row-sum term dropped": faulty}, grads=True, reruns=1,
+                       yardsticks={"cublas_gemm_ms": temporal_bwd_products(
+                           torch, x, dy, (p1, p2), gemm_gen)})
 
         # (rows, C, sites): ds1, init_attn, ds2, ds4 and, at MDM1024 only,
         # the middle block (MDM512's has 640 rows, not a multiple of 256)
@@ -1032,7 +1044,7 @@ def grad_cases(torch, K, nn_att, dev="cuda", latent=None):
                        lambda: M.geglu_ff_bwd(x, dy, w1, b1, w2),
                        lambda: M.plain_geglu_ff_bwd(x, dy, w1, b1, w2), None, None,
                        {"g pdf(g) term dropped": lambda: M.plain_geglu_ff_bwd(
-                           x, dy, w1, b1, w2, drop_pdf_term=True)}, grads=True, rerun=True,
+                           x, dy, w1, b1, w2, drop_pdf_term=True)}, grads=True, reruns=1,
                        yardsticks={"cublas_gemm_ms": ff_bwd_products(torch, x, dy, w1, w2,
                                                                      gemm_gen)})
 
@@ -1049,6 +1061,25 @@ def ff_bwd_products(torch, x, dy, w1, w2, gen):
     F = torch.nn.functional
     return lambda: (F.linear(x, w1b[:inner]), F.linear(x, w1b[inner:]), dy @ w2b, dudg @ w1b,
                     dy.T @ h, dudg.T @ x)
+
+
+def temporal_bwd_products(torch, x, dy, stages, gen):
+    """Kernel 9's five products per stage alone in cuBLAS, for both stages,
+    on its dy and weights and random xn, o and dqkv (made here, outside the
+    timed call): xn by Wqkv'^T, dy by Wo, dqkv^T xn, dy^T o, dqkv by Wqkv',
+    all bf16."""
+    rows, c = x.shape[0] * x.shape[1], x.shape[2]
+    bf = torch.bfloat16
+    dyb = dy.reshape(rows, c)
+    mats = []
+    for ln_w, ln_b, wq, wk, wv, wo, bo in stages:
+        wqkv = torch.cat([wq, wk, wv]).to(bf)
+        xn, o, dqkv = (torch.randn((rows, n), generator=gen, device=x.device).to(bf)
+                       for n in (c, c, 3 * c))
+        mats.append((wqkv, wo.to(bf), xn, o, dqkv))
+    F = torch.nn.functional
+    return lambda: [(F.linear(xn, wqkv), dyb @ wo, dqkv.T @ xn, dyb.T @ o, dqkv @ wqkv)
+                    for wqkv, wo, xn, o, dqkv in mats]
 
 
 def _plain_double_bwd(TA, x, h1, dy, p1, p2, heads):
@@ -1130,7 +1161,7 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                                                                 x.element_size()),
                     lambda: N.fused_group_norm(x, w, b, 32, eps), plain,
                     lambda: F.group_norm(xc, 32, w.to(dtype), b.to(dtype), eps), None, faults,
-                    tol=checks(dtype)["tol"], rerun=True)
+                    tol=checks(dtype)["tol"], reruns=1)
 
     def ln_case(cfg, shape, sites, dtype):
         x, w, b = norm_input(shape, dtype)
@@ -1152,17 +1183,28 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
         return q, k, v
 
     def skv_case(cfg, qs, ks, sites, dtype):
+        """fp32 short-KV (3xTF32 wgmma) is bound at PEAK_TF32 (the FMA bound
+        printed beside it), must see the "1xTF32" fault too (the plain
+        version on operands rounded once to TF32) and reruns bit for bit,
+        SKV_RERUNS times: a race in its q ring once changed one row of one
+        tile in about one call in twelve at Lk = 16."""
         q, k, v = skv_inputs(qs, ks, dtype)
         lk = ks[1]
         pad = (0, 0, 0, 0, 0, -lk % 64)
+        faults = {"padded keys unmasked": lambda: SA.plain_short_attention(
+                      q, F.pad(k, pad), F.pad(v, pad)),
+                  "half the keys": lambda: SA.plain_short_attention(
+                      q, k[:, :lk // 2], v[:, :lk // 2])}
+        f32 = dtype == f4
+        if f32:
+            faults["1xTF32"] = lambda: SA.plain_short_attention(
+                *(tf32_rounded(torch, t) for t in (q, k, v)))
         return Case("short_kv_attention", cfg, f"{cfg} q {'x'.join(map(str, qs))} Lk {lk}",
                     sites, work_short(qs[0], qs[1], lk, qs[2], qs[3], q.element_size()),
                     lambda: SA.short_kv_attention(q, k, v),
                     lambda: SA.plain_short_attention(q, k, v), lambda: sdpa(q, k, v), None,
-                    {"padded keys unmasked": lambda: SA.plain_short_attention(
-                        q, F.pad(k, pad), F.pad(v, pad)),
-                     "half the keys": lambda: SA.plain_short_attention(
-                         q, k[:, :lk // 2], v[:, :lk // 2])}, **checks(dtype))
+                    faults, tol=checks(dtype)["tol"], peak=PEAK_TF32 if f32 else PEAK_FLOPS,
+                    reruns=SKV_RERUNS if f32 else 0)
 
     def packed_inputs(shape):
         b, t, h, d = shape
@@ -1227,16 +1269,21 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
 
 
 def reruns_bit_for_bit(torch, case):
-    """A case marked `rerun` gives the same bits on a rerun: no atomics (the
+    """A case with `reruns` gives the same bits on each rerun: no atomics (the
     GroupNorm, alone and in kernel 4, merges its partial statistics in a
     fixed order; kernel 4's GEMM sums K in one order; kernel 6 writes every
-    gradient element from one block; kernel 10 adds its split partials and
-    column sums in a fixed order)."""
-    if not case.rerun:
+    gradient element from one block; kernels 9 and 10 add their split
+    partials and column sums in a fixed order; fp32 short-KV writes each
+    output row from one warpgroup)."""
+    if not case.reruns:
         return True
-    a, b = case.kernel(), case.kernel()
-    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
-    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    a = case.kernel()
+    a = a if isinstance(a, tuple) else (a,)
+    same = True
+    for _ in range(case.reruns):
+        b = case.kernel()
+        b = b if isinstance(b, tuple) else (b,)
+        same &= all(torch.equal(x, y) for x, y in zip(a, b))
     if not same:
         log(f"  {case.name} {case.label}: a rerun differs")
     return same
@@ -1339,7 +1386,7 @@ def compare(torch, case):
 
 def phase_kernels(torch, K, nn_att, configs):
     """Each kernel vs its plain version at every shape of `configs`, then
-    each backward kernel at every training shape; kernels 4, 6 and 10 rerun
+    each backward kernel at every training shape; kernels 4, 6, 9 and 10 rerun
     bit for bit."""
     import itertools
 

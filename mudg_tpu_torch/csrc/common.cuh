@@ -1,6 +1,6 @@
-// Shared device helpers for the port's Hopper kernels: bf16 packing, the
-// m16n8k16 bf16 tensor-core product (mma.sync, fp32 accumulate), warp sums,
-// and the per-row LayerNorm statistics kernel.
+// Shared device helpers for the port's kernels: bf16 packing, the m16n8k16
+// bf16 tensor-core product (mma.sync, fp32 accumulate), warp and quad
+// reductions.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and q = lane % 4:
@@ -48,43 +48,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Per-row mean and 1/sqrt(var + eps) of a (rows, cols) bf16 matrix, one warp
-// per row, two passes (centered variance) in fp32. cols must be even.
-static __global__ void row_stats_kernel(const bf16* __restrict__ x, int rows,
-                                        int cols, float eps,
-                                        float* __restrict__ mean,
-                                        float* __restrict__ rstd) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const bf16* p = x + (size_t)row * cols;
-  float s = 0.f;
-  for (int c = 2 * lane; c < cols; c += 64) {
-    float2 v = unpack_bf16x2(lds32(p + c));
-    s += v.x + v.y;
-  }
-  const float mu = warp_sum(s) / cols;
-  float q = 0.f;
-  for (int c = 2 * lane; c < cols; c += 64) {
-    float2 v = unpack_bf16x2(lds32(p + c));
-    const float d0 = v.x - mu, d1 = v.y - mu;
-    q += d0 * d0 + d1 * d1;
-  }
-  q = warp_sum(q);
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rsqrtf(q / cols + eps);
-  }
+// Max and sum over the four lanes of a quad (the threads that hold one row
+// of an mma accumulator).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-static inline cudaError_t launch_row_stats(const bf16* x, int rows, int cols,
-                                           float eps, float* mean, float* rstd,
-                                           cudaStream_t stream) {
-  const int warps_per_block = 8;
-  const int blocks = (rows + warps_per_block - 1) / warps_per_block;
-  row_stats_kernel<<<blocks, 32 * warps_per_block, 0, stream>>>(
-      x, rows, cols, eps, mean, rstd);
-  return cudaGetLastError();
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace mudg

@@ -252,6 +252,8 @@ __global__ void __launch_bounds__(384, 1)
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
+    fence_regs(pa);   // wgmma reads its register A operands until the wait
+    fence_regs(da);
     mbar_arrive(&empty[s]);
   }
   const int row0 = k0 + cw * 64 + warp * 16 + g;
@@ -385,6 +387,7 @@ __global__ void __launch_bounds__(384, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
+    fence_regs(da);   // wgmma reads its register A operand until the wait
     mbar_arrive(&empty[s]);
   }
   store_rows64(p.dq, dq, p.scale, row0, p.seq, p.heads, h, b, qd);

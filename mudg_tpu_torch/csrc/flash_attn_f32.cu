@@ -188,47 +188,6 @@ __device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t ahi, uint64_
     wgmma_tf32_ss<N>(d, ahi + tf32_kstep<64>(kk), bhi + tf32_kstep<N>(kk), 1);
 }
 
-// d = A B over KS k8 steps in 3xTF32, the two small terms first: A from
-// registers (hi and lo fragments), B a K-major tile of 64 rows (the head
-// dims) by 8 KS columns, as hi and lo descriptors.
-template <int KS>
-__device__ __forceinline__ void mma3_rs(float (&d)[32], const uint32_t (&ahi)[KS][4],
-                                        const uint32_t (&alo)[KS][4], uint64_t bhi,
-                                        uint64_t blo) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    wgmma_tf32_rs_n64(d, alo[kk], bhi + tf32_kstep<64>(kk), kk);
-    wgmma_tf32_rs_n64(d, ahi[kk], blo + tf32_kstep<64>(kk), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) wgmma_tf32_rs_n64(d, ahi[kk], bhi + tf32_kstep<64>(kk), 1);
-}
-
-// acc = acc * scale + d in fp32 (round to nearest). The tensor core adds
-// each k8 step's products into its accumulator rounding toward zero, a bias
-// that grows with the number of steps: summed over L = 2560 keys in one
-// accumulator, o missed 1e-5 * max|o| by 2x on the H100. So each tile's
-// product over the sequence starts a fresh accumulator (mma3_rs) and is
-// added here.
-__device__ __forceinline__ void add_tile(float (&acc)[32], const float (&d)[32],
-                                         const float (&scale)[2]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], scale[(i >> 1) & 1], d[i]);
-}
-
-// The A fragments (hi, lo) of k8 step j from an fp32 accumulator over those
-// 8 columns: a0 and a1 take column 2c, a2 and a3 column 2c + 1 (rows g and
-// g + 8), so the step's columns run in perm8 order, as the pass stores the
-// B operand's.
-template <int NR>
-__device__ __forceinline__ void tf32_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                          const float (&d)[NR], int j) {
-  tf32_split(d[4 * j], hi[0], lo[0]);
-  tf32_split(d[4 * j + 2], hi[1], lo[1]);
-  tf32_split(d[4 * j + 1], hi[2], lo[2]);
-  tf32_split(d[4 * j + 3], hi[3], lo[3]);
-}
-
 // This thread's rows of a 64 x 64 accumulator, row half hh times scale[hh],
 // into a contiguous (B, L, H, 64) fp32 tensor; rows past seq skipped.
 __device__ __forceinline__ void store_rows_f32(float* out, const float (&d)[32],

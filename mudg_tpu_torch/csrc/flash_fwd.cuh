@@ -47,7 +47,6 @@
 // Not yet: TMA stores of O, exponentials partly on the FMA units.
 #pragma once
 
-#include "attn.cuh"
 #include "hopper.cuh"
 
 namespace mudg {
@@ -258,6 +257,7 @@ __global__ void __launch_bounds__(384, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    fence_regs(pa);   // wgmma reads its register A operand until the wait
     mbar_arrive(&empty[s]);
   }
   if (cw == 0) named_bar_sync(3, 256);  // warpgroup 1's last arrival

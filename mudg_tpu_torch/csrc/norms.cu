@@ -232,11 +232,14 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // One warp per row; lane l holds the 16-byte vectors l, l + 32, .. of it.
+// The row's mean and rstd go to mean[row] and rstd[row] where mean is not
+// null (kernel 9's LN backward reads them).
 template <typename T, int VPL>
 __global__ void __launch_bounds__(256) ln_kernel(const T* __restrict__ x, T* __restrict__ y,
                                                  const float* __restrict__ w,
                                                  const float* __restrict__ b, int rows,
-                                                 int c, float eps) {
+                                                 int c, float eps, float* __restrict__ mean_out,
+                                                 float* __restrict__ rstd_out) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int nv = c >> 3;
@@ -265,6 +268,10 @@ __global__ void __launch_bounds__(256) ln_kernel(const T* __restrict__ x, T* __r
     }
   }
   const float rstd = rsqrtf(warp_sum(q) / c + eps);
+  if (mean_out != nullptr && lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
   T* yr = y + (size_t)row * c;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
@@ -297,14 +304,15 @@ cudaError_t launch_gn(const T* x, T* y, const float* w, const float* b, float2* 
 
 template <typename T>
 cudaError_t launch_ln(const T* x, T* y, const float* w, const float* b, int rows, int c,
-                      float eps, cudaStream_t stream) {
+                      float eps, cudaStream_t stream, float* mean = nullptr,
+                      float* rstd = nullptr) {
   const int vpl = (c / 8 + 31) / 32;
   const dim3 grid((rows + 7) / 8);
-  if (vpl <= 1) ln_kernel<T, 1><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps);
-  else if (vpl <= 2) ln_kernel<T, 2><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps);
-  else if (vpl <= 4) ln_kernel<T, 4><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps);
-  else if (vpl <= 8) ln_kernel<T, 8><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps);
-  else ln_kernel<T, 16><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps);
+  if (vpl <= 1) ln_kernel<T, 1><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps, mean, rstd);
+  else if (vpl <= 2) ln_kernel<T, 2><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps, mean, rstd);
+  else if (vpl <= 4) ln_kernel<T, 4><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps, mean, rstd);
+  else if (vpl <= 8) ln_kernel<T, 8><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps, mean, rstd);
+  else ln_kernel<T, 16><<<grid, 256, 0, stream>>>(x, y, w, b, rows, c, eps, mean, rstd);
   return cudaGetLastError();
 }
 
@@ -353,4 +361,15 @@ extern "C" int mudg_layer_norm(const void* x, void* y, const void* w, const void
                      eps, s);
   return launch_ln(static_cast<const bf16*>(x), static_cast<bf16*>(y), wf, bf, rows, c, eps,
                    s);
+}
+
+// mudg_layer_norm in bf16 that also writes each row's fp32 mean and rstd
+// (rows) (kernel 9: xn and the statistics of its LN backward).
+extern "C" int mudg_layer_norm_stats(const void* x, void* y, const void* w, const void* b,
+                                     void* mean, void* rstd, int rows, int c, float eps,
+                                     void* stream) {
+  return launch_ln(static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                   static_cast<const float*>(w), static_cast<const float*>(b), rows, c, eps,
+                   static_cast<cudaStream_t>(stream), static_cast<float*>(mean),
+                   static_cast<float*>(rstd));
 }

@@ -37,7 +37,8 @@
 //             16 rows of its tile with the other sequences' keys masked
 //             (T < 16, the least an m16n8k16 tile can take), and normalises
 //             P before rounding it, as _packed_kernel does.
-// fp32 short-KV (an fp32 forward under the switch): FMA products, below.
+// fp32 short-KV: FMA products, below, for head dim 128 or Lk > 128 (every
+// MuDG fp32 site, head dim 64 and Lk <= 128, runs on short_kv_f32.cu).
 // Not yet: cp.async double-buffering of the K/V chunks, wgmma.
 #include "common.cuh"
 
@@ -306,9 +307,8 @@ __global__ void __launch_bounds__(128) packed_kernel(const ShortArgs p) {
   store_rows<D>(PackedRows<T>{p.o, T * o_sl, o_sl, D, p.heads, r0}, warp, o, one, g, q);
 }
 
-// fp32 short-KV: the same function with fp32 operands (the Pallas kernel
-// takes any dtype, and an fp32 forward reaches it under the switch). No
-// tensor-core product rounds as fp32 does, so the products are FMAs: four
+// fp32 short-KV beyond short_kv_f32.cu's shapes (head dim 128 or Lk > 128;
+// no MuDG site): the same function with fp32 operands on FMAs: four
 // threads per query row, 64 rows per block, each thread holding a quarter
 // of q and o as float4 runs (dims 16 i + 4 t .. +3 of thread t), the logit
 // of a key summed over the four by two shuffles; K/V stream through shared

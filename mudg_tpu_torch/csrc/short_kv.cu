@@ -3,9 +3,10 @@
 //   o = softmax(q k^T / 8) v,  q (B, Lq, H, 64) over k, v (B, Lk, H, 64),
 // fp32 logits and softmax, P normalised and then rounded to bf16 for P V,
 // as the reference does (short_attention.py:174-180: p / sum, then
-// astype(v.dtype)). The other shapes the predicate admits (Lk up to 1024,
-// head dim 128) and the fp32 form stay on short_attn.cu's kernels; the
-// wrapper picks the route (kernels/short_attention.py:short_kv_route).
+// astype(v.dtype)). The fp32 form at these shapes is short_kv_f32.cu; the
+// other shapes the predicate admits (Lk up to 1024, head dim 128) stay on
+// short_attn.cu's kernels; the wrapper picks the route
+// (kernels/short_attention.py:short_kv_route).
 //
 // Replaces: mudg_tpu/kernels/short_attention.py:_short_kv_kernel
 // (short_kv_attention, pallas_call at :214).
@@ -27,7 +28,6 @@
 // its 64 x 64 o tile, swizzled, to its own staging tile and one thread
 // stores it by TMA as whole 128-byte rows. Two blocks fit an SM (81 KB of
 // shared memory each), so one block's loads overlap the other's products.
-#include "attn.cuh"
 #include "hopper.cuh"
 
 namespace mudg {
@@ -155,6 +155,7 @@ __global__ void __launch_bounds__(SK_THREADS, NK <= 80 ? 2 : 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    fence_regs(pa);   // wgmma reads its register A operand until the wait
 
     // o -> staging (swizzled) -> one TMA store of the tile's 64 rows
     if (tid == 0) bulk_wait_read<0>();

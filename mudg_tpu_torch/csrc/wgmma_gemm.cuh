@@ -4,7 +4,7 @@
 // A and B row-major with K contiguous (B is the torch layout of a Linear
 // weight (out, in), used as it is loaded).
 //
-// Epilogues (the output is bf16):
+// Epilogues (the output is bf16, except WG_F32's):
 //   WG_BIAS      acc + bias[col] (a null bias is zero: the launcher points it
 //                at WG_ZEROS zeros in device memory; a null test in the
 //                epilogue, or an epilogue without the bias, made ptxas spill
@@ -32,6 +32,19 @@
 //                u gelu(g) and [du | dg] in bf16, and the tile's fp32 column
 //                sums of du and dg, added over its warps in a fixed order, as
 //                one row of `part` (no atomics).
+//   WG_TATTN_BWD kernel 9's attention backward as the epilogue of the q|k|v
+//                product: WG_TATTN's tile, for which the producer also
+//                loads the head's 64 x 64 slice of dO = dy Wo by TMA into
+//                the warpgroup's dO box once its last epilogue has read it
+//                (its own full and empty mbarriers); each warp re-forms its
+//                sequence's P and o and forms
+//                dP = dO v^T, dS = P (dP - rowsum(P dP)) ln 2, dq' = dS k,
+//                dk = dS^T q' and dv = P^T dO with mma.sync in registers (q,
+//                k, v, P, dS and dO transposed by movmatrix where an operand
+//                needs it); o_h goes to column 64 h of `out`, [dq' | dk | dv]
+//                to columns 192 h .. of `out2` (the packing's head order).
+//   WG_F32       acc stored in fp32 from registers to `outf` (row pitch
+//                ldo), no bias, no staging.
 //
 // Design: one block of 288 threads per SM walks output tiles of 128 rows x
 // WG_TN columns (128, or 64 h columns for WG_GEGLU; tile t: row block t /
@@ -54,7 +67,7 @@
 // stores clip the M and N tails, so any M, any K % 8 == 0 and any N % 8 ==
 // 0 run (N % 64 == 0 and gate % 64 == 0 for WG_GEGLU).
 //
-// Split tiles (WG_TATTN, WG_GEGLU_BWD): a consumer warpgroup's tile is 64
+// Split tiles (WG_TATTN, WG_TATTN_BWD, WG_GEGLU_BWD): a consumer warpgroup's tile is 64
 // rows whose 192 accumulator columns are one m64n128k16 and one m64n64k16
 // product per k16 step, 96 fp32 registers a thread (a 128 x 192 tile would
 // need 192, over the 168 that ptxas allots a thread of a 288-thread block).
@@ -79,12 +92,12 @@
 //              runs.
 #pragma once
 
-#include "attn.cuh"
 #include "hopper.cuh"
 
 namespace mudg {
 
-enum { WG_BIAS = 0, WG_BIAS_RES = 1, WG_GEGLU = 2, WG_TATTN = 3, WG_GEGLU_BWD = 4 };
+enum { WG_BIAS = 0, WG_BIAS_RES = 1, WG_GEGLU = 2, WG_TATTN = 3, WG_GEGLU_BWD = 4,
+       WG_TATTN_BWD = 5, WG_F32 = 6 };
 enum { WG_MATRIX = 0, WG_TAP3 = 1 };
 
 constexpr int WG_BM = 128;                 // tile rows (64 for split tiles)
@@ -94,11 +107,17 @@ constexpr int WG_BOX = 64 * 128;           // bytes of a 64-row K slab
 
 // 64-row tiles of 192 accumulator columns
 __host__ __device__ constexpr bool wg_split(int epi) {
-  return epi == WG_TATTN || epi == WG_GEGLU_BWD;
+  return epi == WG_TATTN || epi == WG_TATTN_BWD || epi == WG_GEGLU_BWD;
+}
+// tiles whose B rows are one head's [q_h | k_h | v_h]
+__host__ __device__ constexpr bool wg_tattn(int epi) {
+  return epi == WG_TATTN || epi == WG_TATTN_BWD;
 }
 __host__ __device__ constexpr int wg_bm(int epi) { return wg_split(epi) ? 64 : WG_BM; }
 // output columns of a tile
-__host__ __device__ constexpr int wg_tn(int epi) { return epi == WG_BIAS || epi == WG_BIAS_RES ? 128 : 64; }
+__host__ __device__ constexpr int wg_tn(int epi) {
+  return epi == WG_BIAS || epi == WG_BIAS_RES || epi == WG_F32 ? 128 : 64;
+}
 // bytes of a stage's A slab(s), then of the whole stage (A and B)
 __host__ __device__ constexpr int wg_a_bytes(int epi) {
   return epi == WG_GEGLU_BWD ? 2 * WG_BOX : wg_bm(epi) * 128;
@@ -107,12 +126,18 @@ __host__ __device__ constexpr int wg_stage(int epi) {
   return wg_a_bytes(epi) + (wg_split(epi) ? 192 * 128 : WG_SLAB);
 }
 __host__ __device__ constexpr int wg_stages(int epi) {
-  return epi == WG_GEGLU_BWD ? 4 : epi == WG_GEGLU || epi == WG_TATTN ? 6 : 5;
+  return epi == WG_GEGLU_BWD || epi == WG_TATTN_BWD ? 4
+         : epi == WG_GEGLU || epi == WG_TATTN        ? 6
+                                                     : 5;
 }
 // bytes of a warpgroup's staging tile: the bf16 output tile; WG_GEGLU_BWD's
-// h, du and dg boxes and its four warps' column sums (128 fp32 each)
+// h, du and dg boxes and its four warps' column sums (128 fp32 each);
+// WG_TATTN_BWD's o, dq', dk and dv boxes and its dO box; none for WG_F32
 __host__ __device__ constexpr int wg_staging(int epi) {
-  return epi == WG_GEGLU_BWD ? 3 * WG_BOX + 4 * 128 * 4 : wg_bm(epi) * wg_tn(epi) * 2;
+  return epi == WG_GEGLU_BWD   ? 3 * WG_BOX + 4 * 128 * 4
+         : epi == WG_TATTN_BWD ? 5 * WG_BOX
+         : epi == WG_F32       ? 0
+                               : wg_bm(epi) * wg_tn(epi) * 2;
 }
 // the ring, two staging tiles, the barriers, and slack to align to 1024
 __host__ __device__ constexpr int wg_smem(int epi) {
@@ -128,6 +153,9 @@ struct WgGemmArgs {
   // WG_TAP3: frames per clip, 128-row tiles per frame, K slabs per tap
   int frames, hw_tiles, kc;
   float* part;         // WG_GEGLU_BWD: (row tiles, 2 * gate) column sums of du | dg
+  float* outf;         // WG_F32: (m, n) fp32 output, row pitch ldo
+  long long ldo;
+  int m;
 };
 
 // The kernel's tensor maps (a __grid_constant__ parameter, so TMA reads them
@@ -135,8 +163,8 @@ struct WgGemmArgs {
 struct WgMaps {
   CUtensorMap a, b, out;
   CUtensorMap res;        // WG_BIAS_RES: the residual
-  CUtensorMap a2, b2;     // WG_GEGLU_BWD: dy and W2^T
-  CUtensorMap out2;       // WG_GEGLU_BWD: [du | dg]
+  CUtensorMap a2, b2;     // WG_GEGLU_BWD: dy and W2^T; WG_TATTN_BWD: dO (a2)
+  CUtensorMap out2;       // WG_GEGLU_BWD: [du | dg]; WG_TATTN_BWD: [dq' | dk | dv]
 };
 
 // Where tile t's rows lie: m0 for WG_MATRIX; the first row hw0 of HW, the
@@ -227,6 +255,128 @@ __device__ __forceinline__ void wg_tattn_epilogue(const float (&acc)[64], const 
   }
 }
 
+constexpr float WG_LN2 = 0.6931471805599453f;
+
+// WG_TATTN_BWD's epilogue on one warp's 16-row sequence (kernel 9's
+// numerics, temporal_attn.py:265-369): q', k and v = acc columns 0-63,
+// 64-127 and acc2, each rounded to bf16; P the normalised base-2 softmax of
+// q' k^T in fp32; o = P_bf16 v; dP = dO v^T (dO bf16 from the warpgroup's
+// box `sdo`); dS = P (dP - rowsum(P dP)) ln 2 rounded to bf16; dq' = dS k,
+// dk = dS^T q', dv = P_bf16^T dO; o, dq', dk and dv rounded to bf16 into
+// the staging boxes 0-3 (64 x 64 each, swizzled).
+// q', k and v first go to boxes 1-3 (the accumulators' 96 registers are then
+// free: held in registers through the epilogue they made ptxas spill at the
+// 168-register cap) and each thread reads back only the positions it wrote:
+// its 8x8 blocks as the accumulator lays them out (rows g and g + 8 of the
+// sequence, columns 8 j + 2 qd, + 1). Such a block is an mma.sync A
+// fragment over the columns, or a B fragment over them where its rows are
+// the n index; movmatrix's transpose gives the B fragment where its rows
+// are the k index (v, k and q' as the right operand of P v, dS k and dS^T
+// q'), and the A fragments of P^T and dS^T. Column block j of dq', dk and
+// dv overwrites q', k and v there after the thread's last read of it.
+__device__ __forceinline__ void wg_tattn_bwd_epilogue(const float (&acc)[64],
+                                                      const float (&acc2)[32],
+                                                      const uint8_t* sdo, uint8_t* stg, int warp,
+                                                      int g, int qd) {
+  const int r = 16 * warp + g;
+  // this thread's bf16 pair at (row, column c) of staging box `box`
+  auto at = [&](int box, int row, int c) {
+    return reinterpret_cast<uint32_t*>(stg + box * WG_BOX + sw128_offset(row, c, 64));
+  };
+  auto dat = [&](int row, int c) {
+    return *reinterpret_cast<const uint32_t*>(sdo + sw128_offset(row, c, 64));
+  };
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = 8 * j + 2 * qd;
+      *at(1, r + 8 * hh, c) = pack_bf16x2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      *at(2, r + 8 * hh, c) = pack_bf16x2(acc[4 * (j + 8) + 2 * hh], acc[4 * (j + 8) + 2 * hh + 1]);
+      *at(3, r + 8 * hh, c) = pack_bf16x2(acc2[4 * j + 2 * hh], acc2[4 * j + 2 * hh + 1]);
+    }
+  // S = q' k^T and dP = dO v^T over the 16 keys (key block nb: keys 8 nb ..)
+  float s[2][4], dp[2][4];
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int c = 16 * ks + 2 * qd;
+    const uint32_t qa[4] = {*at(1, r, c), *at(1, r + 8, c), *at(1, r, c + 8), *at(1, r + 8, c + 8)};
+    const uint32_t da_o[4] = {dat(r, c), dat(r + 8, c), dat(r, c + 8), dat(r + 8, c + 8)};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const uint32_t kb[2] = {*at(2, r + 8 * nb, c), *at(2, r + 8 * nb, c + 8)};
+      const uint32_t vb[2] = {*at(3, r + 8 * nb, c), *at(3, r + 8 * nb, c + 8)};
+      mma_16816(s[nb], qa, kb);
+      mma_16816(dp[nb], da_o, vb);
+    }
+  }
+  uint32_t pa[4], da[4];   // P (bf16) and dS (bf16) as A fragments over the keys
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float mx = quad_max(fmaxf(fmaxf(s[0][2 * hh], s[0][2 * hh + 1]),
+                                    fmaxf(s[1][2 * hh], s[1][2 * hh + 1])));
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nb][2 * hh + e] = exp2f(s[nb][2 * hh + e] - mx);
+        sum += s[nb][2 * hh + e];
+      }
+    const float inv = 1.f / quad_sum(sum);
+    float pdp = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nb][2 * hh + e] *= inv;
+        pdp += s[nb][2 * hh + e] * dp[nb][2 * hh + e];
+      }
+    pdp = quad_sum(pdp);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const float* pn = s[nb] + 2 * hh;
+      const float* dn = dp[nb] + 2 * hh;
+      pa[2 * nb + hh] = pack_bf16x2(pn[0], pn[1]);
+      da[2 * nb + hh] = pack_bf16x2(pn[0] * (dn[0] - pdp) * WG_LN2, pn[1] * (dn[1] - pdp) * WG_LN2);
+    }
+  }
+  // P^T and dS^T as A fragments over the queries: block (keys, queries) of
+  // the transpose is the transpose of block (queries, keys)
+  const uint32_t pt[4] = {movmatrix_trans(pa[0]), movmatrix_trans(pa[2]),
+                          movmatrix_trans(pa[1]), movmatrix_trans(pa[3])};
+  const uint32_t dt[4] = {movmatrix_trans(da[0]), movmatrix_trans(da[2]),
+                          movmatrix_trans(da[1]), movmatrix_trans(da[3])};
+#pragma unroll
+  for (int dj = 0; dj < 8; ++dj) {
+    // B fragments over head dims 8 dj ..: v, k, q' and dO with their rows
+    // (keys or queries) as k
+    const int c = 8 * dj + 2 * qd;
+    const uint32_t vb[2] = {movmatrix_trans(*at(3, r, c)), movmatrix_trans(*at(3, r + 8, c))};
+    const uint32_t kb[2] = {movmatrix_trans(*at(2, r, c)), movmatrix_trans(*at(2, r + 8, c))};
+    const uint32_t qb[2] = {movmatrix_trans(*at(1, r, c)), movmatrix_trans(*at(1, r + 8, c))};
+    const uint32_t db[2] = {movmatrix_trans(dat(r, c)), movmatrix_trans(dat(r + 8, c))};
+    float out[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[i][e] = 0.f;
+    mma_16816(out[0], pa, vb);   // o = P v
+    mma_16816(out[1], da, kb);   // dq' = dS k
+    mma_16816(out[2], dt, qb);   // dk = dS^T q'
+    mma_16816(out[3], pt, db);   // dv = P^T dO
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *at(i, r + 8 * hh, c) = pack_bf16x2(out[i][2 * hh], out[i][2 * hh + 1]);
+  }
+}
+
 // WG_GEGLU_BWD's epilogue: u = acc columns 0-63 + b1, g = acc columns
 // 64-127 + the gate's b1, dh = acc2, all fp32 (mlp.py:341-385): h = u
 // gelu(g), du = dh gelu(g), dg = dh u (Phi(g) + g pdf(g)); h, du and dg
@@ -286,14 +436,14 @@ __device__ __forceinline__ void wg_geglu_bwd_epilogue(const float (&acc)[64],
 template <int EPI>
 __device__ __forceinline__ void wg_split_consumer(uint8_t* ring, uint8_t* staging,
                                                   uint64_t* full, uint64_t* empty,
-                                                  const CUtensorMap* tout,
-                                                  const CUtensorMap* tout2,
-                                                  const WgGemmArgs& p) {
+                                                  uint64_t* do_full, uint64_t* do_empty,
+                                                  const WgMaps& maps, const WgGemmArgs& p) {
   constexpr int S = wg_stages(EPI), STAGE = wg_stage(EPI), A_BYTES = wg_a_bytes(EPI);
   const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
   uint8_t* stg = staging + cw * wg_staging(EPI);
   float* sums = reinterpret_cast<float*>(stg + 3 * WG_BOX);   // WG_GEGLU_BWD
+  uint8_t* sdo = stg + 4 * WG_BOX;                             // WG_TATTN_BWD
   const int nk = p.nk;
   const int ntiles = (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   float acc[64], acc2[32];   // B rows 0-127 and 128-191 of the tile
@@ -335,17 +485,25 @@ __device__ __forceinline__ void wg_split_consumer(uint8_t* ring, uint8_t* stagin
     // epilogue: registers -> staging (swizzled) -> TMA store
     if (tid == 0) bulk_wait_read<0>();
     named_bar_sync(1 + cw, 128);
-    if constexpr (EPI == WG_TATTN)
+    if constexpr (EPI == WG_TATTN) {
       wg_tattn_epilogue(acc, acc2, stg, warp, g, qd);
-    else
+    } else if constexpr (EPI == WG_TATTN_BWD) {
+      mbar_wait(&do_full[cw], (i / 2) & 1);
+      wg_tattn_bwd_epilogue(acc, acc2, sdo, stg, warp, g, qd);
+    } else {
       wg_geglu_bwd_epilogue(acc, acc2, p, n0, stg, sums, warp, g, qd);
+    }
     fence_proxy_async();
     named_bar_sync(1 + cw, 128);
     if (tid == 0) {
-      tma_store_2d(tout, stg, n0, m0);   // o_h at column 64 h; h
+      tma_store_2d(&maps.out, stg, n0, m0);   // o_h at column 64 h; h
       if (EPI == WG_GEGLU_BWD) {
-        tma_store_2d(tout2, stg + WG_BOX, n0, m0);                  // du
-        tma_store_2d(tout2, stg + 2 * WG_BOX, p.gate + n0, m0);     // dg
+        tma_store_2d(&maps.out2, stg + WG_BOX, n0, m0);                  // du
+        tma_store_2d(&maps.out2, stg + 2 * WG_BOX, p.gate + n0, m0);     // dg
+      } else if (EPI == WG_TATTN_BWD) {   // dq', dk, dv at columns 192 h ..
+        for (int bx = 1; bx < 4; ++bx)
+          tma_store_2d(&maps.out2, stg + bx * WG_BOX, 3 * n0 + 64 * (bx - 1), m0);
+        mbar_arrive(&do_empty[cw]);   // every thread has read the dO box
       }
       bulk_commit();
     }
@@ -371,7 +529,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint8_t* staging = ring + S * STAGE;   // per consumer warpgroup
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * wg_staging(EPI));
   uint64_t* empty = full + S;
-  uint64_t* res_bar = empty + S;      // per consumer warpgroup
+  uint64_t* res_bar = empty + S;      // per consumer warpgroup (WG_TATTN_BWD: dO full)
+  uint64_t* do_empty = res_bar + 2;   // WG_TATTN_BWD: per consumer warpgroup, dO box read
   const int nk = p.nk;
 
   if (threadIdx.x == 0) {
@@ -381,16 +540,25 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     mbar_init(&res_bar[0], 1);
     mbar_init(&res_bar[1], 1);
+    mbar_init(&do_empty[0], 1);
+    mbar_init(&do_empty[1], 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {  // producer: every tile's slabs, in tile order
     if (threadIdx.x == 256) {
-      int it = 0;
-      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int it = 0, ti = 0;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++ti) {
         const WgRows rw = wg_rows<SRC, BM>(p, t / p.n_tiles);
         const int n0 = (t % p.n_tiles) * TN;
+        if (EPI == WG_TATTN_BWD) {   // the head's dO slice, into its warpgroup's dO box
+          const int cw = ti & 1, jw = ti >> 1;
+          if (jw > 0) mbar_wait(&do_empty[cw], (jw - 1) & 1);
+          mbar_expect_tx(&res_bar[cw], WG_BOX);
+          tma_load_2d(staging + cw * wg_staging(EPI) + 4 * WG_BOX, &maps.a2, &res_bar[cw], n0,
+                      rw.m0);
+        }
         for (int ks = 0; ks < nk; ++ks, ++it) {
           const int s = it % S;
           if (it >= S) mbar_wait(&empty[s], ((it / S) - 1) & 1);
@@ -404,7 +572,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             continue;
           }
           tma_load_2d(st, &maps.a, &full[s], ks * 64, rw.m0);
-          if (EPI == WG_TATTN) {   // the head's 192 rows [q_h | k_h | v_h]
+          if (wg_tattn(EPI)) {   // the head's 192 rows [q_h | k_h | v_h]
             tma_load_2d(sb, &maps.b, &full[s], ks * 64, 3 * n0);
           } else if (EPI == WG_GEGLU_BWD) {   // dy; W1's value and gate rows, W2^T's
             tma_load_2d(st + WG_BOX, &maps.a2, &full[s], ks * 64, rw.m0);
@@ -424,7 +592,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 
   if constexpr (wg_split(EPI)) {
-    wg_split_consumer<EPI>(ring, staging, full, empty, &maps.out, &maps.out2, p);
+    wg_split_consumer<EPI>(ring, staging, full, empty, res_bar, do_empty, maps, p);
   } else {
     // consumers: warpgroup cw takes the block's tiles i = cw, cw + 2, ..
     // A warpgroup waits for a tile's slabs only once the other has waited
@@ -481,6 +649,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       mbar_arrive(&empty[prev]);
+
+      if constexpr (EPI == WG_F32) {   // fp32 from registers, tails clipped
+#pragma unroll
+        for (int hm = 0; hm < 2; ++hm)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = rw.m0 + 64 * hm + 16 * warp + g + 8 * hh;
+            if (row >= p.m) continue;
+            float* orow = p.outf + row * p.ldo + n0 + 2 * qd;
+#pragma unroll
+            for (int jj = 0; jj < TN / 8; ++jj)
+              if (n0 + 8 * jj + 2 * qd < p.n)
+                *reinterpret_cast<float2*>(orow + 8 * jj) =
+                    make_float2(acc[hm][4 * jj + 2 * hh], acc[hm][4 * jj + 2 * hh + 1]);
+          }
+        continue;
+      }
 
       // epilogue: registers -> staging (swizzled) -> TMA store
       if (EPI != WG_BIAS_RES && tid == 0) bulk_wait_read<0>();
@@ -634,6 +819,57 @@ static inline cudaError_t launch_wgmma_tattn(const bf16* xn, const bf16* wqkv, b
   p.n_tiles = c / 64;   // heads
   p.tiles = rows / 64 * p.n_tiles;
   return wg_launch<WG_TATTN, WG_MATRIX>(maps, p, stream);
+}
+
+// Kernel 9's attention backward as the epilogue of the q|k|v product
+// (WG_TATTN_BWD): per 64-row tile and head h, q'_h | k_h | v_h = xn
+// Wqkv'[192 h .., :]^T recomputed, then o[:, 64 h ..] and dqkv[:, 192 h ..] =
+// [dq'_h | dk_h | dv_h] from dout[:, 64 h ..] (dO = dy Wo). xn, dout, o:
+// (rows, c) bf16; wqkv (3c, c) bf16 in head order (as launch_wgmma_tattn);
+// dqkv (rows, 3c) bf16 in the same head order. rows % 64 == 0, c % 64 == 0.
+static inline cudaError_t launch_wgmma_tattn_bwd(const bf16* xn, const bf16* wqkv,
+                                                 const bf16* dout, bf16* o, bf16* dqkv,
+                                                 int rows, int c, cudaStream_t stream) {
+  using mudg_host::bf16_matrix_map;
+  if (rows % 64 || c % 64) return cudaErrorInvalidValue;
+  WgMaps maps;
+  cudaError_t e = bf16_matrix_map(&maps.a, xn, rows, c, c, 64);
+  if (e == cudaSuccess) e = bf16_matrix_map(&maps.b, wqkv, 3LL * c, c, c, 192);
+  if (e == cudaSuccess) e = bf16_matrix_map(&maps.a2, dout, rows, c, c, 64);
+  if (e == cudaSuccess) e = bf16_matrix_map(&maps.out, o, rows, c, c, 64);
+  if (e == cudaSuccess) e = bf16_matrix_map(&maps.out2, dqkv, rows, 3LL * c, 3LL * c, 64);
+  if (e != cudaSuccess) return e;
+  maps.res = maps.a;
+  maps.b2 = maps.b;
+  WgGemmArgs p = {};
+  p.n = c;
+  p.nk = c / 64;
+  p.n_tiles = c / 64;   // heads
+  p.tiles = rows / 64 * p.n_tiles;
+  return wg_launch<WG_TATTN_BWD, WG_MATRIX>(maps, p, stream);
+}
+
+// outf (m, n) fp32 = a @ b^T (WG_F32): a (m, k) with row pitch lda, b (n, k)
+// with pitch ldb, bf16 (pitches multiples of 8 elements, pointers 16-byte
+// aligned), outf with row pitch ldo (n even).
+static inline cudaError_t launch_wgmma_gemm_f32(const bf16* a, long long lda, const bf16* b,
+                                                long long ldb, float* outf, long long ldo,
+                                                int m, int n, int k, cudaStream_t stream) {
+  using mudg_host::bf16_matrix_map;
+  if (n % 2) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  cudaError_t e = bf16_matrix_map(&ta, a, m, k, lda, WG_BM);
+  if (e == cudaSuccess) e = bf16_matrix_map(&tb, b, n, k, ldb, 128);
+  if (e != cudaSuccess) return e;
+  WgGemmArgs p = {};
+  p.n = n;
+  p.m = m;
+  p.nk = (k + 63) / 64;
+  p.n_tiles = (n + 127) / 128;
+  p.tiles = ((m + WG_BM - 1) / WG_BM) * p.n_tiles;
+  p.outf = outf;
+  p.ldo = ldo;
+  return wg_launch<WG_F32, WG_MATRIX>(ta, tb, ta, ta, p, stream);
 }
 
 // Kernel 10's GEGLU backward tile (WG_GEGLU_BWD): u | g = x W1^T + b1 and

@@ -1,11 +1,10 @@
 // A weight gradient on TMA and wgmma: the sum over the rows of a batch
 //   out(M, N) fp32 = A^T B = sum_r A[r, m] B[r, n],  A (K, M), B (K, N) bf16,
 // with K the rows (tokens), used by kernel 10 (dW2 = dy^T h, dW1 = [du |
-// dg]^T x). Both operands lie with the rows outermost; TMA loads 64-row K
-// slabs of them as they lie, and wgmma reads both MN-major through its
-// transpose bits (16-bit operands allow it), so nothing is transposed in
-// software (wgrad.cuh's mma.sync kernel stores each 16-byte load as eight
-// 2-byte values, with bank conflicts).
+// dg]^T x) and kernel 9 (dWqkv' = dqkv^T xn, dWo = dy^T o). Both operands
+// lie with the rows outermost; TMA loads 64-row K slabs of them as they
+// lie, and wgmma reads both MN-major through its transpose bits (16-bit
+// operands allow it), so nothing is transposed in software.
 //
 // Design: one block of 288 threads per 128 x 128 output tile and split of
 // the rows. Warp 8 is the producer: one thread keeps a ring of WR_STAGES

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_short_kv_attn_f32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_short_kv_tma": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
+    "mudg_short_kv_tf32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_packed_attn": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_P],
 }
 # fp32 scratch for the backward kernels' split partials (elements); the split

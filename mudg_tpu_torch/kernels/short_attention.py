@@ -8,9 +8,10 @@ v (B, T, H, D), T <= 64 (the temporal-attention shape). Both non-causal, fp32 so
 probabilities cast to v's dtype for the P @ V product. Replace
 `mudg_tpu/kernels/short_attention.py`'s `_short_kv_kernel` (pallas_call at
 :214) and `_packed_kernel` (:81); the design notes are at the top of the .cu
-files. `short_kv_route` picks the short-KV kernel: `csrc/short_kv.cu` (K/V
-held whole in shared memory) at every MuDG site, `csrc/short_attn.cu`'s
-streaming kernel for the rest of what the predicate admits.
+files. `short_kv_route` picks the short-KV kernel: at every MuDG site K/V
+are held whole in shared memory, `csrc/short_kv.cu` in bf16 and
+`csrc/short_kv_f32.cu` (3xTF32 wgmma) in fp32; `csrc/short_attn.cu`'s
+streaming kernels take the rest of what the predicate admits.
 
 `attend` takes `short_kv_attention` where the JAX dispatch takes its Pallas
 kernel: under `MUDG_SHORT_ATTN=1`, impl "auto" or "train", where the copied
@@ -51,17 +52,23 @@ def short_kv_attention_eligible(q, k) -> bool:
     return lk <= 1024 and d in (64, 128) and lq % 256 == 0
 
 
-SKV_TMA_MAX_KEYS = 128   # csrc/short_kv.cu holds K and V whole up to this
+SKV_TMA_MAX_KEYS = 128   # csrc/short_kv.cu and short_kv_f32.cu hold K and V whole up to this
 
 
 def short_kv_route(dtype, d: int, lk: int) -> str:
-    """Which kernel a short-KV call launches: "tma" (`csrc/short_kv.cu`: K/V
-    loaded once per block by TMA, held whole in shared memory; bf16, head dim
-    64, Lk <= 128, every MuDG site) or "stream" (`csrc/short_attn.cu`: K/V
-    streamed in 64-key chunks with an online softmax; the rest the predicate
-    admits, Lk up to 1024 and head dim 128, and every fp32 call)."""
-    if dtype == torch.bfloat16 and d == 64 and 1 <= lk <= SKV_TMA_MAX_KEYS:
-        return "tma"
+    """Which kernel a short-KV call launches at head dim 64 and Lk <= 128
+    (every MuDG site): "tma" in bf16 (`csrc/short_kv.cu`: K/V loaded once per
+    block by TMA, held whole in shared memory), "tf32" in fp32
+    (`csrc/short_kv_f32.cu`: the same layout, K and V^T split once per pair
+    into tf32 hi and lo copies, every product three tf32 wgmma products);
+    else "stream" (`csrc/short_attn.cu`: K/V streamed in chunks with an
+    online softmax, mma.sync in bf16 and FMAs in fp32; the rest the
+    predicate admits, Lk up to 1024 and head dim 128)."""
+    if d == 64 and 1 <= lk <= SKV_TMA_MAX_KEYS:
+        if dtype == torch.bfloat16:
+            return "tma"
+        if dtype == torch.float32:
+            return "tf32"
     return "stream"
 
 
@@ -124,10 +131,9 @@ def short_kv_attention(q, k, v):
     o = torch.empty(b, lq, h, d, device=q.device, dtype=q.dtype)
     lib = _build.load()
     P = _build.ptr
-    if short_kv_route(q.dtype, d, lk) == "tma":
-        fn = lib.mudg_short_kv_tma
-    else:
-        fn = lib.mudg_short_kv_attn_f32 if q.dtype == torch.float32 else lib.mudg_short_kv_attn
+    fn = {"tma": lib.mudg_short_kv_tma, "tf32": lib.mudg_short_kv_tf32,
+          "stream": lib.mudg_short_kv_attn_f32 if q.dtype == torch.float32
+          else lib.mudg_short_kv_attn}[short_kv_route(q.dtype, d, lk)]
     err = fn(P(q), P(k), P(v), P(o), b, lq, lk, h, d, *_strides(q, k, v), _build.stream())
     _build.check(err, "short_kv_attention")
     launches += 1

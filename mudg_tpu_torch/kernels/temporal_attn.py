@@ -7,10 +7,11 @@ Two consecutive [LN -> self-attention over T = 16 -> out-projection + bias ->
 (fused_double_self_attn) and `_bwd_stage_kernel` (`_bwd_one_stage`); the
 design notes are at the top of the .cu files.
 
-Kernel 2 reads Wq|Wk|Wv packed per head, rows 192 h .. 192 h + 191 =
-[Wq'_h | Wk_h | Wv_h] (`pack_stage`, `pack_stage_params`): one tile of its
-GEMM is 64 rows by one head, whose attention runs in the GEMM's epilogue.
-Kernel 9 reads kernel 1's packing (`spatial_attn.pack_stage_params`).
+Kernels 2 and 9 read Wq|Wk|Wv packed per head, rows 192 h .. 192 h + 191 =
+[Wq'_h | Wk_h | Wv_h] (`pack_stage`, `pack_stage_params`): one tile of their
+q|k|v GEMM is 64 rows by one head, whose attention (forward, or backward)
+runs in the GEMM's epilogue. Kernel 9 returns the gradient of that packed
+matrix in the same head order; `_launch_stage_bwd` restores [q | k | v].
 
 `fused_double_self_attn` (inference, weights packed once by
 `prepare_kernels`) and `double_self_attn_bwd` are the wrappers: on a CPU (or
@@ -48,14 +49,25 @@ def eligible(shape, dtype, c: int, heads: int) -> bool:
             and (n * t) % 64 == 0 and c <= MAX_C)
 
 
+def head_order_rows(w, heads: int):
+    """The rows of a (3C, ...) matrix in the packing's head order (row 192 h
+    + 64 j + i holds row j C + 64 h + i of [q | k | v] order)."""
+    c3 = w.shape[0]
+    return w.reshape(3, heads, c3 // (3 * heads), *w.shape[1:]).transpose(0, 1).reshape(w.shape)
+
+
+def qkv_order_rows(w, heads: int):
+    """`head_order_rows` undone: head order back to [q | k | v] order."""
+    c3 = w.shape[0]
+    return w.reshape(heads, 3, c3 // (3 * heads), *w.shape[1:]).transpose(0, 1).reshape(w.shape)
+
+
 def pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads: int) -> PackedStage:
     """Kernel 2's weights of one stage: kernel 1's packing (the softmax scale
     and log2(e) folded into Wq in bf16) with the rows of Wq'|Wk|Wv in head
     order, rows 192 h .. 192 h + 191 = [Wq'_h | Wk_h | Wv_h]."""
     pk = SP.pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads)
-    c = pk.wqkv.shape[1]
-    wqkv = pk.wqkv.reshape(3, heads, c // heads, c).transpose(0, 1).reshape(3 * c, c)
-    return pk._replace(wqkv=wqkv.contiguous())
+    return pk._replace(wqkv=head_order_rows(pk.wqkv, heads).contiguous())
 
 
 @torch.no_grad()
@@ -207,18 +219,17 @@ def _launch_stage_bwd(x, dy, params, heads):
     n, t, c = x.shape
     rows = n * t
     d = c // heads
-    ln_w, ln_b, wq, wk, wv, wo, bo = params
-    pk = SP.pack_stage_params(ln_w, ln_b, wq, wk, wv, wo, bo, heads)
+    pk = pack_stage_params(*params, heads)
     check_packed(pk, c)
     wqkv_t = pk.wqkv.t().contiguous()
-    wo_t = wo.to(torch.bfloat16).t().contiguous()
+    wo_t = pk.wo.t().contiguous()
     dy = dy.contiguous()
     _build.require(x, "x")
     _build.require(dy, "dy")
     f32 = dict(device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    qkv, dqkv = x.new_empty(rows, 3 * c), x.new_empty(rows, 3 * c)
-    dout, o_all = x.new_empty(rows, c), x.new_empty(rows, c)
+    xn, dout, o = (x.new_empty(rows, c) for _ in range(3))
+    dqkv = x.new_empty(rows, 3 * c)
     dxn = torch.empty(rows, c, **f32)
     mean, rstd = torch.empty(rows, **f32), torch.empty(rows, **f32)
     dwqkv, dwo = torch.empty(3 * c, c, **f32), torch.empty(c, c, **f32)
@@ -226,10 +237,11 @@ def _launch_stage_bwd(x, dy, params, heads):
     work = torch.empty(_build.WORK_ELEMS, **f32)
     P = _build.ptr
     err = _build.load().mudg_temporal_attn_stage_bwd(
-        P(x), P(dy), P(dx), P(qkv), P(dqkv), P(dout), P(o_all), P(dxn), P(mean), P(rstd),
+        P(x), P(dy), P(dx), P(xn), P(dout), P(o), P(dqkv), P(dxn), P(mean), P(rstd),
         P(pk.ln_w), P(pk.ln_b), P(pk.wqkv), P(wqkv_t), P(wo_t), P(dwqkv), P(dwo), P(dlnw),
         P(dlnb), P(dbo), P(work), _build.WORK_ELEMS, rows, c, _build.stream())
     _build.check(err, "temporal_attn_bwd")
+    dwqkv = qkv_order_rows(dwqkv, heads)
     fold = d ** -0.5 * LOG2E
     return dx, (dlnw, dlnb, dwqkv[:c] * fold, dwqkv[c:2 * c], dwqkv[2 * c:], dwo, dbo)
 

@@ -65,7 +65,7 @@ def test_chip_smoke_checks_see_planted_faults(config):
                 assert rows % 128 == 64 and case.sites == 0, case.label
                 tails.append(case.label)
         elif case.name == "gn_silu_tconv":   # (M, 3C) taps by wcat: (M, C)
-            assert case.rerun, case.label
+            assert case.reruns, case.label
             b, t, h, w, c = map(int, case.label.split()[1].split("x"))
             assert tuple(shapes["cublas_tap_gemm_ms"].shape) == (b * t * h * w, c)
         else:
@@ -131,17 +131,19 @@ def test_chip_smoke_kernel_line_keys():
     assert (by["short_kv_attention"]["ms_queued"], by["short_kv_attention"]["library_ms_queued"]
             ) == (0.5, 0.55)
     assert by["geglu_ff"]["source"] == "mudg_tpu_torch/csrc/geglu_ff.cu"
-    assert by["short_kv_attention"]["source"] == "mudg_tpu_torch/csrc/short_kv.cu"
+    assert by["short_kv_attention"]["source"] == (
+        "mudg_tpu_torch/csrc/short_kv.cu,mudg_tpu_torch/csrc/short_kv_f32.cu")
 
 
 def test_chip_smoke_grad_checks_see_planted_faults():
     """Every backward kernel's cases (kernel 6 in bf16 at each training
     length, in fp32 at MDM512 ds1 and ds2 held to F32_BWD_TOL with the
     "1xTF32" fault and three TF32 products per product in its bound, and at
-    the 576-row tail shape in both dtypes; kernels 6 and 10 each rerun bit
-    for bit), with kernel 5 before each of kernel 6's: each passes its check
-    and each planted fault misses it. Kernel 10's yardstick computes its six
-    products alone."""
+    the 576-row tail shape in both dtypes; kernels 6, 9 and 10 each rerun
+    bit for bit), with kernel 5 before each of kernel 6's: each passes its
+    check and each planted fault misses it. Kernel 10's yardstick computes
+    its six products alone, kernel 9's its five per stage for both
+    stages."""
     seen, flash_bwd = set(), []
     for case in CS.grad_cases(torch, K, nn_att, dev="cpu",
                               latent={"mdm512": (8, 8), "mdm1024": (8, 16)}):
@@ -151,11 +153,16 @@ def test_chip_smoke_grad_checks_see_planted_faults():
         assert chk.faults and all(e > bound for e in chk.faults.values()), (case.label,
                                                                             chk.faults)
         assert CS.reruns_bit_for_bit(torch, case)
-        assert case.rerun == (case.name in ("flash_attention_bwd", "geglu_ff_bwd")), case.label
+        assert case.reruns == (case.name in ("flash_attention_bwd", "temporal_attn_bwd",
+                                             "geglu_ff_bwd")), case.label
         if case.name == "geglu_ff_bwd":   # x W1v^T, x W1g^T, dy W2, [du | dg] W1, dy^T h, [du | dg]^T x
             m, c = map(int, case.label.split("x"))
             assert [tuple(p.shape) for p in case.yardsticks["cublas_gemm_ms"]()] == [
                 (m, 4 * c), (m, 4 * c), (m, 4 * c), (m, c), (c, 4 * c), (8 * c, c)]
+        elif case.name == "temporal_attn_bwd":   # per stage: xn Wqkv'^T, dy Wo, dqkv^T xn,
+            m, c = map(int, case.label.split()[-1].split("x"))   # dy^T o, dqkv Wqkv'
+            assert [tuple(p.shape) for st in case.yardsticks["cublas_gemm_ms"]() for p in st] == [
+                (m, 3 * c), (m, c), (3 * c, c), (c, c), (m, c)] * 2
         else:
             assert not case.yardsticks, case.label
         if case.name == "flash_attention_bwd":
@@ -203,8 +210,10 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
     version in float64, within 1e-5 * max|ref|), each planted fault (GN
     with the one-pass variance at the offset and with the group map shifted
     by one channel, LN without its mean, short-KV with the padded keys
-    unmasked and with half the keys, packed with another sequence's keys)
-    misses the bound, and each autograd op's gradients pass theirs."""
+    unmasked and with half the keys, fp32 short-KV on operands rounded once
+    to TF32, packed with another sequence's keys) misses the bound, fp32
+    short-KV is bound at three TF32 products per product and reruns bit for
+    bit, and each autograd op's gradients pass theirs."""
     from mudg_tpu_torch.kernels import norms as N
     from mudg_tpu_torch.kernels import short_attention as SA
 
@@ -228,7 +237,10 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
             assert err > chk.tol * chk.scale, (case.label, name, err, chk.scale)
             faults.add((case.name, name))
         assert CS.reruns_bit_for_bit(torch, case)
-        assert case.rerun == (case.name == "group_norm" and not case.grads), case.label
+        f32_skv = case.name == "short_kv_attention" and case.tol == CS.F32_TOL
+        assert case.reruns == (0 if case.grads else CS.SKV_RERUNS if f32_skv
+                               else int(case.name == "group_norm")), case.label
+        assert (case.peak == CS.PEAK_TF32) == (f32_skv and not case.grads), case.label
         seen.add((case.name, case.grads, case.tol))
     assert {n for n, _, _ in seen} == SWITCH_KERNELS
     assert {n for n, g, _ in seen if g} == SWITCH_KERNELS          # every op's gradients
@@ -239,6 +251,7 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
                       ("layer_norm", "mean not subtracted"),
                       ("short_kv_attention", "padded keys unmasked"),
                       ("short_kv_attention", "half the keys"),
+                      ("short_kv_attention", "1xTF32"),
                       ("packed_short_attention", "another sequence's keys")}
 
 

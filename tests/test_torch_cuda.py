@@ -914,12 +914,18 @@ def test_layer_norm_kernel(dev, shape, dtype):
                                                (4, 2560, 77, 5, 64, torch.float32),
                                                (2, 256, 1024, 2, 128, torch.float32),
                                                (2, 512, 93, 3, 128, torch.float32),
-                                               (2, 256, 1, 2, 64, torch.float32)])
+                                               (2, 256, 1, 2, 64, torch.float32),
+                                               (2, 256, 16, 2, 64, torch.float32),
+                                               (3, 512, 128, 2, 64, torch.float32),
+                                               (3, 512, 129, 2, 64, torch.float32),
+                                               (2, 256, 48, 3, 64, torch.float32),
+                                               (2, 256, 112, 2, 64, torch.float32)])
 def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
     """Against the dense plain version across the predicate (Lk up to 1024,
-    D 64 and 128, Lq down to 256; fp32 within 1e-5 * max|ref|) on both
-    routes, and both sides of their boundary (Lk 128 and 129 at D 64); k and
-    v strided; unmasked padded keys are seen; a rerun gives the same bits."""
+    D 64 and 128, Lq down to 256; fp32 within 1e-5 * max|ref|) on every
+    route, and both sides of their boundary (Lk 128 and 129 at D 64, in
+    both dtypes); k and v strided; unmasked padded keys are seen; a rerun
+    gives the same bits."""
     from mudg_tpu_torch.kernels import short_attention as SA
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -934,7 +940,7 @@ def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
     assert torch.isfinite(got).all()
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
     assert SA.short_kv_route(dtype, d, lk) == (
-        "tma" if dtype == torch.bfloat16 and d == 64 and lk <= 128 else "stream")
+        "stream" if d != 64 or lk > 128 else "tma" if dtype == torch.bfloat16 else "tf32")
     assert torch.equal(got, SA.short_kv_attention(q, k, v))
     if lk % 64:
         pad = (0, 0, 0, 0, 0, -lk % 64)

@@ -1,6 +1,6 @@
 """Kernel 12's short-KV route (`kernels/short_attention.short_kv_route`) on
-the CPU: which of its two CUDA kernels a call launches, on both sides of the
-boundary and at every shape chip_smoke.py's phase 11 checks. The kernels
+the CPU: which of its CUDA kernels a call launches, on both sides of the
+boundaries and at every shape chip_smoke.py's phase 11 checks. The kernels
 themselves run only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 from __future__ import annotations
 
@@ -16,11 +16,13 @@ BF, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("dtype,d,lk,route", [
     (BF, 64, 77, "tma"), (BF, 64, 16, "tma"), (BF, 64, 1, "tma"), (BF, 64, 128, "tma"),
     (BF, 64, 129, "stream"), (BF, 64, 1024, "stream"), (BF, 128, 77, "stream"),
-    (BF, 128, 16, "stream"), (F32, 64, 77, "stream")])
+    (BF, 128, 16, "stream"), (F32, 64, 77, "tf32"), (F32, 64, 16, "tf32"),
+    (F32, 64, 1, "tf32"), (F32, 64, 128, "tf32"), (F32, 64, 129, "stream"),
+    (F32, 128, 77, "stream")])
 def test_short_kv_route_boundaries(dtype, d, lk, route):
-    """`csrc/short_kv.cu` takes bf16 at head dim 64 and 1 <= Lk <= 128;
-    `csrc/short_attn.cu` the rest the predicate admits (Lk up to 1024, head
-    dim 128) and every fp32 call."""
+    """At head dim 64 and 1 <= Lk <= 128 `csrc/short_kv.cu` takes bf16 and
+    `csrc/short_kv_f32.cu` fp32; `csrc/short_attn.cu` the rest the predicate
+    admits (Lk up to 1024, head dim 128) in either dtype."""
     assert SA.short_kv_route(dtype, d, lk) == route
 
 
@@ -28,9 +30,9 @@ def test_short_kv_route_boundaries(dtype, d, lk, route):
 def test_every_short_kv_site_takes_its_route(cfg):
     """Every bf16 short-KV site of an MDM512 or MDM1024 forward and of the
     training micro-step (Lk 16 and 77, head dim 64) launches the TMA
-    kernel; the fp32 forwards' sites the streaming fp32 kernel."""
+    kernel; the fp32 forwards' sites the 3xTF32 wgmma kernel."""
     dtype = F32 if cfg.endswith("-f32") else BF
-    want = "stream" if dtype == F32 else "tma"
+    want = "tf32" if dtype == F32 else "tma"
     for qs, ks in CS.SKV_SHAPES[cfg]:
         assert SA.short_kv_attention_eligible(torch.empty(qs, device="meta"),
                                               torch.empty(ks, device="meta"))
