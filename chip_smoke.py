@@ -7,8 +7,8 @@ Phases:
   1. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc build of every kernel from csrc/, with ptxas's
      register and spill report (it fails if kernels 2, 9 or 10's wgmma
-     kernels or fp32 kernels 5, 6 and 12's tf32 wgmma kernels spill,
-     NO_SPILL);
+     kernels, fp32 kernels 5, 6 and 12's tf32 wgmma kernels or kernel 13's
+     forward and backward spill, NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
@@ -91,10 +91,13 @@ Phases:
      max|ref|; each per-gaussian gradient field (through the pair gather and
      the projection) within 2e-3 * max|ref| + 1e-8; planted faults (pairs
      composited back to front; the backward without its occlusion term)
-     must miss those bounds; two backward runs bit for bit; kernel and plain
-     times beside a bound from the (pair, pixel) evaluations this data needs
+     must miss those bounds; two backward runs bit for bit; kernel times
+     (each call alone, and queued: 10 calls back to back) and plain times
+     beside a bound from the (pair, pixel) evaluations this data needs
      and the contributing ones among them (FP32 operations at 67 TFLOP/s)
-     and the bytes each direction moves (at 3.35 TB/s);
+     and the bytes each direction moves (at 3.35 TB/s); per scene the tile
+     count, the heaviest tile's pairs and the largest `last`; with
+     --profile, one forward and backward at (b) under the profiler;
  10. the 3DGS refinement path: `apps/refine_gs.refine` on 500k seeded slab
      points (0.25 m splats) at capacity 1M, 24 views of a forward track at
      960x640 whose targets kernel 13 rendered from a seeded true set, 300
@@ -203,11 +206,13 @@ PEAK_BYTES = 3.35e12  # HBM3
 # (wgmma_gemm_kernel<WG_TATTN, ..>), kernel 10's GEGLU backward tile
 # (<WG_GEGLU_BWD, ..>) and the weight-gradient GEMM (kernels 9 and 10),
 # kernel 9's attention-backward tile (<WG_TATTN_BWD, ..>) and fp32-output
-# GEMM (<WG_F32, ..>), fp32 kernels 5 and 6's three tf32 wgmma kernels and
-# fp32 kernel 12's
+# GEMM (<WG_F32, ..>), fp32 kernels 5 and 6's three tf32 wgmma kernels,
+# fp32 kernel 12's, and kernel 13's forward and backward at every payload
+# width
 NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_gemm_kernelILi5E",
             "wgmma_gemm_kernelILi6E", "wgmma_wgrad_kernel", "flash_fwd_tf32_kernel",
-            "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel", "short_kv_tf32_kernel")
+            "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel", "short_kv_tf32_kernel",
+            "composite_fwd", "composite_bwd")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
 # and 12 only with their switches set (phase 12)
@@ -2299,15 +2304,30 @@ def gs_bound(work):
     return bound(*work, peak=PEAK_FP32)
 
 
-def phase_gs_kernels(torch, KT, G, TT):
-    """Phase 9: kernel 13 forward and backward at shapes (a)-(d)."""
+def phase_gs_kernels(torch, KT, G, TT, profile=False, out_dir=None):
+    """Phase 9: kernel 13 forward and backward at shapes (a)-(d); with
+    `profile`, one forward and one backward at (b) under the profiler (the
+    kernels beside the wrappers' tile-order sorts)."""
     rows = {}
     for case in gs_cases(torch, G):
         r = gs_check(torch, KT, G, TT, case)
         fd, bounds, out_k, last, gout, tw, npay = r.pop("timing")
-        ms = cuda_ms(torch, lambda: KT.tile_composite(fd, bounds, tw, npay))
-        bms = cuda_ms(torch, lambda: KT.tile_composite_bwd(fd, bounds, out_k, last, gout, tw,
-                                                           npay))
+        fwd = lambda: KT.tile_composite(fd, bounds, tw, npay)   # noqa: E731
+        bwd = lambda: KT.tile_composite_bwd(fd, bounds, out_k, last, gout, tw, npay)   # noqa: E731
+        ms, bms = cuda_ms(torch, fwd), cuda_ms(torch, bwd)
+        queued = {"tile_composite": cuda_ms_queued(torch, fwd),
+                  "tile_composite_bwd": cuda_ms_queued(torch, bwd)}
+        counts = bounds[1:] - bounds[:-1]
+        sched = {"tiles": counts.numel(), "max_tile_pairs": int(counts.max()),
+                 "max_last": int(last.max())}
+        log(f"  {case.label}: {sched['tiles']} tiles, pairs per tile mean "
+            f"{counts.float().mean().item():.1f}, max {sched['max_tile_pairs']}; largest "
+            f"last {sched['max_last']}")
+        if profile and case.sites:
+            prof = profile_call(torch, lambda: KT.tile_composite_bwd(
+                fd, bounds, *KT.tile_composite(fd, bounds, tw, npay), gout, tw, npay),
+                f"kernel 13 forward + backward, {case.label}")
+            save_profile(prof, "kernel13", out_dir)
         for name, t_k, t_p, work, err in (
                 ("tile_composite", ms, r["plain_ms"], r["work_fwd"], r["fwd_err"]),
                 ("tile_composite_bwd", bms, r["plain_bwd_ms"], r["work_bwd"], r["bwd_err"])):
@@ -2315,13 +2335,14 @@ def phase_gs_kernels(torch, KT, G, TT):
             log(f"  {name:18s} {case.label:30s} {r['pairs']:>9,} pairs npay {npay:2d}: "
                 f"{'ok' if r['ok'] else 'FAIL'} err {err:.3e} "
                 f"({'of max|ref|, bound ' + str(GS_FWD_TOL) if name == 'tile_composite' else 'of the bound'})"
-                f"   kernel {t_k:.3f} ms   plain {t_p:.1f} ms   bound {b_ms:.4f} ms ({by}, "
-                f"{100 * b_ms / t_k:.1f}% of it)")
-            row = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                         "bound_ms": 0.0, "library_ms": None, "ok": True,
-                                         "bound_by": by, "shapes": []})
+                f"   kernel {t_k:.3f} ms (queued {queued[name]:.3f})   plain {t_p:.1f} ms   bound "
+                f"{b_ms:.4f} ms ({by}, {100 * b_ms / t_k:.1f}% of it)")
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "ms_queued": 0.0,
+                                         "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+                                         "ok": True, "bound_by": by, "shapes": []})
             row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
             row["ms"] += case.sites * t_k
+            row["ms_queued"] += case.sites * queued[name]
             row["plain_ms"] += case.sites * t_p
             row["bound_ms"] += case.sites * b_ms
             if case.sites:
@@ -2329,7 +2350,9 @@ def phase_gs_kernels(torch, KT, G, TT):
             row["ok"] &= r["ok"]
             row["shapes"].append({"shape": case.label, "sites": case.sites, "pairs": r["pairs"],
                                   "npay": npay, "err": err, "faults": r["faults"],
-                                  "bitwise": r["bitwise"], "ms": t_k, "plain_ms": t_p,
+                                  "bitwise": r["bitwise"], "ms": t_k,
+                                  "ms_queued": queued[name], "plain_ms": t_p,
+                                  **sched,
                                   "bound_ms": b_ms, "bound_by": by,
                                   "evals": r["evals_fwd" if name == "tile_composite"
                                              else "evals_bwd"],
@@ -2535,7 +2558,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
-                         "phase 7, one training micro-step")
+                         "phase 7, one training micro-step; in phase 9, kernel 13 at (b)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -2647,7 +2670,8 @@ def main(argv=None):
     del mdm
     torch.cuda.empty_cache()
     if 9 in phases:
-        rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr))
+        rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr,
+                          args.profile, args.out))
     if 10 in phases:
         launches["gs_refine"], report["gs_refine"] = timed(
             10, "3DGS refinement", phase_gs_refine, torch, K, gs_g, gs_train, gs_tr, gs_app,

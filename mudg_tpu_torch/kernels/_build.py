@@ -39,8 +39,9 @@ _SIGNATURES = {
     "mudg_flash_attn_bwd_f32": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_temporal_attn_stage_bwd": [_P] * 21 + [_LL] + [_I] * 2 + [_P],
     "mudg_geglu_ff_bwd": [_P] * 15 + [_LL] + [_I] * 3 + [_P],
-    "mudg_tile_composite": [_P] * 4 + [_I] * 3 + [_P],
-    "mudg_tile_composite_bwd": [_P] * 6 + [_I] * 3 + [_P],
+    "mudg_tile_composite": [_P] * 5 + [_I] * 4 + [_P],
+    "mudg_tile_composite_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "mudg_tile_order": [_P] * 2 + [_I] + [_P],
     "mudg_group_norm": [_P] * 5 + [_I] * 7 + [_F] + [_P],
     "mudg_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
     "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],

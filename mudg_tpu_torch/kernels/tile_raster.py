@@ -2,14 +2,28 @@
 per 16x16 tile (CUDA, `csrc/tile_raster.cu`), and its backward.
 
 Replaces `mudg_tpu/gs/tile_raster.py`'s `_fwd_kernel` and `_bwd_kernel`
-(the custom-vjp op `composite_tiles`); what bounds each on the H100 and how
-the CUDA design answers that is in the note at the top of the .cu file.
+(the custom-vjp op `composite_tiles`).
 
 Layout: `feats` (P, 6 + npay) f32, one row per pair [mux, muy, conic a, b,
 c, opacity, payload...], sorted by (tile, depth); `bounds` (n_tiles + 1,)
 i32. The output (n_tiles, npay + 1, 256) holds the payload sums and the
 final transmittance per pixel; `last` (n_tiles, 256) i32 holds, per pixel,
 1 + the index within its tile of the last pair that contributed.
+
+On the H100 both directions are bound by FP32 instruction issue (about 14
+operations and an exp per (pair, pixel) evaluation over a few bytes), and
+by how long the heaviest tiles keep their blocks busy: pair counts differ
+between tiles by orders of magnitude. So each kernel runs a persistent grid
+that takes the tiles heaviest first (`tile_order`: the forward by pair
+count, the backward by the tile's largest `last`; a sort inside the same
+launch), gives each thread two pixels, streams each block's pair rows
+through shared memory by bulk async copies and re-lays them into 16-byte
+fields with a box per pair outside which alpha < 1/255 (a warp skips a
+pair whose box misses its 8 x 8 quadrant); the backward sums each pair's
+gradient terms over the warp by a reduce-scatter over groups of pairs.
+Where an image has so few tiles that both halves of each fit on the card
+at once, the forward takes half tiles, one pixel a thread. The note at the
+top of the .cu file has the details.
 
 `tile_composite` and `tile_composite_bwd` are the wrappers: on a CPU tensor
 they run `plain_tile_composite` / `plain_tile_composite_bwd`; on a CUDA
@@ -174,6 +188,27 @@ def _check(feats, bounds, npay, tw):
         raise ValueError(f"bounds: expected (n_tiles + 1,), got {tuple(bounds.shape)}")
 
 
+def plain_tile_order(work):
+    """`tile_order` in plain PyTorch."""
+    return torch.argsort(work, descending=True, stable=True).int()
+
+
+def tile_order(work):
+    """The tiles heaviest first, the order in which the kernels' persistent
+    blocks take them: indices (int32) of `work` (n_tiles,) i32 by
+    decreasing work, ties in tile order. The kernels sort inside their own
+    launch; this wrapper runs that sort alone (CUDA) or its plain version
+    (CPU)."""
+    if work.device.type == "cpu":
+        return plain_tile_order(work)
+    _build.require(work, "work", torch.int32)
+    order = torch.empty(work.numel(), device=work.device, dtype=torch.int32)
+    err = _build.load().mudg_tile_order(_build.ptr(work), _build.ptr(order), work.numel(),
+                                        _build.stream())
+    _build.check(err, "tile_order")
+    return order
+
+
 def tile_composite(feats, bounds, tw: int, npay: int):
     """Composite each tile's pairs: (out (n_tiles, npay + 1, 256) f32,
     last (n_tiles, 256) i32)."""
@@ -184,9 +219,10 @@ def tile_composite(feats, bounds, tw: int, npay: int):
     n_tiles = bounds.numel() - 1
     out = torch.empty(n_tiles, npay + 1, NPIX, device=feats.device, dtype=torch.float32)
     last = torch.empty(n_tiles, NPIX, device=feats.device, dtype=torch.int32)
+    order = torch.empty(n_tiles, device=feats.device, dtype=torch.int32)   # scratch
     P = _build.ptr
-    err = _build.load().mudg_tile_composite(P(feats), P(bounds), P(out), P(last), n_tiles, tw,
-                                            npay, _build.stream())
+    err = _build.load().mudg_tile_composite(P(feats), P(bounds), P(order), P(out), P(last),
+                                            n_tiles, tw, npay, feats.shape[0], _build.stream())
     _build.check(err, "tile_composite")
     launches += 1
     return out, last
@@ -207,10 +243,13 @@ def tile_composite_bwd(feats, bounds, out, last, gout, tw: int, npay: int):
             or last.shape != (n_tiles, NPIX):
         raise ValueError(f"out {tuple(out.shape)}, gout {tuple(gout.shape)}, last "
                          f"{tuple(last.shape)} do not match {n_tiles} tiles, npay {npay}")
-    dfeats = torch.zeros_like(feats)
+    dfeats = torch.empty_like(feats)
+    tmax = last.amax(1)
+    order = torch.empty(n_tiles, device=feats.device, dtype=torch.int32)   # scratch
     P = _build.ptr
-    err = _build.load().mudg_tile_composite_bwd(P(feats), P(bounds), P(out), P(last), P(gout),
-                                                P(dfeats), n_tiles, tw, npay, _build.stream())
+    err = _build.load().mudg_tile_composite_bwd(P(feats), P(bounds), P(order), P(tmax), P(out),
+                                                P(last), P(gout), P(dfeats), n_tiles, tw, npay,
+                                                feats.shape[0], _build.stream())
     _build.check(err, "tile_composite_bwd")
     bwd_launches += 1
     return dfeats

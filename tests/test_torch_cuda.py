@@ -5,8 +5,11 @@ UNet whose every kernel site is eligible, kernel path against the fp32 plain
 path, with and without MUDG_FUSED_NORMS=1 / MUDG_SHORT_ATTN=1; the training
 ops reading the current weights; kernels 11 and 12 (norms, short attention)
 in both dtypes where they take fp32 (GN, LN, short-KV), a GN rerun bit for
-bit, each wrapper raising on what its kernel does not take, and the small
-UNet's fp32 forward on the switch path against its fp32 plain path. Marked `cuda`; skipped
+bit, each wrapper raising on what its kernel does not take, the small
+UNet's fp32 forward on the switch path against its fp32 plain path, and
+kernel 13 (3DGS compositing) on scenes, on tiles built to reach its
+schedule, stages and saturation exits at every payload width edge, and
+its tile sort alone. Marked `cuda`; skipped
 without a GPU. These tests import no JAX, so on a machine without it they
 run with the repository's conftest left out:
 
@@ -779,6 +782,120 @@ def test_tile_composite_kernels(dev, opacity, npay):
     assert torch.equal(got, KT.tile_composite_bwd(feats, bounds, out, last, gout, tw, npay))
     assert ratio(KT.plain_tile_composite_bwd(feats, bounds, gout, tw, npay,
                                              drop_occlusion=True)) > 1.0
+
+
+def _tile_table(dev, counts, npay, seed, tw=3, faint=(), opaque=()):
+    """A pair table with counts[t] pairs in tile t (tw tiles a row), rows in
+    tile order: splats centred in or near their tile with conics from
+    sigmas of 0.7-4 px and correlations in (-0.8, 0.8), opacities U(0.05,
+    0.5) and payloads U(0, 1); a tile in `faint` gets sigmas of 0.5-2 px and
+    opacities U(0.01, 0.1), so that it never saturates; one in `opaque`
+    wide splats (sigmas 8-20 px) with opacities U(0.999, 1), so that it
+    saturates within its first pairs (and some alphas reach the 0.999
+    clamp)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    rows = []
+    for t, n in enumerate(counts):
+        x0, y0 = (t % tw) * 16, (t // tw) * 16
+        lo_s, hi_s, lo_o, hi_o = ((0.5, 2.0, 0.01, 0.1) if t in faint else
+                                  (8.0, 20.0, 0.999, 1.0) if t in opaque else
+                                  (0.7, 4.0, 0.05, 0.5))
+        sig = lo_s + (hi_s - lo_s) * u(n, 2)
+        sx, sy = sig[:, 0], sig[:, 1]
+        rho = 0.8 * (2 * u(n) - 1)
+        det = (sx * sy) ** 2 * (1 - rho ** 2)
+        rows.append(torch.stack([x0 - 4 + 24 * u(n), y0 - 4 + 24 * u(n), sy ** 2 / det,
+                                 -rho * sx * sy / det, sx ** 2 / det,
+                                 lo_o + (hi_o - lo_o) * u(n)], 1))
+        rows[-1] = torch.cat([rows[-1], u(n, npay)], 1)
+    feats = torch.cat(rows).contiguous()
+    ends = torch.tensor(counts, dtype=torch.int64).cumsum(0)
+    bounds = torch.cat([torch.zeros(1, dtype=torch.int64), ends]).int().to(dev)
+    return feats, bounds, gen
+
+
+def _check_tile_composite(feats, bounds, tw, npay, gen):
+    """Kernel 13 against its plain versions as test_tile_composite_kernels
+    holds it (forward 1e-4 * max|ref| per channel, each gradient column
+    group 2e-3 * max|ref| + 1e-8), both kernels rerun bit for bit. Returns
+    the plain version's out and last."""
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    out, last = KT.tile_composite(feats, bounds, tw, npay)
+    ref, ref_last = KT.plain_tile_composite(feats, bounds, tw, npay)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    scale = ref.abs().amax(dim=(0, 2))
+    assert ((out - ref).abs().amax(dim=(0, 2)) <= 1e-4 * scale).all()
+    again, last2 = KT.tile_composite(feats, bounds, tw, npay)
+    assert torch.equal(out, again) and torch.equal(last, last2)
+    gout = torch.randn(out.shape, generator=gen, device=out.device)
+    got = KT.tile_composite_bwd(feats, bounds, out, last, gout, tw, npay)
+    want = KT.plain_tile_composite_bwd(feats, bounds, gout, tw, npay)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for s in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 6 + npay)):
+        err = (got[:, s] - want[:, s]).abs().max().item()
+        assert err <= 2e-3 * want[:, s].abs().max().item() + 1e-8, (s, err)
+    assert torch.equal(got, KT.tile_composite_bwd(feats, bounds, out, last, gout, tw, npay))
+    return ref, ref_last
+
+
+@pytest.mark.parametrize("npay", [1, 4, 5, 8, 16, 23, 26])
+def test_tile_composite_kernels_schedule_and_ring(dev, npay):
+    """Kernel 13 at each payload width around its template edges on six
+    tiles whose pair counts (0, 700, 3, 1500, 37, 1029) are in no order of
+    tile index: an empty tile; a faint 700-pair tile (several forward and
+    backward stages, no multiple of either, never saturating); an opaque
+    1500-pair tile that saturates in its first stage, so that the stages in
+    flight are drained; a 1029-pair tile that saturates on the way."""
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    counts = [0, 700, 3, 1500, 37, 1029]
+    feats, bounds, gen = _tile_table(dev, counts, npay, seed=40 + npay, faint={1}, opaque={3})
+    assert KT.tile_order(bounds[1:] - bounds[:-1]).tolist() == [3, 5, 1, 4, 2, 0]
+    ref, last = _check_tile_composite(feats, bounds, 3, npay, gen)
+    t_final, tmax = ref[:, npay], last.amax(1)
+    assert (t_final[0] == 1.0).all() and t_final[1].min() > 1e-2
+    assert t_final[3].max() <= 1e-4 and tmax[3] < 64     # saturated in the first stage
+    assert t_final[5].max() <= 1e-4 and tmax[5] > 256    # saturated past the first stage
+
+
+@pytest.mark.parametrize("n_tiles,high", [(1, 5), (6, 2), (2400, 7000), (20000, 300)])
+def test_tile_order_kernel(dev, n_tiles, high):
+    """The kernels' tile sort (each tile's rank among all keys) against its
+    plain version, with ties and empty tiles."""
+    from mudg_tpu_torch.kernels import tile_raster as KT
+
+    gen = torch.Generator().manual_seed(70 + n_tiles)
+    work = (torch.rand(n_tiles, generator=gen) ** 4 * high).int()
+    got = KT.tile_order(work.to(dev))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), KT.tile_order(work))
+
+
+@pytest.mark.parametrize("npay", [4, 23])
+def test_tile_composite_kernels_many_tiles(dev, npay):
+    """Kernel 13 on 60 x 40 tiles, more than the persistent grid holds at
+    once, so that each block streams several tiles through its ring: pair
+    counts drawn heavy-tailed (most tiles light, some past 1000, a tenth
+    empty), every seventh tile opaque (saturating at once, its stages in
+    flight drained while the next tile's follow), every fifth faint."""
+    gen = torch.Generator().manual_seed(50 + npay)
+    n_tiles = 60 * 40
+    counts = (torch.rand(n_tiles, generator=gen) ** 6 * 1400).long()
+    counts[torch.rand(n_tiles, generator=gen) < 0.1] = 0
+    counts = counts.tolist()
+    feats, bounds, gen = _tile_table(
+        dev, counts, npay, seed=60 + npay, tw=60,
+        faint={t for t in range(n_tiles) if t % 5 == 0},
+        opaque={t for t in range(n_tiles) if t % 7 == 0})
+    _check_tile_composite(feats, bounds, 60, npay, gen)
 
 
 def test_rasterize_tiles_gradients_match_the_plain_path(dev):
