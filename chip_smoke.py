@@ -7,8 +7,8 @@ Phases:
   1. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc build of every kernel from csrc/, with ptxas's
      register and spill report (it fails if kernels 2, 9 or 10's wgmma
-     kernels, fp32 kernels 5, 6 and 12's tf32 wgmma kernels or kernel 13's
-     forward and backward spill, NO_SPILL);
+     kernels, fp32 kernels 5, 6 and 12's tf32 wgmma kernels, kernel 13's
+     forward and backward or kernel 11's five kernels spill, NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
@@ -121,11 +121,19 @@ Phases:
      without its mean subtraction, short-KV with the padded keys unmasked
      and with half the keys, packed with another sequence's keys; each
      autograd op's gradients against autograd of the plain math (within
-     5e-2 * max|ref|); GN reruns bit for bit; times beside the bound and
-     torch's group_norm (channels-last), layer_norm and
-     scaled_dot_product_attention (yardsticks only); then the packed
-     kernel's path, its public function at those three shapes, counts
-     reset just before and read just after;
+     5e-2 * max|ref|); GN and LN rerun bit for bit; times beside the bound
+     and torch's group_norm (channels-last), layer_norm and
+     scaled_dot_product_attention (yardsticks only); for each GN and LN
+     shape also its launch plan (the GN's cluster size and rows per CTA or
+     its two passes; the LN's kernel, row or tile, and its lanes, tile and
+     grid), its device time per call and per launch under torch.profiler
+     and the wrapper's host time per call, and per configuration their sums
+     over one UNet forward's sites; the LN's two kernels side by side at
+     every LN shape (each within the tolerance, device time per launch from
+     CUDA graphs, beside the plan's pick) and the card's answers to the GN
+     planner's cluster questions (the report's "kernel11_plans"); then the
+     packed kernel's path, its public function at those three shapes,
+     counts reset just before and read just after;
  12. the switch path, MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 set inside
      it and restored after: (a) phases 3 and 5's UNet forwards on it (the
      same gate against fp32 with the switches unset; launches at kernels
@@ -207,12 +215,16 @@ PEAK_BYTES = 3.35e12  # HBM3
 # (<WG_GEGLU_BWD, ..>) and the weight-gradient GEMM (kernels 9 and 10),
 # kernel 9's attention-backward tile (<WG_TATTN_BWD, ..>) and fp32-output
 # GEMM (<WG_F32, ..>), fp32 kernels 5 and 6's three tf32 wgmma kernels,
-# fp32 kernel 12's, and kernel 13's forward and backward at every payload
-# width
+# fp32 kernel 12's, kernel 13's forward and backward at every payload
+# width, and kernel 11's five kernels (the GroupNorm's cluster kernel and
+# two passes, the latter by their thread-count parameter, and the
+# LayerNorm's row and tile kernels) at every instantiation; each is a
+# regular expression searched in the name
 NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_gemm_kernelILi5E",
             "wgmma_gemm_kernelILi6E", "wgmma_wgrad_kernel", "flash_fwd_tf32_kernel",
             "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel", "short_kv_tf32_kernel",
-            "composite_fwd", "composite_bwd")
+            "composite_fwd", "composite_bwd", "gn_cluster_kernel",
+            r"gn_(stats|apply)_kernelI\w*?Li(256|512)E", "ln_row_kernel", "ln_tile_kernel")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
 # and 12 only with their switches set (phase 12)
@@ -338,6 +350,11 @@ LN_SHAPES = {
                                   (288, 16, 1280), (32, 144, 1280), (32, 2304, 640),
                                   (32, 576, 1280), (32, 9216, 320), (4608, 16, 640)), 0),
 }
+# Beside GN_SHAPES, the GroupNorms gn_plan also plans (n, rows, C, itemsize,
+# silu): kernel 4's clips at MDM512 and MDM1024 ds1, and the largest samples
+# group_norm_fits admits (1,048,576 elements in fp32, 1,572,864 in bf16)
+GN_LARGEST = ((2, 16 * 40 * 64, 320, 2, True), (2, 16 * 72 * 128, 320, 2, True),
+              (2, 32 * 32, 1024, 4, False), (2, 48 * 32, 1024, 2, False))
 # (q shape, k shape) of the text (77 keys) and image (16 keys) attends
 SKV_SHAPES = {
     "mdm512": {((32, 2560, 5, 64), (32, 16, 5, 64)): 5, ((32, 2560, 5, 64), (32, 77, 5, 64)): 5},
@@ -604,7 +621,8 @@ def phase_build(torch, _build):
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if "registers" in line or (spill and spill.group(1, 2) != ("0", "0")):
                 log(f"  ptxas: {fn}: {line.strip()}")
-            if spill and spill.group(1, 2) != ("0", "0") and any(k in fn for k in NO_SPILL):
+            if spill and spill.group(1, 2) != ("0", "0") and any(re.search(k, fn)
+                                                                  for k in NO_SPILL):
                 spilled.append(fn)
     if spilled:
         raise AssertionError(f"ptxas spilled in {spilled}")
@@ -636,6 +654,7 @@ class Case(NamedTuple):
     # library calls for part of the kernel's work (timed only, alone and queued):
     # JSON key -> fn; see YARDSTICKS
     yardsticks: dict = {}
+    note: str = ""        # printed with the case (kernel 11: the launch plan)
 
 
 def sharpen_(attn):
@@ -1166,7 +1185,7 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                                                                 x.element_size()),
                     lambda: N.fused_group_norm(x, w, b, 32, eps), plain,
                     lambda: F.group_norm(xc, 32, w.to(dtype), b.to(dtype), eps), None, faults,
-                    tol=checks(dtype)["tol"], reruns=1)
+                    tol=checks(dtype)["tol"], reruns=1, note=N.plan_text("group_norm", x))
 
     def ln_case(cfg, shape, sites, dtype):
         x, w, b = norm_input(shape, dtype)
@@ -1176,7 +1195,8 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                     lambda: N.plain_layer_norm(x, w, b, 1e-5),
                     lambda: F.layer_norm(x, (shape[-1],), w.to(dtype), b.to(dtype), 1e-5),
                     None, {"mean not subtracted": lambda: N.plain_layer_norm(
-                        x, w, b, 1e-5, center=False)}, tol=checks(dtype)["tol"])
+                        x, w, b, 1e-5, center=False)}, tol=checks(dtype)["tol"], reruns=1,
+                    note=N.plan_text("layer_norm", x))
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -1294,13 +1314,29 @@ def reruns_bit_for_bit(torch, case):
     return same
 
 
-def phase_norm_short(torch, K, N, SA):
+# what phase 11 sums per configuration over one UNet forward's kernel-11
+# sites: per call alone, queued, device (profiler), the wrapper's host time,
+# the bound, the plain version and the library call (alone and queued)
+NORM_SUMS = ("ms", "ms_queued", "norm_device_ms", "host_ms", "bound_ms", "plain_ms",
+             "library_ms", "library_ms_queued")
+
+
+def phase_norm_short(torch, K, N, SA, profile=False):
     """Kernels 11 and 12 against their plain versions (phase 11), GN reruns
     bit for bit, then the packed kernel's path: its public function at the
     temporal-attention shapes, counts reset just before and read just
     after."""
     rows = run_cases(torch, norm_short_cases(torch, N, SA),
-                     check=lambda case: reruns_bit_for_bit(torch, case))
+                     check=lambda case: reruns_bit_for_bit(torch, case), profile=profile)
+    plans = {"ln_kernels": ln_kernels_side_by_side(torch, N),
+             "gn_clusters": gn_cluster_answers(N)}
+    for name in ("group_norm", "layer_norm"):
+        for cfg in ("mdm512", "mdm1024"):
+            shapes = [s for s in rows[name]["shapes"] if s["config"] == cfg]
+            sums = {k: sum(s["sites"] * (s.get(k) or 0.0) for s in shapes)
+                    for k in NORM_SUMS}
+            log(f"  {name} {cfg}, one UNet forward's {sum(s['sites'] for s in shapes)} sites: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     inputs = [torch.randn((b, t, 3, h, d), generator=gen, device="cuda").bfloat16().unbind(2)
               for b, t, h, d in PACKED_SHAPES]
@@ -1315,7 +1351,107 @@ def phase_norm_short(torch, K, N, SA):
     for o, (q, _, _) in zip(outs, inputs):
         if o.shape != q.shape or not bool(torch.isfinite(o).all().item()):
             raise AssertionError(f"packed output {tuple(o.shape)} not finite or misshapen")
-    return rows, counts
+    return rows, counts, plans
+
+
+def graph_ms(torch, fns, calls=20, reps=7):
+    """Device time per call in ms of each fn (name -> fn): a CUDA graph of
+    `calls` calls of it, the graphs replayed in turns (forward, then
+    backward order) `reps` times, the least replay of each; the host's
+    per-call cost stays out of a graph."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(calls):
+                fn()
+    best = dict.fromkeys(graphs, float("inf"))
+    for _ in range(reps):
+        for name in list(graphs) + list(graphs)[::-1]:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graphs[name].replay()
+            b.record()
+            b.synchronize()
+            best[name] = min(best[name], a.elapsed_time(b) / calls)
+    return best
+
+
+def ln_kernels_side_by_side(torch, N, ln=None):
+    """The LayerNorm's two kernels (`mudg_layer_norm_w`'s kernel 0, the row
+    kernel, and 1, the tile kernel) at every LN_SHAPES shape: each within
+    the kernel-11 tolerance of the plain version, and its device time per
+    launch (graph_ms) beside the plan's pick (`csrc/norms.cu:ln_plan`'s
+    switch rests on these times). Raises if either is out of tolerance."""
+    from mudg_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out, bad = [], []
+    for cfg, shapes in (ln or LN_SHAPES).items():
+        f32 = cfg.endswith("-f32")
+        for shape in shapes:
+            c, rows = shape[-1], math.prod(shape[:-1])
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 3).to(
+                torch.float32 if f32 else torch.bfloat16)
+            w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+            ref = N.plain_layer_norm(x, w, b, 1e-5).float()
+            tol = (F32_TOL if f32 else TOL) * ref.abs().max().item()
+            ys = {}
+
+            def launch(kernel, y):
+                def fn():
+                    _build.check(lib.mudg_layer_norm_w(
+                        x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), 0, rows, c,
+                        int(f32), kernel, 1e-5, _build.stream(x.device)), "mudg_layer_norm_w")
+                return fn
+
+            fns = {}
+            for name, kernel in (("row", 0), ("tile", 1)):
+                ys[name] = torch.empty_like(x)
+                fns[name] = launch(kernel, ys[name])
+                fns[name]()
+            errs = {k: (y.float() - ref).abs().max().item() for k, y in ys.items()}
+            ms = graph_ms(torch, fns)
+            pick = "tile" if N.ln_plan_card(rows, c, x.element_size())[0] else "row"
+            label = f"{cfg} {'x'.join(map(str, shape))}"
+            ok = all(e <= tol for e in errs.values())
+            if not ok:
+                bad.append(label)
+            log(f"  layer_norm kernels {label:26s} row {1e3 * ms['row']:8.2f} us, tile "
+                f"{1e3 * ms['tile']:8.2f} us, plan: {pick}; max|diff| row {errs['row']:.3e}, "
+                f"tile {errs['tile']:.3e} <= {tol:.3e}: {'ok' if ok else 'FAIL'}")
+            out.append({"config": cfg, "shape": list(shape), "row_ms": ms["row"],
+                        "tile_ms": ms["tile"], "plan": pick, "max_abs_err": errs})
+    if bad:
+        raise AssertionError(f"LayerNorm kernels out of tolerance at {bad}")
+    return out
+
+
+def gn_cluster_answers(N, gn=None):
+    """The card's answer to every question gn_plan asks at the GN_SHAPES
+    shapes and GN_LARGEST: [cluster, c, smem, itemsize, silu, the clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)], as
+    tests/data/h100_gn_clusters.json records them for the CPU tests."""
+    seen = {}
+
+    def ask(*key):
+        if key not in seen:
+            seen[key] = N._card_clusters(*key)
+        return seen[key]
+
+    for cfg, shapes in (gn or GN_SHAPES).items():
+        for shape in shapes:
+            N.gn_plan(shape[0], math.prod(shape[1:-1]), shape[-1],
+                      4 if cfg.endswith("-f32") else 2, 32, False, active=ask)
+    for n, rows, c, itemsize, silu in GN_LARGEST:
+        N.gn_plan(n, rows, c, itemsize, 32, silu, active=ask)
+    log(f"  gn_plan asked the card {len(seen)} questions")
+    return [[*k, v] for k, v in sorted(seen.items())]
 
 
 class Check(NamedTuple):
@@ -1389,7 +1525,7 @@ def compare(torch, case):
     return Check(ok, err, scale, lse_err, faults, case.tol, err)
 
 
-def phase_kernels(torch, K, nn_att, configs):
+def phase_kernels(torch, K, nn_att, configs, profile=False):
     """Each kernel vs its plain version at every shape of `configs`, then
     each backward kernel at every training shape; kernels 4, 6, 9 and 10 rerun
     bit for bit."""
@@ -1397,13 +1533,17 @@ def phase_kernels(torch, K, nn_att, configs):
 
     return run_cases(torch, itertools.chain(kernel_cases(torch, K, nn_att, configs),
                                             grad_cases(torch, K, nn_att)),
-                     check=lambda case: reruns_bit_for_bit(torch, case))
+                     check=lambda case: reruns_bit_for_bit(torch, case), profile=profile)
 
 
-def run_cases(torch, cases, check=None):
+def run_cases(torch, cases, check=None, profile=False):
     """Check and time each case (`check(case)` runs after its comparison);
     returns the kernel table's rows, each shape's sites-weighted times
-    summed per kernel. Raises if any case failed."""
+    summed per kernel. With `profile`, the kernels of NORM_PROFILED also
+    get their device time per call under the profiler, all of it and
+    kernel 11's part ("device_ms", "norm_device_ms"); kernel 11's forward
+    cases always get the host time of the Python wrapper alone
+    ("host_ms"). Raises if any case failed."""
     rows = {}
     for case in cases:
         chk = compare(torch, case)
@@ -1411,6 +1551,12 @@ def run_cases(torch, cases, check=None):
             chk = chk._replace(ok=chk.ok and check(case))
         fk, fp, flib = case.kernel, case.plain, case.library
         reps = dict(iters=3, warmup=1) if case.grads else {}
+        dev = {}
+        norm = case.name in ("group_norm", "layer_norm") and not case.grads
+        if norm or (profile and case.name in NORM_PROFILED):
+            dev = device_ms_per_call(torch, fk)
+        if norm:
+            dev["host_ms"] = host_ms_per_call(torch, fk)
         ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, **reps)
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
         yms = {k: cuda_ms(torch, fn) for k, fn in case.yardsticks.items()}
@@ -1440,7 +1586,9 @@ def run_cases(torch, cases, check=None):
             + "".join(f"   {k} {v:.3f}" for k, v in yms.items())
             + f"   bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it)"
             + (f"   FMA bound {extra_bound['fma_bound_ms']:.4f} ms"
-               if "fma_bound_ms" in extra_bound else ""))
+               if "fma_bound_ms" in extra_bound else "")
+            + "".join(f"   {k} {v:.4f}" for k, v in dev.items())
+            + (f"   plan {case.note}" if case.note else ""))
         r = rows.setdefault(case.name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                         "bound_ms": 0.0, "library_ms": None, "ok": True,
                                         "shapes": []})
@@ -1456,6 +1604,8 @@ def run_cases(torch, cases, check=None):
             r["ms_queued"] = r.get("ms_queued", 0.0) + case.sites * qms
         if lqms is not None:
             r["library_ms_queued"] = r.get("library_ms_queued", 0.0) + case.sites * lqms
+        for k, v in dev.items():
+            r[k] = r.get(k, 0.0) + case.sites * v
         r["ok"] &= chk.ok
         r["shapes"].append({"config": case.config, "shape": case.label, "sites": case.sites,
                             "max_abs_err": chk.abs_err, "err": chk.err, "tol": chk.tol,
@@ -1466,7 +1616,8 @@ def run_cases(torch, cases, check=None):
                             "library_ms": lms, "library_ms_queued": lqms, **yms,
                             "bound_ms": bms,
                             "bound_by": by,
-                            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_bound})
+                            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_bound,
+                            **dev, "plan": case.note})
         del case, fk, fp, flib
         torch.cuda.empty_cache()
     for r in rows.values():   # what bounds most of the row's forward-weighted bound
@@ -1622,6 +1773,85 @@ CATEGORIES = (("port kernels", ("mudg::",)),
               ("elementwise / copy", ("elementwise", "copy", "cat", "index")))
 
 
+# Kernels whose device time phases 2 and 11 take under the profiler with
+# --profile: kernel 11 alone, and the kernels that run its code (the LN of
+# kernels 1, 2, 3 and 9, kernel 4's GN passes); NORM_KERNEL matches kernel
+# 11's device kernels by name
+NORM_PROFILED = ("group_norm", "layer_norm", "spatial_attn", "temporal_attn", "geglu_ff",
+                 "gn_silu_tconv", "temporal_attn_bwd")
+NORM_KERNEL = re.compile(r"mudg::(gn|ln)_\w+")
+
+
+CALL_RANGE = "mudg_profiled_call_"   # the profiler range of each call device_ms_per_call times
+CALL_GAP_S = 0.002   # host seconds between two such ranges
+
+
+def per_call_device_ms(spans, kernels):
+    """Device time per call from a profile: `spans` the calls' ranges
+    ((start, end) in us, each call waited for inside its own, CALL_GAP_S
+    between two), `kernels` the device kernels ((name, start, duration in
+    us)). A kernel belongs to the call whose range is nearest its start, so
+    the profiler's placing of device events against the host's clock may be
+    off by up to half the gap. The profiler can drop a call's kernels: only
+    the calls that hold the most common count of kernels (the larger on a
+    tie) are kept ("calls_held"). "device_ms", every kernel;
+    "norm_device_ms", kernel 11's (NORM_KERNEL), with "norm_launch_ms" per
+    launch of those and "norm_launches" per call. Raises where no call
+    holds a kernel."""
+    per_call = [[] for _ in spans]
+    for k in kernels:
+        per_call[min(range(len(spans)),
+                     key=lambda i: max(spans[i][0] - k[1], k[1] - spans[i][1], 0.0))].append(k)
+    counts = [len(ks) for ks in per_call]
+    common = max(set(counts), key=lambda n: (counts.count(n), n), default=0)
+    if common == 0:
+        raise RuntimeError("per_call_device_ms: the profile holds no device kernel of any call")
+    held = [ks for ks in per_call if len(ks) == common]
+    total = sum(d for ks in held for _, _, d in ks) / 1e3
+    norm = [d for ks in held for name, _, d in ks if NORM_KERNEL.search(name)]
+    return {"device_ms": total / len(held), "norm_device_ms": sum(norm) / 1e3 / len(held),
+            "norm_launch_ms": sum(norm) / 1e3 / len(norm) if norm else 0.0,
+            "norm_launches": len(norm) / len(held), "calls_held": len(held)}
+
+
+def device_ms_per_call(torch, fn, calls=5):
+    """per_call_device_ms of `calls` calls of fn under torch.profiler (after
+    one call outside it), each in a range of its own (CALL_RANGE), waited
+    for inside it, CALL_GAP_S apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            with record_function(f"{CALL_RANGE}{i}"):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(CALL_GAP_S)
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.name.startswith(CALL_RANGE):
+            if e.device_type == DeviceType.CPU:
+                spans.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            kernels.append((e.name, e.time_range.start, e.time_range.elapsed_us()))
+    return per_call_device_ms(sorted(spans), kernels)
+
+
+def host_ms_per_call(torch, fn, calls=20):
+    """Host time per call of fn, its launches enqueued and not waited for
+    (the Python wrapper alone: the queue holds the calls' device work)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return t
+
+
 def profile_call(torch, fn, label):
     """torch.profiler over one call of fn (after one unprofiled call): device
     time by kernel and by kind, and the device's busy time against the
@@ -1650,11 +1880,21 @@ def profile_call(torch, fn, label):
         f"wall (idle {100 * (1 - busy_ms / wall_ms):.1f}%, under the profiler)")
     log("    by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
                                     sorted(kinds.items(), key=lambda kv: -kv[1])))
+    norms = {}
+    for e in events:
+        m = NORM_KERNEL.search(e.key)
+        if m:
+            n = norms.setdefault(m.group(0), [0, 0.0])
+            n[0] += e.count
+            n[1] += e.self_device_time_total / 1e3
+    log("    kernel 11's device kernels: " + (", ".join(
+        f"{k} {v[1]:.3f} ms / {v[0]}x" for k, v in sorted(norms.items())) or "none"))
     top = [{"name": e.key[:100], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
            for e in events[:40]]
     for r in top[:12]:
         log(f"    {r['device_ms']:8.2f} ms  {r['calls']:5d}x  {r['name']}")
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kinds": kinds, "top": top}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kinds": kinds, "top": top,
+            "norm_kernels": {k: {"calls": v[0], "device_ms": v[1]} for k, v in norms.items()}}
 
 
 def save_profile(result, name, out_dir):
@@ -2558,7 +2798,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
-                         "phase 7, one training micro-step; in phase 9, kernel 13 at (b)")
+                         "phase 2, the device time of kernels 1-4 and 9 and of kernel 11's "
+                         "part in them; in phase 7, one training micro-step; in phase 9, "
+                         "kernel 13 at (b)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -2606,7 +2848,7 @@ def main(argv=None):
     rows = {}
     if 2 in phases:
         rows = timed(2, "kernels vs plain", phase_kernels, torch, K, nn_att,
-                     ("mdm512", "mdm1024"))
+                     ("mdm512", "mdm1024"), args.profile)
     launches = {}
     sw = 12 in phases   # phase 12 runs the switch path inside phases 3, 5, 6 and 7's set-up
     off = 13 in phases   # phase 13 runs inside phases 3 and 5's set-up
@@ -2616,8 +2858,9 @@ def main(argv=None):
                 + (("off",) if off and n in (3, 5) else ()))
 
     if 11 in phases:
-        rows11, launches["packed_temporal"] = timed(
-            11, "kernels 11 and 12 vs plain", phase_norm_short, torch, K, norm_k, short_k)
+        rows11, launches["packed_temporal"], report["kernel11_plans"] = timed(
+            11, "kernels 11 and 12 vs plain", phase_norm_short, torch, K, norm_k, short_k,
+            args.profile)
         rows.update(rows11)
     unet = None
     tag = (" + 12a" if sw else "") + (" + 13" if off else "")

@@ -11,16 +11,21 @@
 // Bound on this card: tensor-core issue. At MDM512 ds1 a stage is
 // 2*81920*960*320 = 50 GFLOP over ~105 MB of x and out.
 //
-// Design: three launches, the last on the persistent TMA + wgmma GEMM.
-//   1. GroupNorm statistics (norms.cu's gn_stats pass): per-chunk Welford
-//      partials on x minus each group's first element, merged by Chan's
-//      formula in a fixed order, so reruns are bit for bit and a DC offset
-//      does not cancel; no fp32 copy of x.
-//   2. h = silu(GN(x)) (norms.cu's gn_apply pass with SiLU): the affine from
-//      the merged statistics and the GN weight and bias, in fp32, rounded
-//      to bf16 once, as the Pallas kernel feeds its MXU (tconv.py:25-27).
-//      h is one more write and read of M x C bf16 (0.11 ms at MDM1024 ds1);
-//      a transform warpgroup normalising between TMA and wgmma would save it.
+// Design: kernel 11's GroupNorm with SiLU, then the persistent TMA + wgmma
+// GEMM. kernels/norms.py:gn_plan chooses the GroupNorm's path by shape:
+//   1. one launch (norms.cu's gn_cluster_kernel) where a thread-block
+//      cluster holds a clip in shared memory; the clips the model gives
+//      kernel 4 (C = 320 at ds1: 13.1M elements at MDM512, 47M at MDM1024)
+//      are larger and take two, the statistics (gn_stats, per-chunk Welford
+//      partials) and the apply pass (gn_apply). Both paths work on x minus
+//      each group's first element and merge by Chan's formula in a fixed
+//      order, so reruns are bit for bit and a DC offset does not cancel; no
+//      fp32 copy of x.
+//   2. h = silu(GN(x)): the affine from the merged statistics and the GN
+//      weight and bias, in fp32, rounded to bf16 once, as the Pallas kernel
+//      feeds its MXU (tconv.py:25-27). h is one more write and read of M x
+//      C bf16 (0.11 ms at MDM1024 ds1); a transform warpgroup normalising
+//      between TMA and wgmma would save it.
 //   3. out = bias + [h_{t-1} | h_t | h_{t+1}] wcat^T, K = 3 taps x C, on
 //      wgmma_gemm.cuh's WG_TAP3 source: A through a 4-D tensor map (C, HW,
 //      T, B) whose zero fill outside [0, T) is the conv's padding, the
@@ -66,21 +71,24 @@ static cudaError_t launch_wgmma_tap3(const bf16* h, const bf16* wcat, bf16* out,
 }
 
 extern "C" int mudg_group_norm_silu(const void* x, void* y, const void* w, const void* b,
-                                    void* part, int n, int rows, int c, int groups, int per,
-                                    int chunks, float eps, void* stream);
+                                    void* part, int n, int rows, int c, int groups, int cluster,
+                                    int per, int keep, int chunks, float eps, void* stream);
 
-// x, out: (batch, frames, hw, c) bf16; h: the same, scratch; part: batch *
-// chunks * 32 (mean, M2) fp32 pairs of scratch, each clip's frames*hw rows
-// cut into `chunks` chunks of `per` rows (as mudg_group_norm); gn_w, gn_b:
-// (c) fp32; wcat (c, 3c) bf16; bias (c) fp32. c % 32 == 0, frames >= 1,
-// any hw.
+// x, out: (batch, frames, hw, c) bf16; h: the same, scratch; each clip's
+// frames*hw rows planned as mudg_group_norm takes them (kernels/norms.py:
+// gn_plan): cluster > 0, one cluster of `cluster` CTAs of `per` rows per
+// clip, `keep` of each in shared memory (part may be null); else `chunks`
+// chunks of `per` rows and part batch * chunks * 32 (mean, M2) fp32 pairs
+// of scratch; gn_w, gn_b: (c) fp32; wcat (c, 3c) bf16; bias (c) fp32.
+// c % 32 == 0, frames >= 1, any hw.
 extern "C" int mudg_gn_silu_tconv(const void* x, void* out, void* h, void* part,
                                   const void* gn_w, const void* gn_b, const void* wcat,
                                   const void* bias, int batch, int frames, int hw, int c,
-                                  int per, int chunks, void* stream) {
+                                  int cluster, int per, int keep, int chunks, void* stream) {
   if (c % 32 || frames < 1 || hw < 1) return cudaErrorInvalidValue;
   cudaError_t err = static_cast<cudaError_t>(mudg_group_norm_silu(
-      x, h, gn_w, gn_b, part, batch, frames * hw, c, 32, per, chunks, 1e-5f, stream));
+      x, h, gn_w, gn_b, part, batch, frames * hw, c, 32, cluster, per, keep, chunks, 1e-5f,
+      stream));
   if (err != cudaSuccess) return err;
   return launch_wgmma_tap3(static_cast<const bf16*>(h), static_cast<const bf16*>(wcat),
                            static_cast<bf16*>(out), static_cast<const float*>(bias), batch,

@@ -32,7 +32,7 @@ _SIGNATURES = {
     "mudg_spatial_attn": [_P] * 9 + [_I] * 3 + [_P],
     "mudg_temporal_attn_stage": [_P] * 9 + [_I] * 2 + [_P],
     "mudg_geglu_ff": [_P] * 10 + [_I] * 3 + [_P],
-    "mudg_gn_silu_tconv": [_P] * 8 + [_I] * 6 + [_P],
+    "mudg_gn_silu_tconv": [_P] * 8 + [_I] * 8 + [_P],
     "mudg_flash_attn": [_P] * 5 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_f32": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_P],
     "mudg_flash_attn_bwd": [_P] * 11 + [_I] * 3 + [_LL] * 9 + [_P],
@@ -42,8 +42,10 @@ _SIGNATURES = {
     "mudg_tile_composite": [_P] * 5 + [_I] * 4 + [_P],
     "mudg_tile_composite_bwd": [_P] * 8 + [_I] * 4 + [_P],
     "mudg_tile_order": [_P] * 2 + [_I] + [_P],
-    "mudg_group_norm": [_P] * 5 + [_I] * 7 + [_F] + [_P],
-    "mudg_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_P],
+    "mudg_group_norm": [_P] * 5 + [_I] * 10 + [_F] + [_P],
+    "mudg_gn_max_clusters": [_I] * 5 + [_P],
+    "mudg_layer_norm_w": [_P] * 4 + [_I] * 5 + [_F] + [_P],
+    "mudg_ln_plan": [_I] * 3 + [_P],
     "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_short_kv_attn_f32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
     "mudg_short_kv_tma": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
@@ -141,19 +143,29 @@ def check(err: int, name: str) -> None:
 
 
 def ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """t's data pointer as the C entries take it (c_void_p arguments)."""
+    return None if t is None else t.data_ptr()
 
 
-def stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device: torch.device | None = None):
+    """The handle of the current CUDA stream of `device` (else of the
+    current device)."""
+    if _raw_stream is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device is not None else None
+    return _raw_stream(torch.cuda.current_device() if index is None else index)
 
 
 def require(t: torch.Tensor, name: str, dtype=torch.bfloat16) -> None:
-    """Validate a tensor handed to a kernel: CUDA, dtype, contiguous, and
-    16-byte aligned (the kernels load 16-byte chunks)."""
+    """Validate a tensor handed to a kernel: CUDA, dtype (or one of a tuple
+    of them), contiguous, and 16-byte aligned (the kernels load 16-byte
+    chunks)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

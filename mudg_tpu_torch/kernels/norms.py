@@ -14,9 +14,14 @@ ignores `impl`).
 
 `fused_group_norm` and `fused_layer_norm` are the wrappers: on a CPU (or
 meta) tensor they run `plain_group_norm` / `plain_layer_norm`; on a CUDA
-tensor they launch the kernel or raise. `group_norm_op` / `layer_norm_op`
-are the ops with a gradient, whose backward is autograd of the plain math
-(the JAX backward is `jax.vjp` of its XLA reference, :125-128, :204-207).
+tensor they launch the kernel or raise. They pass w and b as stored (bf16
+or fp32). The GroupNorm launches by the plan `gn_plan` makes once per shape
+(one thread-block cluster per sample, or the two passes); the LayerNorm's
+C launcher plans for itself (the row or the tile kernel), as it does for
+kernels 1, 2, 3 and 9. `group_norm_op` / `layer_norm_op` are the ops with a
+gradient, whose backward is autograd of the plain math (the JAX backward
+is `jax.vjp` of its XLA reference, :125-128, :204-207); where no gradient
+is wanted they call the wrappers alone.
 
 Known difference: the Pallas GroupNorm takes the one-pass variance
 E[x^2] - E[x]^2 (norms.py:62-68), which cancels when |mean| >> std; the
@@ -24,6 +29,10 @@ plain version and the kernel here take the centered variance, as the JAX
 reference `_gn_reference` and the JAX tconv statistics do.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -120,21 +129,160 @@ def plain_layer_norm(x, w, b, eps: float, *, center=True):
     return y.to(x.dtype)
 
 
-def _operands(x, w, b, name):
-    """x as a contiguous CUDA tensor the kernels take, w and b as fp32."""
+# Launch planning (the kernels' rules, `csrc/norms.cu`): shared memory a
+# block may use and an SM holds (each block also reserves 1 KB), the
+# GroupNorm cluster's largest size, its bulk copies per slab, and the CTAs
+# in flight past which gn_plan takes no more (any count from 81 to 96 gives
+# the same plan at every shape of chip_smoke.py's GN_SHAPES, the plans
+# tests/test_torch_norm_plan.py pins and PERF.md's times were taken with).
+SMEM_MAX = 232448
+SM_SMEM = 233472
+GN_MAX_CLUSTER = 16
+GN_PIECES = 8
+GN_FILL_CTAS = 88
+# the two-pass GroupNorm's blocks (four per SM of the H100's 132) and the
+# most chunks a sample is cut into
+GN_TARGET_BLOCKS = 4 * 132
+GN_MAX_CHUNKS = 128
+
+
+def gn_threads(c: int) -> int:
+    """Threads of a GroupNorm block: one per 8 channels of a row times
+    max(1, 256 // (C / 8)) rows per step."""
+    tpr = c // 8
+    return tpr * max(1, 256 // tpr)
+
+
+def gn_cluster_smem(per: int, c: int, itemsize: int, groups: int) -> int:
+    """Shared memory of a cluster CTA: its slab of `per` rows, GN_PIECES
+    mbarriers, two (mean, M2) partials per thread, two float4 per group."""
+    return per * c * itemsize + 8 * GN_PIECES + 16 * gn_threads(c) + 32 * groups
+
+
+class GNPlan(NamedTuple):
+    cluster: int   # CTAs per cluster, one cluster per sample; 0: the two passes
+    per: int       # rows per CTA (cluster) or per chunk (two passes)
+    keep: int      # rows of a CTA held in shared memory (0: two passes)
+    chunks: int    # CTAs (cluster) or chunks per sample
+    smem: int      # a cluster CTA's shared memory (0: two passes)
+
+
+def gn_chunks(n: int, rows: int, c: int) -> tuple[int, int]:
+    """(chunks, rows per chunk) of the two-pass GroupNorm: each sample's `rows`
+    cut so that the n * chunks blocks fill the card, each thread walking at
+    least four rows."""
+    k = gn_threads(c) // (c // 8)
+    want = min(GN_MAX_CHUNKS, -(-GN_TARGET_BLOCKS // n), max(1, rows // (4 * k)))
+    per = -(-rows // want)
+    return -(-rows // per), per
+
+
+def gn_plan(n: int, rows: int, c: int, itemsize: int, groups: int = 32, silu: bool = False,
+            active=None) -> GNPlan:
+    """The GroupNorm's launch for n samples of rows x c: one cluster per
+    sample where a cluster's CTAs can hold it in shared memory (C / groups
+    >= 8, the channels of a thread), else the two passes.
+    `active(cluster, c, smem, itemsize, silu)` is the number of clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters; None: ask the
+    card). Each size 1..16 is taken with its CTAs holding all their rows,
+    where that fits SMEM_MAX, and holding what lets two CTAs share an SM
+    (the rest read again after the statistics); the plan is the first by
+    the fewest waves of clusters, then the most CTAs in flight up to
+    GN_FILL_CTAS, then the fewest rows read again, then the smallest size."""
+    active = active or _card_clusters
+    row_bytes = c * itemsize
+    splits = [(cs, -(-rows // cs)) for cs in range(1, GN_MAX_CLUSTER + 1)
+              if -(-rows // -(-rows // cs)) == cs]   # no size whose split a smaller one has
+    if c // groups < 8 or all(gn_cluster_smem(per, c, itemsize, groups) > SMEM_MAX
+                              for _, per in splits):
+        chunks, per = gn_chunks(n, rows, c)
+        return GNPlan(0, per, 0, chunks, 0)
+    # rows a CTA holds to share an SM with another (blocks of up to 256
+    # threads fit two an SM by registers; wider ones hold all their rows)
+    half = ((SM_SMEM // 2 - 1024 - gn_cluster_smem(0, c, itemsize, groups)) // row_bytes
+            if gn_threads(c) <= 256 else 0)
+    best = None
+    for cs, per in splits:
+        keeps = [k for k in (per, min(per, half)) if k >= 1
+                 and gn_cluster_smem(k, c, itemsize, groups) <= SMEM_MAX]
+        for keep in dict.fromkeys(keeps):
+            smem = gn_cluster_smem(keep, c, itemsize, groups)
+            clusters = active(cs, c, smem, itemsize, silu)
+            if clusters < 1:
+                continue
+            key = (-(-n // clusters), -min(GN_FILL_CTAS, min(n, clusters) * cs), per - keep, cs)
+            if best is None or key < best[0]:
+                best = (key, GNPlan(cs, per, keep, cs, smem))
+    if best is None:
+        chunks, per = gn_chunks(n, rows, c)
+        return GNPlan(0, per, 0, chunks, 0)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _card_clusters(cs, c, smem, itemsize, silu):
+    out = ctypes.c_int(0)
+    err = _build.load().mudg_gn_max_clusters(cs, c, smem, int(itemsize == 4), int(silu),
+                                             ctypes.addressof(out))
+    _build.check(err, "mudg_gn_max_clusters")
+    return out.value
+
+
+# gn_plan on this card, once per shape (kernel 4 plans its GroupNorm here too)
+gn_plan_card = functools.lru_cache(maxsize=None)(gn_plan)
+
+
+def plan_text(kind: str, x) -> str:
+    """The launch the wrapper takes for x, as text ("plain" off the card):
+    the GroupNorm's `gn_plan`, the LayerNorm's from its C launcher
+    (`mudg_ln_plan`, `csrc/norms.cu:ln_plan`)."""
     if x.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: expected bf16 or fp32, got {x.dtype}")
+        return "plain"
+    c, itemsize = x.shape[-1], x.element_size()
+    if kind == "group_norm":
+        n = x.shape[0]
+        p = gn_plan_card(n, x.numel() // (n * c), c, itemsize)
+        if p.cluster:
+            held = _card_clusters(p.cluster, c, p.smem, itemsize, False)
+            return (f"cluster {p.cluster} x {p.per} rows ({p.keep} held), {p.smem} B, "
+                    f"{held} clusters at once")
+        return f"two-pass {p.chunks} x {p.per} rows"
+    tile, team, vpt, threads, tile_rows, smem, grid = ln_plan_card(x.numel() // c, c, itemsize)
+    if tile:
+        return (f"tiles: team {team} x {vpt} chunks, {threads} threads, tiles of {tile_rows} "
+                f"rows, {smem} B, grid {grid}")
+    return f"rows: team {team} x {vpt} vectors, grid {grid}"
+
+
+def ln_plan_card(rows: int, c: int, itemsize: int) -> tuple[int, ...]:
+    """The C launcher's LayerNorm plan (`csrc/norms.cu:mudg_ln_plan`): tile
+    (1: the persistent tile kernel, 0: the row kernel), team, chunks or
+    vectors a lane, threads, tile rows, shared memory, grid."""
+    got = (ctypes.c_int * 7)()
+    err = _build.load().mudg_ln_plan(rows, c, int(itemsize == 4), ctypes.addressof(got))
+    _build.check(err, "mudg_ln_plan")
+    return tuple(got)
+
+
+def _checked(x, w, b, name):
+    """x contiguous, bf16 or fp32 on the card (`_build.require`), C % 8 == 0
+    up to MAX_C; w and b (C,) on x's device, passed as stored where both are
+    bf16 or fp32, contiguous and 16-byte aligned (wbf = 1 for bf16), else
+    cast to fp32 once."""
+    x = x.contiguous()
+    _build.require(x, name, (torch.bfloat16, torch.float32))
     c = x.shape[-1]
     if c % 8 or c > MAX_C:
         raise ValueError(f"{name}: channels must be a multiple of 8 up to {MAX_C}, got {c}")
-    x = x.contiguous()
-    _build.require(x, name, x.dtype)
-    w, b = (t.float().contiguous() for t in (w, b))
     if w.shape != (c,) or b.shape != (c,):
         raise ValueError(f"{name}: weight and bias must be ({c},)")
-    return x, w, b
+    if w.device != x.device or b.device != x.device:
+        raise ValueError(f"{name}: weight and bias must be on {x.device}")
+    if not (w.dtype == b.dtype and w.dtype in (torch.bfloat16, torch.float32)
+            and w.is_contiguous() and b.is_contiguous()
+            and w.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        w, b = w.float().contiguous(), b.float().contiguous()
+    return x, w, b, int(w.dtype == torch.bfloat16)
 
 
 def fused_group_norm(x, w, b, groups: int = 32, eps: float = 1e-5):
@@ -142,39 +290,25 @@ def fused_group_norm(x, w, b, groups: int = 32, eps: float = 1e-5):
     global launches
     if x.device.type in ("cpu", "meta"):
         return plain_group_norm(x, w, b, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_group_norm: expected a CUDA tensor, got {x.device}")
     if x.ndim < 3 or x.shape[-1] % groups:
         raise ValueError(f"fused_group_norm: unsupported shape {tuple(x.shape)}, "
                          f"groups {groups}")
-    x, w, b = _operands(x, w, b, "fused_group_norm")
-    c = x.shape[-1]
-    n, rows = x.shape[0], x[0].numel() // c
-    chunks, rows_per_chunk = gn_chunks(n, rows, c)
+    x, w, b, wbf = _checked(x, w, b, "fused_group_norm")
+    n, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (n * c)
+    plan = gn_plan_card(n, rows, c, x.element_size(), groups)
     y = torch.empty_like(x)
-    part = torch.empty(n * chunks * groups * 2, device=x.device, dtype=torch.float32)
-    lib = _build.load()
+    part = (None if plan.cluster else
+            torch.empty(n * plan.chunks * groups * 2, device=x.device, dtype=torch.float32))
     P = _build.ptr
-    err = lib.mudg_group_norm(P(x), P(y), P(w), P(b), P(part), n, rows, c, groups,
-                              rows_per_chunk, chunks, int(x.dtype == torch.float32),
-                              float(eps), _build.stream())
+    err = _build.load().mudg_group_norm(
+        P(x), P(y), P(w), P(b), P(part), wbf, n, rows, c, groups, plan.cluster, plan.per,
+        plan.keep, plan.chunks, int(x.dtype == torch.float32), eps, _build.stream(x.device))
     _build.check(err, "fused_group_norm")
     launches += 1
     return y
-
-
-# blocks the statistics pass aims for (four per SM of the H100's 132), and the
-# most chunks a sample is cut into (the second pass folds them per group)
-GN_TARGET_BLOCKS = 4 * 132
-GN_MAX_CHUNKS = 64
-
-
-def gn_chunks(n: int, rows: int, c: int) -> tuple[int, int]:
-    """(chunks, rows per chunk) that cut each sample's `rows` positions so
-    that the n * chunks blocks fill the card, each thread walking at least
-    four rows (a block covers C // 8 channels x k rows per step)."""
-    k = max(1, 256 // (c // 8))
-    want = min(GN_MAX_CHUNKS, -(-GN_TARGET_BLOCKS // n), max(1, rows // (4 * k)))
-    per = -(-rows // max(want, 1))
-    return -(-rows // per), per
 
 
 def fused_layer_norm(x, w, b, eps: float = 1e-5):
@@ -182,14 +316,15 @@ def fused_layer_norm(x, w, b, eps: float = 1e-5):
     global ln_launches
     if x.device.type in ("cpu", "meta"):
         return plain_layer_norm(x, w, b, eps)
-    x, w, b = _operands(x, w, b, "fused_layer_norm")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_layer_norm: expected a CUDA tensor, got {x.device}")
+    x, w, b, wbf = _checked(x, w, b, "fused_layer_norm")
     c = x.shape[-1]
     y = torch.empty_like(x)
-    lib = _build.load()
     P = _build.ptr
-    err = lib.mudg_layer_norm(P(x), P(y), P(w), P(b), x.numel() // c, c,
-                              int(x.dtype == torch.float32), float(eps),
-                              _build.stream())
+    err = _build.load().mudg_layer_norm_w(
+        P(x), P(y), P(w), P(b), wbf, x.numel() // c, c, int(x.dtype == torch.float32), -1,
+        eps, _build.stream(x.device))
     _build.check(err, "fused_layer_norm")
     ln_launches += 1
     return y
@@ -232,11 +367,22 @@ class _LayerNorm(torch.autograd.Function):
         return (*_plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:3], g), None)
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def group_norm_op(x, w, b, groups: int = 32, eps: float = 1e-5):
-    """`fused_group_norm` with the plain math's gradient to x, w and b."""
+    """`fused_group_norm` with the plain math's gradient to x, w and b; the
+    wrapper alone where no gradient is wanted (grad disabled, or no input
+    requires one)."""
+    if not _wants_grad(x, w, b):
+        return fused_group_norm(x, w, b, groups, eps)
     return _GroupNorm.apply(x, w, b, groups, eps)
 
 
 def layer_norm_op(x, w, b, eps: float = 1e-5):
-    """`fused_layer_norm` with the plain math's gradient to x, w and b."""
+    """`fused_layer_norm` with the plain math's gradient to x, w and b; the
+    wrapper alone where no gradient is wanted."""
+    if not _wants_grad(x, w, b):
+        return fused_layer_norm(x, w, b, eps)
     return _LayerNorm.apply(x, w, b, eps)

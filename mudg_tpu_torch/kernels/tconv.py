@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .norms import gn_chunks
+from .norms import gn_plan_card
 
 # The JAX dispatch admits c < 640 only (C = 640 measured slower than XLA on
 # the TPU); the port keeps the same sites.
@@ -105,15 +105,16 @@ def fused_gn_silu_tconv(x, norm, conv, packed: PackedTConv | None = None):
             or any(tuple(v.shape) != (c,) for v in packed[1:])):
         raise ValueError("gn_silu_tconv: packed weights do not match the input")
     rows = t * h * w
-    chunks, per = gn_chunks(b, rows, c)
+    plan = gn_plan_card(b, rows, c, 2, 32, True)
     lib = _build.load()
     out = torch.empty_like(x)
     hs = torch.empty_like(x)   # silu(GN(x)), the GEMM's A
-    part = torch.empty(b * chunks * 32 * 2, device=x.device, dtype=torch.float32)
+    part = (None if plan.cluster else
+            torch.empty(b * plan.chunks * 32 * 2, device=x.device, dtype=torch.float32))
     P = _build.ptr
     err = lib.mudg_gn_silu_tconv(P(x), P(out), P(hs), P(part), P(packed.gn_w), P(packed.gn_b),
-                                 P(packed.wcat), P(packed.bias), b, t, h * w, c, per, chunks,
-                                 _build.stream())
+                                 P(packed.wcat), P(packed.bias), b, t, h * w, c, plan.cluster,
+                                 plan.per, plan.keep, plan.chunks, _build.stream())
     _build.check(err, "gn_silu_tconv")
     launches += 1
     return out

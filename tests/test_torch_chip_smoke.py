@@ -213,7 +213,7 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
     unmasked and with half the keys, fp32 short-KV on operands rounded once
     to TF32, packed with another sequence's keys) misses the bound, fp32
     short-KV is bound at three TF32 products per product and reruns bit for
-    bit, and each autograd op's gradients pass theirs."""
+    bit, GN and LN rerun once, and each autograd op's gradients pass theirs."""
     from mudg_tpu_torch.kernels import norms as N
     from mudg_tpu_torch.kernels import short_attention as SA
 
@@ -239,7 +239,7 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
         assert CS.reruns_bit_for_bit(torch, case)
         f32_skv = case.name == "short_kv_attention" and case.tol == CS.F32_TOL
         assert case.reruns == (0 if case.grads else CS.SKV_RERUNS if f32_skv
-                               else int(case.name == "group_norm")), case.label
+                               else int(case.name in ("group_norm", "layer_norm"))), case.label
         assert (case.peak == CS.PEAK_TF32) == (f32_skv and not case.grads), case.label
         seen.add((case.name, case.grads, case.tol))
     assert {n for n, _, _ in seen} == SWITCH_KERNELS
@@ -287,3 +287,29 @@ def test_chip_smoke_tf32_bound():
     assert CS.bound(flops, nbytes)[0] == pytest.approx(1e3 * flops / 989e12)
     bflops, bbytes = CS.work_flash_bwd(16, 2560, 5, 64, 4)
     assert CS.bound(bflops, bbytes, CS.PEAK_TF32)[0] == pytest.approx(2.033, abs=1e-3)
+
+
+def test_device_time_per_call_leaves_out_calls_the_profiler_dropped():
+    """Kernel 11's device time per call (phases 2 and 11 with --profile):
+    each kernel belongs to the call whose range is nearest its start (a
+    device clock placed a few us late does not move it to the next call),
+    a call that lost kernels to the profiler is left out, and a profile
+    with no kernel raises. Here kernel 2's two LN launches per call, one of
+    them dropped from the second call, the third call's last kernel placed
+    past its range, then the first call's 150 us past its own."""
+    spans = [(0.0, 100.0), (2100.0, 2200.0), (4200.0, 4300.0)]
+    ln = "void mudg::ln_row_kernel<__nv_bfloat16, float, 2>(...)"
+    gemm = "void mudg::wgmma_gemm_kernel<3>(...)"
+    kernels = [(ln, 1.0, 4.0), (gemm, 6.0, 20.0), (ln, 30.0, 4.0),
+               (ln, 2101.0, 4.0), (gemm, 2106.0, 20.0),
+               (ln, 4201.0, 6.0), (gemm, 4206.0, 20.0), (ln, 4305.0, 6.0)]
+    got = CS.per_call_device_ms(spans, kernels)
+    assert got["calls_held"] == 2 and got["norm_launches"] == 2.0
+    assert got["device_ms"] == pytest.approx((28.0 + 32.0) / 2 / 1e3)
+    assert got["norm_device_ms"] == pytest.approx((8.0 + 12.0) / 2 / 1e3)
+    assert got["norm_launch_ms"] == pytest.approx(20.0 / 4 / 1e3)
+    # a kernel placed well into the gap after its call still belongs to it
+    late = [(ln, 250.0, 4.0) if k == (ln, 30.0, 4.0) else k for k in kernels]
+    assert CS.per_call_device_ms(spans, late) == got
+    with pytest.raises(RuntimeError):
+        CS.per_call_device_ms(spans, [])

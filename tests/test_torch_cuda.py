@@ -20,6 +20,7 @@ from __future__ import annotations
 import copy
 import math
 
+import numpy as np
 import pytest
 import torch
 from torch import nn
@@ -1015,6 +1016,156 @@ def test_layer_norm_kernel(dev, shape, dtype):
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
     fault = N.plain_layer_norm(x, w, b, 1e-5, center=False).float()
     assert (fault - ref).abs().max().item() > tol * ref.abs().max().item()
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+def _norm_close(got, ref, dtype):
+    tol = TOL if dtype == BF else 1e-5
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+# kernel 11's GroupNorm at N = 1, 2 and 32 samples and C from 320 to 2560, on
+# the one-launch cluster path and on the two passes (the largest fp32 sample
+# group_norm_fits admits, 1,048,576 elements, and kernel 4's MDM512 clip),
+# weights as stored (bf16 with bf16 x), each rerun bit for bit
+@pytest.mark.parametrize("shape,dtype,cluster", [
+    ((1, 16, 5, 8, 1280), BF, True), ((1, 20, 32, 2560), BF, True),
+    ((2, 16, 10, 16, 640), BF, True), ((32, 40, 64, 320), BF, True),
+    ((32, 10, 16, 2560), BF, True), ((2, 48, 32, 1024), BF, True),
+    ((32, 20, 32, 1280), F32, True), ((2, 32, 32, 1024), F32, False),
+    ((2, 16, 40, 64, 320), BF, False)])
+def test_group_norm_plans(dev, shape, dtype, cluster):
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x, w, b = _norm_input(dev, gen, shape, dtype)
+    w, b = w.to(dtype), b.to(dtype)
+    n, c = shape[0], shape[-1]
+    plan = N.gn_plan_card(n, math.prod(shape[1:-1]), c, x.element_size())
+    assert (plan.cluster > 0) == cluster, plan
+    got = N.fused_group_norm(x, w, b, 32, 1e-5)
+    _norm_close(got, N.plain_group_norm(x, w, b, 32, 1e-5), dtype)
+    for _ in range(3):
+        assert torch.equal(got, N.fused_group_norm(x, w, b, 32, 1e-5))
+
+
+def test_group_norm_two_passes_at_a_dc_offset(dev):
+    """The two-pass path (the largest fp32 sample) at a DC offset of 1e3:
+    within 1e-5 * max|ref| of the plain version in float64."""
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x, w, b = _norm_input(dev, gen, (2, 32, 32, 1024), F32, offset=1e3)
+    assert N.gn_plan_card(2, 1024, 1024, 4).cluster == 0
+    got = N.fused_group_norm(x, w, b, 32, 1e-5)
+    ref = N.plain_group_norm(x.double(), w.double(), b.double(), 32, 1e-5).float()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_group_norm_cluster_path_is_one_launch(dev):
+    """At every GN shape of chip_smoke.py's tables the card plans one cluster
+    per sample, and a call is one kernel launch: no scratch to clear, no
+    cast of bf16 or fp32 weights."""
+    import chip_smoke as CS
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mudg_tpu_torch.kernels import norms as N
+
+    for cfg, shapes in CS.GN_SHAPES.items():
+        for shape in shapes:
+            itemsize = 4 if cfg.endswith("-f32") else 2
+            plan = N.gn_plan_card(shape[0], math.prod(shape[1:-1]), shape[-1], itemsize)
+            assert plan.cluster > 0, (cfg, shape, plan)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for dtype in (BF, F32):
+        x, w, b = _norm_input(dev, gen, (32, 20, 32, 640), dtype)
+        w, b = w.to(dtype), b.to(dtype)
+        N.fused_group_norm(x, w, b, 32, 1e-5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            N.fused_group_norm(x, w, b, 32, 1e-5)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        assert len(kernels) == 1 and kernels[0].count == 1, [(e.key, e.count) for e in kernels]
+        assert "gn_cluster_kernel" in kernels[0].key
+
+
+# kernel 11's LayerNorm at N = 1, 2 and 32 and C from 320 to 4096 (C = 328:
+# the last vectors of a row masked), on both sides of the switch between
+# the row and the tile kernel (bf16 from C = 1280 and 24 MiB of x: tile),
+# weights as stored, rerun bit for bit
+@pytest.mark.parametrize("shape,dtype,tile", [
+    ((1, 256, 1024), BF, False), ((2, 9216, 320), BF, False), ((32, 2560, 320), BF, False),
+    ((32, 40, 1280), BF, False), ((288, 16, 1280), BF, False), ((1152, 16, 1280), BF, True),
+    ((32, 576, 1280), BF, True), ((2, 4608, 2560), BF, True), ((2, 77, 512), BF, False),
+    ((1152, 16, 1280), F32, False), ((32, 144, 1280), F32, False), ((2, 640, 640), F32, False),
+    ((3, 5, 4096), F32, False), ((13, 3, 328), BF, False)])
+def test_layer_norm_plans(dev, shape, dtype, tile):
+    from mudg_tpu_torch.kernels import norms as N
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x, w, b = _norm_input(dev, gen, shape, dtype)
+    w, b = w.to(dtype), b.to(dtype)
+    c = shape[-1]
+    assert N.ln_plan_card(x.numel() // c, c, x.element_size())[0] == int(tile)
+    got = N.fused_layer_norm(x, w, b, 1e-5)
+    _norm_close(got, N.plain_layer_norm(x, w, b, 1e-5), dtype)
+    for _ in range(3):
+        assert torch.equal(got, N.fused_layer_norm(x, w, b, 1e-5))
+
+
+def _ln_tile_rows(nr, threads, team):
+    """ln_tile_kernel's rows of one tile of nr rows: team tm takes rows tm,
+    tm + teams, .. over ceil(nr / teams) uniform steps, storing the valid ones."""
+    teams = threads // team
+    q = (np.arange(teams)[:, None] + teams * np.arange(-(-nr // teams))[None, :]).ravel()
+    return q[q < nr]
+
+
+def test_ln_plan_covers_each_row_once(dev):
+    """The C launcher's LayerNorm plan (`mudg_ln_plan`, the one kernels 1, 2,
+    3 and 9 and the wrapper take) at every LN shape of chip_smoke.py's
+    tables and a few more: the tile kernel exactly in bf16 from C = 1280 and
+    24 MiB of x, every row covered once by its grid (the kernels' walks
+    mirrored), at most 227 KB of shared memory a block, and the tile
+    kernel's lanes all busy at C = 1280."""
+    import chip_smoke as CS
+
+    from mudg_tpu_torch.kernels import norms as N
+
+    cases = [(math.prod(s[:-1]), s[-1], 4 if cfg.endswith("-f32") else 2)
+             for cfg, shapes in CS.LN_SHAPES.items() for s in shapes]
+    cases += [(35, 2560, 2), (3, 4096, 4), (13, 328, 2), (9, 1600, 2), (18432, 2560, 2),
+              (36864, 1024, 2), (9216, 4096, 2)]
+    for rows, c, itemsize in cases:
+        tile, team, vpt, threads, tile_rows, smem, grid = N.ln_plan_card(rows, c, itemsize)
+        assert tile == int(itemsize == 2 and c >= 1280 and rows * c * 2 >= 24 << 20)
+        seen = np.zeros(rows, dtype=np.int64)
+        if not tile:   # a warp a row, 8 rows a block, vpt vectors of 8 a lane
+            want = 1
+            while want * 32 < c // 8:
+                want *= 2
+            assert (team, vpt, threads, grid) == (32, want, 256, -(-rows // 8))
+            seen[:] = 1
+        else:
+            chunks = c * itemsize // 16
+            assert team in (1, 2, 4, 8, 16, 32) and threads % 32 == 0 and threads <= 256
+            assert smem <= N.SMEM_MAX and (vpt == 0 or team * vpt >= chunks)
+            if c == 1280:   # the model's width the tile kernel takes: in registers
+                assert team * vpt == chunks
+            tiles = -(-rows // tile_rows)
+            assert 1 <= grid <= tiles
+            for block in range(grid):   # the persistent walk over tiles
+                for t in range(block, tiles, grid):
+                    nr = min(tile_rows, rows - t * tile_rows)
+                    seen[t * tile_rows + _ln_tile_rows(nr, threads, team)] += 1
+        assert (seen == 1).all(), (rows, c, itemsize)
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d,dtype", [(4, 2560, 77, 5, 64, torch.bfloat16),
