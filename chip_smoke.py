@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14] [--out DIR] [--profile]
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -16,8 +16,9 @@ Phases:
      one; kernel 5's logsumexp within 1e-2; a plain version with a planted
      fault must miss that bound: zeroed attention, half the keys, kernel 1
      with the softmax scale applied twice, kernel 2 with heads 0 and 1's key
-     projections swapped (a mis-packed head order), kernel 4 with its taps
-     reversed (t - 1 and t + 1 swapped); kernel 2 also at a tail shape, rows
+     projections swapped (a mis-packed head order), kernel 3 with W1's value
+     and gate halves swapped, kernel 4 with its taps reversed (t - 1 and t +
+     1 swapped); kernel 2 also at a tail shape, rows
      % 128 == 64; kernel 4 also at a DC offset of 1e3 against
      its plain version in float64, where the one-pass variance must miss;
      kernel 4 reruns bit for bit), with the median CUDA-event time of the
@@ -151,7 +152,32 @@ Phases:
      one bf16 UNet forward per configuration with each set to "0" alone and
      one with all six, set in-process and restored after; launches at
      SWITCHES_OFF, the phase-3/5 gate against fp32; each of these forwards
-     timed (median of 3), beside the kernel path's.
+     timed (median of 3), beside the kernel path's;
+ 14. the serving path (apps/serve.py, apps/render_infer.py) at UNet batch
+     6, the 3-task batch with 2-point CFG: (a) phase 3 and phase 5's forward
+     at batch 6, the same gate and sites, then one forward each under the
+     profiler (the device's busy time against the wall time), and phase 5's
+     at batch 9 (3-point CFG, --multiple_cond_cfg); (b) kernels 1-5 against
+     their plain versions at every shape of the batch-6 forwards, bf16 and
+     fp32 (the shapes a meta-device trace of the forwards gives, which must equal
+     forward_keys; phase 2's tolerances and planted faults, each timed
+     median of 3); (c) a warm server built as serve.main builds it
+     (`presets.mdm512()`, init_mdm on the card from a generator seeded 0,
+     bf16, HashTokenizer, 25 DDIM steps with guidance 7.5, rescale 0.7, eta
+     1.0, uniform_trailing, fps 10) answering three requests through
+     render_windows on seeded in-memory windows of 16 frames at 320x512:
+     r1 2 windows (the carry), r2 another prompt and seed, r3 task_serial;
+     each clip (3, 16, 320, 512, 3) finite in [-1, 1], launches exactly 25 x
+     the MDM512 sites per sampler call (counts reset just before each
+     request, read just after), window 2's sparse condition the carried
+     color with frame 0 the GT; s/request, s/window, the UNet forward's
+     share of a batched window (not measured for task_serial) and peak
+     memory, beside the card's name and power
+     limit; (d) the checkpoint path: the served UNet loaded from an fp16
+     MuDG .ckpt (seeded random weights, written in memory) by
+     train/checkpoint.py, cast and packed as the apps do, one batch-6
+     forward against the plain bf16 and fp32 paths of the same weights
+     (phase 3's gate and sites).
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -165,7 +191,7 @@ times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
-and phase 13's forwards). Then the
+phase 13's forwards and phase 14's requests). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -677,6 +703,21 @@ def zero_v(attn):
     return z
 
 
+def swap_geglu_halves(ff):
+    """A copy of FeedForward `ff` whose W1 and b1 have their value and gate
+    halves swapped, as from kernel 3 reading the gate where the value lies:
+    g * gelu(u) in place of u * gelu(g)."""
+    import torch
+
+    z = copy.deepcopy(ff)
+    proj = z.net["0"].proj
+    inner = proj.weight.shape[0] // 2
+    with torch.no_grad():
+        for p in (proj.weight, proj.bias):
+            p.copy_(torch.cat([p[inner:], p[:inner]]))
+    return z
+
+
 def swap_k_heads(attn):
     """A copy of `attn` whose key projections of heads 0 and 1 are swapped,
     as from kernel 2 reading a packing with k_0 and k_1 in each other's
@@ -779,14 +820,63 @@ def half_keys_self_attention(x, norm, attn, heads):
     return F.linear(attn.to_out["0"], A._merge_heads(o)) + x
 
 
-def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
-    """Yield a Case for every kernel shape of a UNet forward at each
-    configuration; inputs are made when the case is reached. `latent` maps a
-    configuration to its (h, w) (default LATENT)."""
+def forward_shapes(cfg, batch=2, latent=None):
+    """The kernel shapes of one UNet forward (16 frames a clip) at `cfg` and
+    `batch`, as kernel_cases makes its cases: "spatial" (label, frames, L,
+    C), "temporal" (label, sequences, C, sites), "ff" (rows, C, block form,
+    sites), "tconv" the clip shape, "flash" (label, frames, L, heads, sites,
+    fp32). At batch 2 also the shapes no forward reaches (sites 0): kernel
+    2's tail (rows % 128 == 64, MDM512) and kernel 5's long shape (MDM1024).
+    `latent` maps a configuration to its (h, w) (default LATENT)."""
+    h, w = (latent or LATENT)[cfg]
+    tok = [h * w, h * w // 4, h * w // 16, h * w // 64]     # ds1, ds2, ds4, ds8
+    nf = 16 * batch   # frames
+    extra = batch == 2
+    temporal = [("ds1", batch * tok[0], 320, 5), ("init_attn", batch * tok[0], 512, 1),
+                ("ds2", batch * tok[1], 640, 5)]
+    if cfg == "mdm512" and extra:
+        temporal.append(("tail", 2 * tok[0] + 4, 320, 0))
+    # kernel 5: in bf16 the ds4 self-attention (C=1280, 20 heads, L=576) of
+    # MDM1024 and one long shape that streams 72 K/V tiles per query tile; in
+    # fp32 (an fp32 forward, sites 0: checked and timed, not in the row's bf16
+    # sums) every spatial self-attention at L >= 512
+    flash = {"mdm512": [("f32 ds1", nf, tok[0], 5, 0, True), ("f32 ds2", nf, tok[1], 10, 0, True)],
+             "mdm1024": [("ds4", nf, tok[2], 20, 5, False)]
+             + ([("long", 2, tok[0], 5, 0, False)] if extra else [])
+             + [("f32 ds1", nf, tok[0], 5, 0, True), ("f32 ds2", nf, tok[1], 10, 0, True),
+                ("f32 ds4", nf, tok[2], 20, 0, True)]}[cfg]
+    return {"spatial": [("ds1", nf, tok[0], 320), ("ds2", nf, tok[1], 640)],
+            "temporal": temporal,
+            "ff": [(nf * tok[0], 320, True, 10), (nf * tok[0], 512, True, 1),
+                   (nf * tok[1], 640, False, 10), (nf * tok[2], 1280, False, 10),
+                   (nf * tok[3], 1280, False, 2)],
+            "tconv": (batch, 16, h, w, 320), "flash": flash}
+
+
+def forward_keys(cfg, batch=2, latent=None):
+    """forward_shapes' kernel calls of a forward as traced_kernel_keys gives
+    them: (kernel, its first argument's shape, fp32), the FF kernel's key
+    "geglu_ff_block" for the block form; without the shapes no forward
+    reaches."""
+    fs = forward_shapes(cfg, batch, latent)
+    keys = {("spatial_attn", (b, l, c), False) for _, b, l, c in fs["spatial"]}
+    keys |= {("temporal_attn", (n, 16, c), False) for label, n, c, _ in fs["temporal"]
+             if label != "tail"}
+    keys |= {("geglu_ff" + ("_block" if block else ""), (m, c), False)
+             for m, c, block, _ in fs["ff"]}
+    keys.add(("gn_silu_tconv", fs["tconv"], False))
+    keys |= {("flash_attention", (b, l, heads, 64), f32)
+             for label, b, l, heads, _, f32 in fs["flash"] if label != "long"}
+    return keys
+
+
+def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None, batch=2):
+    """Yield a Case for every kernel shape of forward_shapes at each
+    configuration and `batch`; inputs are made when the case is reached. At
+    batch 2 kernel 4 is also checked at a DC offset (MDM512)."""
     from torch import nn
 
     F = torch.nn.functional
-    latent = latent or LATENT
     bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # kernel 3's cuBLAS yardstick takes its h from a generator of its own, so
@@ -804,15 +894,14 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
         return norm, sharpen_(attn)
 
     for cfg in configs:
-        h, w = latent[cfg]
-        tok = [h * w, h * w // 4, h * w // 16, h * w // 64]     # ds1, ds2, ds4, ds8
-        for l, c, label in ((tok[0], 320, "ds1"), (tok[1], 640, "ds2")):
+        fs = forward_shapes(cfg, batch, latent)
+        for label, nf, l, c in fs["spatial"]:
             heads = c // 64
             norm, attn = norm_attention(c)
             pk = K.spatial_attn.pack_stage(norm, attn, heads)
-            x = rand(32, l, c)
+            x = rand(nf, l, c)
             qkv = attention_qkv(x, norm, attn, heads)
-            yield Case("spatial_attn", cfg, f"{label} 32x{l}x{c}", 5, work_spatial(32, l, c),
+            yield Case("spatial_attn", cfg, f"{label} {nf}x{l}x{c}", 5, work_spatial(nf, l, c),
                        lambda: K.spatial_attn.fused_self_attention(x, norm, attn, heads, pk),
                        lambda: K.spatial_attn.plain_self_attention(x, norm, attn, heads), None,
                        x, {"zero attention": lambda: K.spatial_attn.plain_self_attention(
@@ -823,14 +912,10 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                                x, norm, scale_twice(attn), heads)},
                        yardsticks={"sdpa_core_ms": lambda: F.scaled_dot_product_attention(
                            *qkv)})
-        # kernel 2 at its sites and, at MDM512, at a tail shape whose rows %
-        # 128 == 64 (the last 128-row block half empty; sites 0: checked and
-        # timed, not summed)
-        temporal = [(2 * tok[0], 320, 5, "ds1"), (2 * tok[0], 512, 1, "init_attn"),
-                    (2 * tok[1], 640, 5, "ds2")]
-        if cfg == "mdm512":
-            temporal.append((2 * tok[0] + 4, 320, 0, "tail"))
-        for n_seq, c, sites, label in temporal:
+        # kernel 2 at its sites and, at batch 2 at MDM512, at a tail shape
+        # whose rows % 128 == 64 (the last 128-row block half empty; sites 0:
+        # checked and timed, not summed)
+        for label, n_seq, c, sites in fs["temporal"]:
             heads = c // 64
             (n1, a1), (n2, a2) = norm_attention(c), norm_attention(c)
             pk = (K.temporal_attn.pack_stage(n1, a1, heads), K.temporal_attn.pack_stage(n2, a2, heads))
@@ -848,31 +933,33 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                        yardsticks={"cublas_gemm_ms": lambda: [
                            F.linear(xo[i], w) for i, w in ((0, pk[0].wqkv), (1, pk[0].wo),
                                                            (0, pk[1].wqkv), (1, pk[1].wo))]})
-        for m, c, block, sites in ((32 * tok[0], 320, True, 10), (32 * tok[0], 512, True, 1),
-                                   (32 * tok[1], 640, False, 10), (32 * tok[2], 1280, False, 10),
-                                   (32 * tok[3], 1280, False, 2)):
+        for m, c, block, sites in fs["ff"]:
             norm, ff = mods(nn.LayerNorm(c), nn_att.FeedForward(c))
             pk = K.mlp.pack_ff(ff, norm)
             x = rand(m, c)
             w1, _, w2, _ = K.mlp.ff_params(ff)
             hy = torch.randn((m, w2.shape[1]), generator=gemm_gen, device=dev).to(bf)
+            swapped = swap_geglu_halves(ff)
             if block:
                 fk = lambda: K.mlp.fused_geglu_ff_block(x, norm, ff, pk)   # noqa: E731
                 fp = lambda: K.mlp.plain_geglu_ff_block(x, norm, ff)       # noqa: E731
+                ff_fault = lambda: K.mlp.plain_geglu_ff_block(x, norm, swapped)   # noqa: E731
             else:
                 fk = lambda: K.mlp.fused_geglu_ff(x, ff, pk)               # noqa: E731
                 fp = lambda: K.mlp.plain_geglu_ff(x, ff)                   # noqa: E731
+                ff_fault = lambda: K.mlp.plain_geglu_ff(x, swapped)        # noqa: E731
             yield Case("geglu_ff", cfg, f"{'block' if block else 'bare'} {m}x{c}", sites,
-                       work_ff(m, c, block), fk, fp, None, x if block else None, {},
+                       work_ff(m, c, block), fk, fp, None, x if block else None,
+                       {"gate and value swapped": ff_fault},
                        yardsticks={"cublas_gemm_ms": lambda: (F.linear(x, w1),
                                                               F.linear(hy, w2))})
-        # kernel 4 at ds1 (reruns bit for bit); at MDM512 also at a DC offset
-        # of 1e3 against its plain version in float64 (sites 0: checked and
-        # timed, not summed), where the one-pass variance must miss
+        # kernel 4 at ds1 (reruns bit for bit); at batch 2 at MDM512 also at a
+        # DC offset of 1e3 against its plain version in float64 (sites 0:
+        # checked and timed, not summed), where the one-pass variance must miss
         norm, conv = mods(nn.GroupNorm(32, 320), nn.Conv3d(320, 320, (3, 1, 1)))
         pk = K.tconv.pack_tconv(conv, norm)
-        shape = (2, 16, h, w, 320)
-        dc = (None, dc_video(torch, gen, shape, dev)) if cfg == "mdm512" else (None,)
+        shape = fs["tconv"]
+        dc = (None, dc_video(torch, gen, shape, dev)) if cfg == "mdm512" and batch == 2 else (None,)
         for xdc in dc:
             x = rand(*shape) if xdc is None else xdc
             cat, wcat = tap_concat(torch, x, norm), pk.wcat
@@ -890,18 +977,8 @@ def kernel_cases(torch, K, nn_att, configs, dev="cuda", latent=None):
                        lambda: K.tconv.fused_gn_silu_tconv(x, norm, conv, pk), plain, None,
                        None, faults, reruns=1,
                        yardsticks={"cublas_tap_gemm_ms": lambda: F.linear(cat, wcat)})
-        # kernel 5: in bf16 the ds4 self-attention (C=1280, 20 heads, L=576)
-        # of MDM1024 and one long shape that streams 72 K/V tiles per query
-        # tile; in fp32 (an fp32 forward, sites 0: checked and timed, not in
-        # the row's bf16 sums) every spatial self-attention at L >= 512
-        flash = {"mdm512": [(32, tok[0], 5, 0, "f32 ds1", f32),
-                            (32, tok[1], 10, 0, "f32 ds2", f32)],
-                 "mdm1024": [(32, tok[2], 20, 5, "ds4", bf), (2, tok[0], 5, 0, "long", bf),
-                             (32, tok[0], 5, 0, "f32 ds1", f32),
-                             (32, tok[1], 10, 0, "f32 ds2", f32),
-                             (32, tok[2], 20, 0, "f32 ds4", f32)]}[cfg]
-        for b, l, heads, sites, label, dtype in flash:
-            qkv = rand(b, l, 3, heads, 64, dtype=dtype)
+        for label, b, l, heads, sites, is_f32 in fs["flash"]:
+            qkv = rand(b, l, 3, heads, 64, dtype=f32 if is_f32 else bf)
             yield flash_case(torch, K, nn_att, cfg, label, sites, qkv)
 
 
@@ -1536,8 +1613,9 @@ def phase_kernels(torch, K, nn_att, configs, profile=False):
                      check=lambda case: reruns_bit_for_bit(torch, case), profile=profile)
 
 
-def run_cases(torch, cases, check=None, profile=False):
-    """Check and time each case (`check(case)` runs after its comparison);
+def run_cases(torch, cases, check=None, profile=False, iters=10):
+    """Check and time each case (`check(case)` runs after its comparison;
+    forward kernels and their plain versions the median of `iters` calls);
     returns the kernel table's rows, each shape's sites-weighted times
     summed per kernel. With `profile`, the kernels of NORM_PROFILED also
     get their device time per call under the profiler, all of it and
@@ -1550,7 +1628,7 @@ def run_cases(torch, cases, check=None, profile=False):
         if check is not None:
             chk = chk._replace(ok=chk.ok and check(case))
         fk, fp, flib = case.kernel, case.plain, case.library
-        reps = dict(iters=3, warmup=1) if case.grads else {}
+        reps = dict(iters=3, warmup=1) if case.grads else dict(iters=iters, warmup=min(2, iters))
         dev = {}
         norm = case.name in ("group_norm", "layer_norm") and not case.grads
         if norm or (profile and case.name in NORM_PROFILED):
@@ -1561,8 +1639,8 @@ def run_cases(torch, cases, check=None, profile=False):
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
         yms = {k: cuda_ms(torch, fn) for k, fn in case.yardsticks.items()}
         yms.update({k + "_queued": cuda_ms_queued(torch, fn) for k, fn in case.yardsticks.items()})
-        qms = cuda_ms_queued(torch, fk) if not case.grads else None
-        lqms = cuda_ms_queued(torch, flib) if flib is not None and not case.grads else None
+        qms = cuda_ms_queued(torch, fk, iters) if not case.grads else None
+        lqms = cuda_ms_queued(torch, flib, iters) if flib is not None and not case.grads else None
         flops, nbytes = case.work
         bms, by = bound(flops, nbytes, case.peak)
         extra_bound = {}
@@ -1637,21 +1715,21 @@ def build_unet(torch, U, gen, dtype):
     return unet.to(dtype).eval()
 
 
-def unet_inputs(torch, gen, dtype, cfg):
+def unet_inputs(torch, gen, dtype, cfg, batch=2):
     h, w = LATENT[cfg]
 
     def rnd(*s, scale=1.0):
         return (torch.randn(s, generator=gen, device="cuda") * scale).to(dtype)
-    x = rnd(2, 16, h, w, 12)
-    t = torch.tensor([700, 700], device="cuda")
-    ctx = rnd(2, 77 + 16 * 16, 1024)
-    lab = torch.zeros(2, dtype=torch.int64, device="cuda")
-    fs = torch.full((2,), 10, dtype=torch.int64, device="cuda")
+    x = rnd(batch, 16, h, w, 12)
+    t = torch.full((batch,), 700, device="cuda")
+    ctx = rnd(batch, 77 + 16 * 16, 1024)
+    lab = torch.zeros(batch, dtype=torch.int64, device="cuda")
+    fs = torch.full((batch,), 10, dtype=torch.int64, device="cuda")
     return x, t, ctx, lab, fs
 
 
-def phase_unet(torch, K, U, cfg, paths=("kernels",)):
-    """One full-width UNet forward at batch 2 on the plain fp32 path (TF32
+def phase_unet(torch, K, U, cfg, paths=("kernels",), batch=2):
+    """One full-width UNet forward at `batch` on the plain fp32 path (TF32
     off, switches unset), the plain bf16 path and each kernel path of
     `paths`: "kernels" (phases 3 and 5), "switches", with
     MUDG_FUSED_NORMS=1 and MUDG_SHORT_ATTN=1 (phase 12a), and "off", the
@@ -1660,15 +1738,16 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
     launches at exactly its sites. With "switches", first an fp32 forward
     on it (impl="auto": kernels 11 and 12 and kernel 5 in fp32) within
     F32_PATH_TOL relative L2 of the fp32 plain one, launches at
-    SWITCH_SITES_F32. Returns the UNet (bf16, packed), the report and, with
-    "off", phase 13's summed launches."""
+    SWITCH_SITES_F32. Each path's forward is timed (median of 3; above batch
+    2 the plain path's once). Returns the UNet (bf16, packed), the report
+    and, with "off", phase 13's summed launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     unet = build_unet(torch, U, gen, torch.float32)
     n_params = sum(p.numel() for p in unet.parameters())
-    x, t, ctx, lab, fs = unet_inputs(torch, gen, torch.float32, cfg)
-    report = {"params": n_params}
+    x, t, ctx, lab, fs = unet_inputs(torch, gen, torch.float32, cfg, batch)
+    report = {"params": n_params, "batch": batch}
     with torch.no_grad():
         ref = unet(x, t, ctx, c_label=lab, fs=fs, impl="plain")
         if "switches" in paths:
@@ -1699,7 +1778,8 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
             return unet(xb, t, cb, c_label=lab, fs=fs, impl=impl)
 
         plain = run("plain")
-        ms_p = cuda_ms(torch, lambda: run("plain"), iters=3, warmup=1)
+        ms_p = cuda_ms(torch, lambda: run("plain"),
+                       **(dict(iters=3, warmup=1) if batch == 2 else dict(iters=1, warmup=0)))
 
     def rel(a):
         return ((a.float() - ref).norm() / ref.norm()).item()
@@ -1707,7 +1787,8 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",)):
     e_p = rel(plain)
     err_bound = 1.5 * e_p + 5e-3
     del plain
-    log(f"  UNet {n_params:,} params; plain bf16 {ms_p:.1f} ms, rel L2 vs fp32 {e_p:.4e}")
+    log(f"  UNet {n_params:,} params, batch {batch}; plain bf16 {ms_p:.1f} ms, rel L2 vs fp32 "
+        f"{e_p:.4e}")
     report.update({"rel_l2_plain_bf16": e_p, "ms_plain": ms_p})
     if "off" in paths:
         report["switches_off"], launches = phase_opt_out(torch, K, cfg, run, rel, err_bound)
@@ -2768,6 +2849,270 @@ def gs_layers(torch, G, GT, TT, state, cfg, view, width, height):
     return layers
 
 
+# Phase 14, the serving path: apps/serve.py's warm server (built by
+# render_infer.build_server from serve's flags, as serve.main builds it; no
+# checkpoint: init_mdm on the card from a generator seeded 0, bf16,
+# HashTokenizer) answering SERVE_REQUESTS through render_windows on seeded
+# in-memory windows. The 3-task batch with 2-point CFG is UNet batch
+# SERVE_BATCH.
+SERVE_BATCH = 6
+# 3 tasks x 3 CFG variants (--multiple_cond_cfg): phase 14 (a) also runs the
+# MDM1024 forward at this batch, the largest a served request makes
+MULTI_COND_BATCH = 9
+SERVE_STEPS = 25
+SERVE_FLAGS = ("--preset", "mdm512", "--steps", str(SERVE_STEPS), "--cfg_scale", "7.5",
+               "--guidance_rescale", "0.7", "--eta", "1.0", "--timestep_spacing",
+               "uniform_trailing", "--fps", "10", "--dtype", "bf16")
+SERVE_CLIP = (16, 320, 512)   # frames, height, width
+# (name, prompt, seed, windows, task_serial)
+SERVE_REQUESTS = (("r1", "A photo a of driving scene.", 123, 2, False),
+                  ("r2", "A rainy night in the city, wet asphalt.", 7, 1, False),
+                  ("r3", "A photo a of driving scene.", 11, 1, True))
+# The kernel wrappers a UNet forward calls, (key, module of K, function)
+TRACED = (("spatial_attn", "spatial_attn", "fused_self_attention"),
+          ("temporal_attn", "temporal_attn", "fused_double_self_attn"),
+          ("geglu_ff_block", "mlp", "fused_geglu_ff_block"),
+          ("geglu_ff", "mlp", "fused_geglu_ff"),
+          ("gn_silu_tconv", "tconv", "fused_gn_silu_tconv"),
+          ("flash_attention", "flash_attention", "flash_attention"))
+
+
+def traced_kernel_keys(torch, K, U, cfg, batch):
+    """The kernel wrappers' calls of one full-width UNet forward at `cfg` and
+    `batch` (16 frames a clip, impl="auto"), in bf16 and in fp32, traced on
+    the meta device: {(key, the first argument's shape (the FF's as rows x
+    C), fp32)}, as forward_keys gives them."""
+    seen = set()
+    saved = []
+    for key, mod, fn in TRACED:
+        m = getattr(K, mod)
+        orig = getattr(m, fn)
+        saved.append((m, fn, orig))
+
+        def wrapped(x, *a, _orig=orig, _key=key, **kw):
+            # the FF kernel flattens its tokens to rows
+            shape = ((x.numel() // x.shape[-1], x.shape[-1]) if _key.startswith("geglu_ff")
+                     else tuple(x.shape))
+            seen.add((_key, shape, x.dtype == torch.float32))
+            return _orig(x, *a, **kw)
+
+        setattr(m, fn, wrapped)
+    try:
+        h, w = LATENT[cfg]
+        with torch.device("meta"), torch.no_grad():
+            unet = U.UNet3D(U.UNetConfig())
+            for dtype in (torch.bfloat16, torch.float32):
+                unet.to(dtype)
+                x = torch.empty(batch, 16, h, w, 12, dtype=dtype)
+                ctx = torch.empty(batch, 77 + 16 * 16, 1024, dtype=dtype)
+                t = torch.zeros(batch, dtype=torch.int64)
+                unet(x, t, ctx, c_label=t)
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+    return seen
+
+
+def serve_windows(n, seed, clip=SERVE_CLIP):
+    """`n` seeded in-memory condition windows for render_windows: sparse
+    color and depth videos and a GT frame 0 uniform in [-1, 1], the task
+    labels color / depth / semantic."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t, h, w = clip
+    return [{"sparse_frames": rng.uniform(-1, 1, (t, h, w, 3)).astype(np.float32),
+             "frame0": rng.uniform(-1, 1, (h, w, 3)).astype(np.float32),
+             "sparse_depth": rng.uniform(-1, 1, (t, h, w, 3)).astype(np.float32),
+             "class_labels": np.array([0, 500, 1], np.int32)} for _ in range(n)]
+
+
+def check_carry(windows, used, outs, video_length):
+    """The autoregressive carry: window 0's sparse color condition is its
+    own; from window 1 on, frames 1 .. video_length//2 - 1 are the previous
+    window's generated color frames video_length//2 + 1 .., frame 0 the
+    window's GT frame 0, the second half the window's own. Raises where not,
+    bit for bit."""
+    import numpy as np
+
+    half = video_length // 2
+    if not np.array_equal(used[0], windows[0]["sparse_frames"]):
+        raise AssertionError("window 0: the sparse condition is not the window's own")
+    for i in range(1, len(used)):
+        parts = {"frame 0 is the GT": np.array_equal(used[i][0], windows[i]["frame0"]),
+                 "frames 1..half-1 carried": np.array_equal(used[i][1:half],
+                                                            outs[i - 1][0, half + 1:]),
+                 "second half the window's own": np.array_equal(
+                     used[i][half:], windows[i]["sparse_frames"][half:])}
+        bad = [k for k, ok in parts.items() if not ok]
+        if bad:
+            raise AssertionError(f"window {i}: carry check failed: {bad}")
+
+
+def serve_launches(sites, steps, windows, task_serial):
+    """Every kernel's launches in a request: one UNet forward per step of
+    one sampler call per window, or per task and window with task_serial."""
+    calls = windows * (3 if task_serial else 1)
+    return {k: calls * steps * v for k, v in sites.items()}
+
+
+def check_ckpt_load(torch, K, ri_mod, ckpt_mod, unet, x, t, ctx, lab, fs):
+    """Phase 14 (d), the checkpoint path into a served UNet: seeded random
+    weights, stored as fp16 leaves in a MuDG .ckpt (written in memory), read
+    by train/checkpoint.load_mudg_checkpoint, loaded strictly into `unet`
+    (the served MDM's) and cast and packed by prepare_serving_params; then
+    one forward (inputs in fp32) on the kernel path against the plain bf16
+    path and the plain fp32 path of the same weights, phase 3's gate.
+    Returns (report, the kernel path's launches)."""
+    import io
+
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    with torch.device("meta"):
+        ref = type(unet)(unet.cfg)
+    ref.to_empty(device=dev)
+    randomize_(torch, ref, gen)
+    buf = io.BytesIO()
+    prefix = ckpt_mod.PREFIXES["unet"]
+    torch.save({"state_dict": {prefix + k: v.half().cpu() for k, v in ref.state_dict().items()}},
+               buf)
+    t0 = time.perf_counter()
+    trees = ckpt_mod.load_mudg_checkpoint(buf)
+    read_s = time.perf_counter() - t0
+    del buf
+    ref.load_state_dict(trees["unet"], strict=True)   # fp32 of the stored fp16 values
+    unet.load_state_dict(trees["unet"], strict=True)
+    del trees
+    ri_mod.prepare_serving_params(unet, "none", torch.bfloat16)
+    with torch.no_grad():
+        r32 = ref(x, t, ctx, c_label=lab, fs=fs, impl="plain").float()
+        del ref
+        xb, cb = x.bfloat16(), ctx.bfloat16()
+        plain = unet(xb, t, cb, c_label=lab, fs=fs, impl="plain").float()
+        K.reset_launch_counts()
+        kern = unet(xb, t, cb, c_label=lab, fs=fs, impl="auto").float()
+        counts = K.launch_counts()
+
+    def rel(a):
+        return ((a - r32).norm() / r32.norm()).item()
+
+    e_p, e_k = rel(plain), rel(kern)
+    bound_ = 1.5 * e_p + 5e-3
+    log(f"  checkpoint path: the UNet's fp16 .ckpt read in {read_s:.3f} s; kernel path rel L2 "
+        f"vs fp32 {e_k:.4e} (plain bf16 {e_p:.4e}, bound {bound_:.4e}), launches {counts}")
+    if not bool(torch.isfinite(kern).all().item()) or e_k > bound_:
+        raise AssertionError(f"checkpoint path: kernel-path error {e_k:.4e} exceeds {bound_:.4e}")
+    return {"read_s": read_s, "rel_l2_plain_bf16": e_p, "rel_l2_kernels": e_k}, counts
+
+
+def phase_serve(torch, K, U, nn_att, serve_mod, ri_mod, ckpt_mod, card):
+    """Phase 14: (a) one UNet forward at batch SERVE_BATCH per configuration
+    (phase_unet), then one more under the profiler (the device's busy share
+    of its wall time), and at MDM1024 one at MULTI_COND_BATCH; (b) kernels
+    1-5 against their plain versions at every shape of the SERVE_BATCH
+    forwards (a meta-device trace, which must equal forward_keys); (c) the
+    warm server answering SERVE_REQUESTS, each checked (shape, finite, in
+    [-1, 1], launches, the carry) with counts reset just before and read
+    just after; (d) check_ckpt_load on the served UNet at batch
+    SERVE_BATCH, launches at the MDM512 sites. Returns the launches summed
+    over the requests, the batch-6 kernel rows and the report."""
+    import numpy as np
+
+    report, fwd_ms = {}, {}
+    for cfg, batch in (("mdm512", SERVE_BATCH), ("mdm1024", SERVE_BATCH),
+                       ("mdm1024", MULTI_COND_BATCH)):
+        unet, r, _ = phase_unet(torch, K, U, cfg, ("kernels",), batch=batch)
+        report[f"unet_{cfg}_batch{batch}"] = r
+        if batch == SERVE_BATCH:
+            x, t, ctx, lab, fs = unet_inputs(torch, torch.Generator(device="cuda").manual_seed(
+                SEED + 30), torch.bfloat16, cfg, batch)
+            r["profile"] = profile_call(torch, lambda: unet(x, t, ctx, c_label=lab, fs=fs),
+                                        f"{cfg} batch {batch} impl=auto")
+            fwd_ms[cfg] = r["ms_kernels"]
+            del x, ctx
+        del unet
+        torch.cuda.empty_cache()
+    for cfg in ("mdm512", "mdm1024"):
+        traced = traced_kernel_keys(torch, K, U, cfg, SERVE_BATCH)
+        expect = forward_keys(cfg, SERVE_BATCH)
+        if traced != expect:
+            raise AssertionError(f"{cfg} batch {SERVE_BATCH}: traced kernel calls "
+                                 f"{sorted(traced - expect)} have no case, cases "
+                                 f"{sorted(expect - traced)} are not traced")
+    log(f"  batch {SERVE_BATCH}: the traced kernel calls equal the cases' shapes")
+    rows = run_cases(torch, kernel_cases(torch, K, nn_att, ("mdm512", "mdm1024"),
+                                         batch=SERVE_BATCH), iters=3)
+    torch.cuda.empty_cache()
+
+    os.environ["HF_HUB_OFFLINE"] = "1"   # the tokenizer's cache lookup stays local
+    t0 = time.perf_counter()
+    args = serve_mod.parser().parse_args(["--spool", "unused", *SERVE_FLAGS])
+    mdm, sample_fn, tokenizer = ri_mod.build_server(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"  server: {type(tokenizer).__name__}, MDM {next(mdm.parameters()).dtype}, "
+        f"built in {build_s:.3f} s")
+    frames, hh, ww = SERVE_CLIP
+    total, requests = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, prompt, seed, n_windows, task_serial in SERVE_REQUESTS:
+        windows = serve_windows(n_windows, seed)
+        tokens = torch.as_tensor(tokenizer([prompt] * 3), device="cuda").long()
+        null_tokens = torch.as_tensor(tokenizer([""])[0], device="cuda").long()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        used, outs, secs = [], [], []
+        K.reset_launch_counts()
+        t0 = t_win = time.perf_counter()
+        for _, sparse, out in ri_mod.render_windows(
+                mdm, sample_fn, windows, tokens=tokens, null_tokens=null_tokens,
+                video_length=frames, generator=gen, task_serial=task_serial):
+            secs.append(time.perf_counter() - t_win)
+            used.append(sparse)
+            outs.append(out)
+            t_win = time.perf_counter()
+        s_req = time.perf_counter() - t0
+        counts = K.launch_counts()
+        expect = serve_launches(SITES["mdm512"], SERVE_STEPS, n_windows, task_serial)
+        for out in outs:
+            if out.shape != (3, frames, hh, ww, 3) or not np.isfinite(out).all():
+                raise AssertionError(f"{name}: output {out.shape} not finite or misshapen")
+            if out.min() < -1.0 or out.max() > 1.0:
+                raise AssertionError(f"{name}: output outside [-1, 1]")
+        if counts != expect:
+            raise AssertionError(f"{name}: launch counts {counts} != {expect}")
+        check_carry(windows, used, outs, frames)
+        # a task_serial window's batch-2 forwards are not timed inside it, and
+        # one timed alone is host-bound: its share is not measured
+        fwd = None if task_serial else fwd_ms["mdm512"]
+        calls = 3 if task_serial else 1
+        share = ([calls * SERVE_STEPS * fwd / 1e3 / s for s in secs] if fwd else None)
+        log(f"  {name} ({n_windows} window{'s' if n_windows > 1 else ''}, "
+            f"{'task_serial, batch 2' if task_serial else f'batch {SERVE_BATCH}'}): "
+            f"{s_req:.3f} s/request, s/window {[round(s, 3) for s in secs]}, UNet forward's "
+            f"share {[round(x, 3) for x in share] if share else 'not measured'}, "
+            f"std {float(np.std(outs[-1])):.4f}, carry ok, launches {counts}")
+        requests[name] = {"s_per_request": s_req, "s_per_window": secs, "unet_share": share,
+                          "windows": n_windows, "task_serial": task_serial,
+                          "std": float(np.std(outs[-1]))}
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {card}: UNet forward bf16 at batch {SERVE_BATCH} {fwd_ms['mdm512']:.1f} ms "
+        f"(MDM512), {fwd_ms['mdm1024']:.1f} ms (MDM1024); peak memory of the requests "
+        f"{peak:.2f} GiB")
+    report["server"] = {"build_s": build_s, "tokenizer": type(tokenizer).__name__,
+                        "requests": requests, "peak_gib": peak,
+                        f"forward_ms_batch{SERVE_BATCH}": fwd_ms}
+    x, t, ctx, lab, fs = unet_inputs(torch, torch.Generator(device="cuda").manual_seed(SEED + 32),
+                                     torch.float32, "mdm512", SERVE_BATCH)
+    report["ckpt"], counts = check_ckpt_load(torch, K, ri_mod, ckpt_mod, mdm.unet, x, t, ctx,
+                                             lab, fs)
+    if counts != SITES["mdm512"]:
+        raise AssertionError(f"checkpoint path: launch counts {counts} != {SITES['mdm512']}")
+    del mdm, x, ctx
+    torch.cuda.empty_cache()
+    return total, rows, report
+
+
 def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
@@ -2794,7 +3139,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -2822,6 +3167,9 @@ def main(argv=None):
         from mudg_tpu_torch.nn import unet3d as U
         from mudg_tpu_torch.train import step as step_mod
         from mudg_tpu_torch.apps import refine_gs as gs_app
+        from mudg_tpu_torch.apps import render_infer as ri_app
+        from mudg_tpu_torch.apps import serve as serve_app
+        from mudg_tpu_torch.train import checkpoint as ckpt_mod
         from mudg_tpu_torch.gs import gaussians as gs_g
         from mudg_tpu_torch.gs import io as gs_io
         from mudg_tpu_torch.gs import tile_raster as gs_tr
@@ -2912,6 +3260,11 @@ def main(argv=None):
             8, "MDM1024 stage-2 step", phase_train_stage2, torch, K, mdm_mod, step_mod, mdm)
     del mdm
     torch.cuda.empty_cache()
+    if 14 in phases:
+        launches["mdm512_serve"], rows14, report["serve"] = timed(
+            14, "serving path", phase_serve, torch, K, U, nn_att, serve_app, ri_app, ckpt_mod,
+            card)
+        report["serve"]["kernels_batch6"] = rows14
     if 9 in phases:
         rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr,
                           args.profile, args.out))

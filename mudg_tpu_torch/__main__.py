@@ -1,18 +1,19 @@
 """Command-line entry: python -m mudg_tpu_torch <command> [args...]
 
 Mirrors `python -m mudg_tpu`. Ported commands:
+  render       multi-modal autoregressive inference (apps.render_infer)
+  serve        warm-model request-spool daemon      (apps.serve)
   refine-gs    3DGS scene refinement                (apps.refine_gs)
-The JAX CLI's other commands (train, render, serve, conditions, eval,
-preprocess, segment, densify, quantize, precompute-latents, bench and their
-hyphenated aliases) exit with code 2 and "not ported yet".
+`render-infer` is an alias of `render`. The JAX CLI's other commands (train,
+conditions, eval, preprocess, segment, densify, quantize, precompute-latents,
+bench and their hyphenated aliases) exit with code 2 and "not ported yet".
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("train", "train-mdm", "render", "render-infer", "serve", "conditions",
-              "make-conditions", "eval", "eval-nvs", "preprocess", "segment", "densify",
-              "quantize", "precompute-latents", "bench")
+NOT_PORTED = ("train", "train-mdm", "conditions", "make-conditions", "eval", "eval-nvs",
+              "preprocess", "segment", "densify", "quantize", "precompute-latents", "bench")
 
 
 def main(argv=None):
@@ -21,7 +22,12 @@ def main(argv=None):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "refine-gs":
+    cmd = {"render-infer": "render"}.get(cmd, cmd)
+    if cmd == "render":
+        from .apps.render_infer import main as run
+    elif cmd == "serve":
+        from .apps.serve import main as run
+    elif cmd == "refine-gs":
         from .apps.refine_gs import main as run
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported yet (see ROADMAP.md); run it with "

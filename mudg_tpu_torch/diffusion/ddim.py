@@ -43,7 +43,7 @@ def make_ddim_constants(sched: S.DiffusionSchedule, num_steps: int, *,
 
     def rev(x, dtype=torch.float32):
         # sampling order: high t -> low t (np.flip at ddim.py:159)
-        return torch.as_tensor(np.ascontiguousarray(x[::-1]), dtype=dtype, device=device)
+        return torch.as_tensor(x[::-1].copy(), dtype=dtype, device=device)
 
     return DDIMConstants(ts=rev(steps, torch.int64), alphas=rev(alphas),
                          alphas_prev=rev(alphas_prev),

@@ -68,7 +68,7 @@ def make_dpmpp_constants(sched: S.DiffusionSchedule, num_steps: int, *,
         ratio = np.ones_like(c_x)
 
     def rev(x, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(x[::-1]), dtype=dtype, device=device)
+        return torch.as_tensor(x[::-1].copy(), dtype=dtype, device=device)
 
     return DPMPPConstants(ts=rev(steps, torch.int64), alpha_s=rev(a_s), sigma_s=rev(s_s),
                           c_x=rev(c_x), c_d=rev(c_d), g1=rev(np.nan_to_num(g1)),

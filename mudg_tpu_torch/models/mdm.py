@@ -18,6 +18,8 @@ for the multi-GPU slice.
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 
 import torch
 from torch import nn
@@ -96,6 +98,56 @@ class MDM(nn.Module):
         self.image_proj = R.Resampler(cfg.resampler)
         self.clip_text = CL.TextTower(cfg.clip_text)
         self.clip_image = CL.VisionTower(cfg.clip_image)
+
+
+# The UNet's zero-initialised layers (mudg_tpu/nn/unet3d.py:438-530,
+# nn/attention.py:684-706): every transformer's proj_out, each res block's
+# out_layers.3 and temporal conv4.3, the output conv and the fps
+# embedding's last linear
+ZERO_INIT = re.compile(r"^unet\.(.*\.proj_out|.*\.out_layers\.3|.*\.conv4\.3|out\.2"
+                       r"|fps_embedding\.2)$")
+# Parameters drawn from a normal law, as std (or a function of the shape)
+# (conditioning/clip.py:141-158, nn/resampler.py:84-88)
+NORMAL_INIT = {"token_embedding.weight": 0.02, "positional_embedding": 0.01,
+               "class_embedding": 0.02, "latents": lambda shape: shape[-1] ** -0.5}
+
+
+@torch.no_grad()
+def init_mdm(cfg: MDMConfig, generator: torch.Generator, device=None) -> MDM:
+    """A randomly initialised MDM in fp32 on `device` (default: the
+    generator's), each parameter drawn from `generator` from the law its JAX
+    initialiser uses (mudg_tpu/models/mdm.py:108, nn/functional.py:272-309):
+    linear and conv weights uniform within sqrt(3 / fan_in) (kaiming
+    uniform), their biases within 1 / sqrt(fan_in); ZERO_INIT layers,
+    MultiheadAttention's in_proj_bias and the image-attention alpha zero;
+    norm scales one and shifts zero; NORMAL_INIT embeddings normal."""
+    device = torch.device(generator.device if device is None else device)
+    with torch.device("meta"):
+        mdm = MDM(cfg)
+    mdm.to_empty(device=device)
+    kw = dict(generator=generator, device=device)
+
+    def uniform_(p, bound):
+        p.copy_(torch.rand(p.shape, **kw).mul_(2 * bound).sub_(bound))
+
+    for mname, mod in mdm.named_modules():
+        own = dict(mod.named_parameters(recurse=False))
+        for pname, p in own.items():
+            name = f"{mname}.{pname}" if mname else pname
+            if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                p.fill_(1.0 if pname == "weight" else 0.0)
+            elif ZERO_INIT.match(mname) or pname in ("in_proj_bias", "alpha"):
+                p.zero_()
+            elif any(name.endswith(k) for k in NORMAL_INIT):
+                std = next(v for k, v in NORMAL_INIT.items() if name.endswith(k))
+                p.copy_(torch.randn(p.shape, **kw) * (std(p.shape) if callable(std) else std))
+            elif pname in ("weight", "in_proj_weight"):
+                uniform_(p, math.sqrt(3.0 / p[0].numel()))
+            elif pname == "bias":
+                uniform_(p, 1.0 / math.sqrt(own["weight"][0].numel()))
+            else:
+                raise ValueError(f"init_mdm: no initialiser for {name}")
+    return mdm
 
 
 def encode_text(mdm: MDM, tokens):

@@ -38,3 +38,10 @@ def tiny() -> M.MDMConfig:
                                    heads=2, layers=1),
         vae_chunk=0,
     )
+
+
+PRESETS = {"mdm512": mdm512, "mdm1024": mdm1024, "tiny": tiny}
+
+
+def get(name: str) -> M.MDMConfig:
+    return PRESETS[name]()

@@ -1,19 +1,22 @@
 """chip_smoke.py's kernel checks at tiny latents on the CPU, where every
 wrapper runs its plain version: each case must pass its own check, and each
 planted fault (zeroed attention, half the keys, kernel 1's softmax scale
-applied twice, kernel 2's heads mis-packed, kernel 4's taps reversed and its
+applied twice, kernel 2's heads mis-packed, kernel 3's value and gate
+halves swapped, kernel 4's taps reversed and its
 one-pass variance at a DC offset; for the backward kernels delta dropped,
 the softmax Jacobian's row-sum term dropped, the g * pdf(g) term dropped)
 must fail it. This holds the checks' power to see a wrong
 kernel, not the kernels themselves (those run only on the card)."""
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as CS
 import mudg_tpu_torch.kernels as K
 from mudg_tpu_torch.nn import attention as nn_att
+from mudg_tpu_torch.nn import unet3d as U
 
 # kernel 13 composites splats; no UNet forward or training step reaches it.
 # Kernels 11 and 12 run only on the switch path, checked by phase 11.
@@ -91,6 +94,7 @@ def test_chip_smoke_checks_see_planted_faults(config):
     assert f32_labels == ({"ds1", "ds2"} if config == "mdm512" else {"ds1", "ds2", "ds4"})
     assert faults["spatial_attn"] == {"zero attention", "half the keys", "softmax scale twice"}
     assert faults["temporal_attn"] == {"zero attention", "mis-packed heads"}
+    assert faults["geglu_ff"] == {"gate and value swapped"}
     assert len(tails) == (config == "mdm512")
     assert faults["gn_silu_tconv"] == (
         {"taps reversed", "one-pass variance"} if config == "mdm512" else {"taps reversed"})
@@ -313,3 +317,113 @@ def test_device_time_per_call_leaves_out_calls_the_profiler_dropped():
     assert CS.per_call_device_ms(spans, late) == got
     with pytest.raises(RuntimeError):
         CS.per_call_device_ms(spans, [])
+
+
+# ---------------------------------------------------------------------------
+# Phase 14, the serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("config", ["mdm512", "mdm1024"])
+def test_chip_smoke_batch6_shapes_are_the_traced_ones(config):
+    """Phase 14 (b)'s cases: the kernel calls of one full-width UNet forward
+    at the serving batch, bf16 and fp32, traced on the meta device, are
+    exactly forward_keys' shapes; none of them is a batch-2 shape, and no
+    shape that only phase 2 checks (tail, long) is among them."""
+    traced = CS.traced_kernel_keys(torch, K, U, config, CS.SERVE_BATCH)
+    assert traced == CS.forward_keys(config, CS.SERVE_BATCH)
+    assert not traced & CS.forward_keys(config, 2)
+    assert {k[0] for k in traced} == {"spatial_attn", "temporal_attn", "geglu_ff",
+                                      "geglu_ff_block", "gn_silu_tconv", "flash_attention"}
+    shapes = CS.forward_shapes(config, CS.SERVE_BATCH)
+    assert all(label not in ("tail", "long") for label, *_ in shapes["temporal"] + shapes["flash"])
+
+
+@pytest.mark.parametrize("config", ["mdm512", "mdm1024"])
+def test_chip_smoke_batch6_checks_see_planted_faults(config):
+    """Phase 14 (b)'s cases at tiny latents: 96 frames a case, each passing
+    its check with every planted fault missing it; no DC-offset case."""
+    labels = set()
+    for case in CS.kernel_cases(torch, K, nn_att, (config,), dev="cpu",
+                                latent={config: (8, 8)}, batch=CS.SERVE_BATCH):
+        chk = CS.compare(torch, case)
+        assert chk.ok and chk.err == 0.0 and chk.scale > 0.0, (case.label, chk)
+        assert chk.faults and all(err > (CS.F32_TOL if n == "1xTF32" else CS.TOL) * chk.scale
+                                  for n, err in chk.faults.items()), (case.label, chk.faults)
+        labels.add(case.label)
+    assert "ds1 96x64x320" in labels and "ds1 6x16x8x8x320" in labels
+    assert not any("offset" in lb or lb.startswith(("tail", "long")) for lb in labels)
+
+
+def test_chip_smoke_serving_checks(monkeypatch):
+    """Phase 14 (c)'s checks on the CPU without OpenCV: render_windows on
+    the tiny MDM (fp32, random weights, 2 steps) over two seeded windows of
+    4 frames at 32x64 passes the carry check; its UNet forwards are what
+    serve_launches counts, batched and task_serial; the planted faults, frame
+    0 not re-anchored to the GT and the first half carried, fail the carry
+    check."""
+    import sys
+
+    from mudg_tpu_torch.apps import render_infer as RI
+    from mudg_tpu_torch.models import mdm as TMDM
+    from mudg_tpu_torch.models import presets as TP
+
+    monkeypatch.setitem(sys.modules, "cv2", None)   # the device loop runs without OpenCV
+    gen = torch.Generator().manual_seed(0)
+    mdm = CS.randomize_(torch, TMDM.init_mdm(TP.tiny(), gen), gen).eval()
+    forwards = []
+    unet_forward = mdm.unet.forward
+    monkeypatch.setattr(mdm.unet, "forward",
+                        lambda *a, **k: forwards.append(1) or unet_forward(*a, **k))
+    steps, vl = 2, 4
+    sample_fn = RI.build_sampler(steps=steps, dtype=torch.float32)
+    windows = CS.serve_windows(2, 5, clip=(vl, 32, 64))
+    tokens = torch.randint(0, 49408, (3, 77), generator=gen)
+    for task_serial in (False, True):
+        forwards.clear()
+        used, outs = [], []
+        for _, sparse, out in RI.render_windows(
+                mdm, sample_fn, windows, tokens=tokens, null_tokens=tokens[0],
+                video_length=vl, generator=torch.Generator().manual_seed(1),
+                task_serial=task_serial):
+            assert out.shape == (3, vl, 32, 64, 3) and np.isfinite(out).all()
+            used.append(sparse)
+            outs.append(out)
+        assert len(forwards) == CS.serve_launches({"unet": 1}, steps, 2, task_serial)["unet"]
+        CS.check_carry(windows, used, outs, vl)
+    assert CS.serve_launches(CS.SITES["mdm512"], 25, 2, False)["geglu_ff"] == 2 * 25 * 33
+    assert CS.serve_launches(CS.SITES["mdm512"], 25, 1, True)["spatial_attn"] == 3 * 25 * 10
+    half = vl // 2
+    no_anchor = [u.copy() for u in used]
+    no_anchor[1][0] = outs[0][0, half]
+    first_half = [u.copy() for u in used]
+    first_half[1][:half] = outs[0][0, :half]
+    first_half[1][0] = windows[1]["frame0"]
+    for fault in (no_anchor, first_half):
+        with pytest.raises(AssertionError, match="carry"):
+            CS.check_carry(windows, fault, outs, vl)
+
+
+def test_chip_smoke_checkpoint_path():
+    """Phase 14 (d) on the CPU at the tiny UNet: seeded random weights
+    through an in-memory fp16 MuDG .ckpt and the port's reader, strictly
+    into a served UNet, cast to bf16 and packed; the kernel path (here the
+    plain one) within phase 3's gate of the fp32 path of the same weights."""
+    from mudg_tpu_torch.apps import render_infer as RI
+    from mudg_tpu_torch.models import presets as TP
+    from mudg_tpu_torch.train import checkpoint as TC
+
+    cfg = TP.tiny().unet
+    gen = torch.Generator().manual_seed(3)
+    with torch.device("meta"):
+        unet = U.UNet3D(cfg)
+    unet.to_empty(device="cpu")
+    b, t = 6, cfg.temporal_length
+    x = torch.randn((b, t, 8, 8, cfg.in_channels), generator=gen)
+    ctx = torch.randn((b, 77 + t * cfg.image_tokens_per_frame, cfg.context_dim), generator=gen)
+    ts = torch.full((b,), 700)
+    lab = torch.zeros(b, dtype=torch.int64)
+    fs = torch.full((b,), 10)
+    report, counts = CS.check_ckpt_load(torch, K, RI, TC, unet, x, ts, ctx, lab, fs)
+    assert next(unet.parameters()).dtype == torch.bfloat16
+    assert report["rel_l2_kernels"] == report["rel_l2_plain_bf16"] < 0.05
+    assert sum(counts.values()) == 0

@@ -223,7 +223,10 @@ def test_port_imports_no_jax():
         "mudg_tpu_torch.conditioning.clip, mudg_tpu_torch.diffusion.dpm, "
         "mudg_tpu_torch.gs.train, mudg_tpu_torch.gs.io, mudg_tpu_torch.apps.refine_gs, "
         "mudg_tpu_torch.__main__, mudg_tpu_torch.render.pointcloud, "
-        "mudg_tpu_torch.utils.media\n"
+        "mudg_tpu_torch.utils.media, mudg_tpu_torch.apps.render_infer, "
+        "mudg_tpu_torch.apps.serve, mudg_tpu_torch.train.checkpoint, "
+        "mudg_tpu_torch.conditioning.tokenizer, mudg_tpu_torch.data.waymo, "
+        "mudg_tpu_torch.data.conditions\n"
         "tree = {'a': {'weight': np.ones((2, 3), np.float32)},"
         " 'token_embedding': {'weight': np.ones((4, 2), np.float32)}}\n"
         "sd = mudg_tpu_torch.convert.tree_to_state_dict(tree)\n"
@@ -257,6 +260,10 @@ def test_port_sources_import_no_jax():
     import of jax or of the JAX package, lazy or not."""
     files = sorted((REPO / "mudg_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {f"mudg_tpu_torch/{m}.py" for m in (
+        "apps/render_infer", "apps/serve", "train/checkpoint", "conditioning/tokenizer",
+        "data/waymo", "data/conditions", "utils/media")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "mudg_tpu")]
     assert not bad, bad

@@ -234,12 +234,13 @@ def test_cli_mirrors_the_jax_commands():
     from mudg_tpu_torch.__main__ import main
 
     assert main(["train", "--help"]) == 2
-    assert main(["render-infer"]) == 2
+    assert main(["bench"]) == 2
     assert main(["nope"]) == 2
-    r = subprocess.run([sys.executable, "-m", "mudg_tpu_torch", "refine-gs", "--help"],
-                       capture_output=True, text=True, timeout=120,
-                       cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    assert r.returncode == 0 and "--device" in r.stdout
+    for cmd in ("refine-gs", "render-infer", "serve"):
+        r = subprocess.run([sys.executable, "-m", "mudg_tpu_torch", cmd, "--help"],
+                           capture_output=True, text=True, timeout=120,
+                           cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        assert r.returncode == 0 and "--device" in r.stdout, (cmd, r.stderr)
 
 
 APP_ARGS = ["--height", "32", "--width", "48", "--steps", "30", "--capacity", "4096",
