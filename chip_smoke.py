@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15] [--out DIR] [--profile]
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -177,7 +177,31 @@ Phases:
      MuDG .ckpt (seeded random weights, written in memory) by
      train/checkpoint.py, cast and packed as the apps do, one batch-6
      forward against the plain bf16 and fp32 paths of the same weights
-     (phase 3's gate and sites).
+     (phase 3's gate and sites);
+ 15. the training app (apps/train_mdm.py) at stage 1, full MDM512 width
+     (`MDMConfig(base_scale=0.7)`, 320x512, 16 frames), all weights random
+     from a seed, HashTokenizer, batch 1, accumulation 2, remat dots_attn,
+     EMA, over an in-memory BatchLoader (prefetch 2) of SeededClips, whose
+     items have WaymoDataset.load_item's keys, shapes and dtypes: (a)
+     `train` for 4 steps with validation every 2 steps over 2 batches, a
+     10-step sample at step 4 (kept in memory) and SIGUSR1 sent at step 2:
+     finite records in metrics.jsonl, the trainable leaves moved, the EMA
+     apart from them, the parameters bit for bit as they were after the
+     sample, step_2, trainstate_2 and final written (disk space checked
+     first) and final loaded strictly by render's load_params, launches at
+     the dots_attn sites x micro-steps plus the validation forwards and the
+     sample's fp32 flash sites; s/step, peak memory, each artifact's size
+     and write and read seconds; (b) --auto_resume from trainstate_2 alone:
+     params, mu, nu, count and EMA bit for bit as kept in memory at step
+     2, then steps 3-4; (c) one micro-step (dropout off, the same draws)
+     under remat=False and each of the nine policies, each within 1e-3
+     relative L2 of full recompute's gradients (bit-equality printed),
+     launches at policy_launches (kernels 5 and 2's forwards not replayed
+     under dots_attn), ms and peak memory per policy; (d) precompute's
+     device part (`data/latents.encode_moments`) on 16 seeded frames at
+     320x512 equal to encode_moments_video, the fp16 .npy round trip exact,
+     then 2 app steps in the moments form, s/step beside (a)'s. The work
+     directory (_phase15 in the checkout) is deleted at the end.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -191,7 +215,8 @@ times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
-phase 13's forwards and phase 14's requests). Then the
+phase 13's forwards, phase 14's requests and phase 15's app runs and
+policy micro-steps). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -275,6 +300,21 @@ LATENT = {"mdm512": (40, 64), "mdm1024": (72, 128)}
 TRAIN_SITES = {"mdm512": {"flash_attention": 10, "temporal_attn": 6, "geglu_ff": 31},
                "mdm1024": {"flash_attention": 15, "temporal_attn": 6, "geglu_ff": 33}}
 INIT_ATTN_SITES = {"temporal_attn": 1, "geglu_ff": 1}
+# The forward kernels (of kernels 5, 2 and 3) that each remat policy's
+# backward replay launches again, as the JAX gradient's jaxpr keeps them
+# (tests/test_torch_remat.py counts both): a policy keeping attn_o and
+# attn_lse / attn_h1 keeps kernels 5 and 2's outputs, one keeping blk_ff
+# kernel 3's (its output is the block's), except_ff keeps everything but the
+# GEGLU inners, dots keeps only products without batch dimensions.
+REPLAYED = {"full": ("flash_attention", "temporal_attn", "geglu_ff"),
+            "dots": ("flash_attention", "temporal_attn", "geglu_ff"),
+            "dots_small": ("flash_attention", "temporal_attn"),
+            "dots_ln": ("flash_attention", "temporal_attn"),
+            "dots_attn": (),
+            "except_ff": (),
+            "dots_gn": ("flash_attention", "temporal_attn"),
+            "convs": ("flash_attention", "temporal_attn"),
+            "names": ("flash_attention", "temporal_attn")}
 TRAIN_FRAMES = 16   # batch 1 x 16 frames
 # Kernels 11 and 12 run only under MUDG_FUSED_NORMS=1 / MUDG_SHORT_ATTN=1
 # (phase 12); the packed short attention has no model path (phase 11 drives
@@ -459,14 +499,25 @@ KERNEL_ROWS = {
 YARDSTICKS = ("cublas_gemm_ms", "sdpa_core_ms", "cublas_tap_gemm_ms")
 
 
-def train_launches(cfg, micro_steps):
-    """Every kernel's launches in `micro_steps` training micro-steps with remat."""
+def policy_launches(cfg, policy, micro_steps=1):
+    """Every kernel's launches in `micro_steps` training micro-steps under
+    the remat `policy` (False: none): each forward kernel once per site, and
+    again in the backward's replay at every checkpointed site (all but
+    init_attn's) of the kernels the policy replays (REPLAYED); each backward
+    kernel once per site."""
     sites = TRAIN_SITES[cfg]
-    fwd = {k: 2 * v - INIT_ATTN_SITES.get(k, 0) for k, v in sites.items()}
+    replayed = REPLAYED[policy] if policy else ()
+    fwd = {k: v + (v - INIT_ATTN_SITES.get(k, 0)) * (k in replayed) for k, v in sites.items()}
     counts = {"spatial_attn": 0, "gn_silu_tconv": 0, **fwd,
               **{k + "_bwd": v for k, v in sites.items()},
               "tile_composite": 0, "tile_composite_bwd": 0, **OFF}
     return {k: micro_steps * v for k, v in counts.items()}
+
+
+def train_launches(cfg, micro_steps):
+    """Every kernel's launches in `micro_steps` training micro-steps with
+    full recompute (remat=True)."""
+    return policy_launches(cfg, "full", micro_steps)
 
 
 def log(msg):
@@ -2320,7 +2371,7 @@ def phase_train(torch, K, mdm_mod, step_mod, profile=False, out_dir=None,
         return mdm, launches, report
 
     state = step_mod.init_train_state(mdm, tc)
-    step = step_mod.make_train_step(mdm, tc, null_tokens)
+    step = step_mod.make_train_step(mdm, tc, null_tokens, remat=True)
     torch.cuda.reset_peak_memory_stats()
     before = leaf_samples(state.params)
     state, m0 = step(state, batch, gen)   # warm-up
@@ -2385,7 +2436,7 @@ def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
     mask = {"unet." + n: v for n, v in step_mod.temporal_frozen_mask(mdm.unet).items()}
     frozen = [n for n, v in mask.items() if not v]
     state = step_mod.init_train_state(mdm, tc)
-    step = step_mod.make_train_step(mdm, tc, null_tokens, grad_mask=mask)
+    step = step_mod.make_train_step(mdm, tc, null_tokens, grad_mask=mask, remat=True)
     decayed = {n: state.params[n].detach().clone() for n in frozen}
     with torch.no_grad():   # what AdamW does to a leaf whose gradient is 0
         for n, p in decayed.items():
@@ -2414,6 +2465,403 @@ def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
     return counts, {"s_per_step_cold": secs, "peak_gib": peak, "loss": loss, "grad_norm": gnorm,
                     "frozen_leaves": len(frozen)}
 
+
+
+# ---------------------------------------------------------------------------
+# The training app (phase 15)
+# ---------------------------------------------------------------------------
+
+# Phase 15 runs `apps/train_mdm.train` at stage 1 (MDMConfig(base_scale=0.7),
+# 320x512, 16 frames), batch 1, accumulation 2, over an in-memory BatchLoader
+# of SeededClips (the card has no OpenCV to read frames with): (a) 4 steps
+# with validation every 2 steps over 2 batches, a sample at step 4 and
+# SIGUSR1 at step 2; (b) --auto_resume from trainstate_2 alone to step 4;
+# (c) one micro-step under remat=False and each policy; (d) precompute's
+# device part and 2 steps in the moments form.
+APP_CLIP = (16, 320, 512)   # frames, height, width
+APP_STEPS = 4
+APP_ITEMS = 8               # one epoch of 4 steps at batch 1 x accumulation 2
+APP_VAL = 2                 # validation batches
+APP_POLICY = "dots_attn"
+SAMPLE_STEPS = 10           # the app's logged sample (the JAX ImageLogger's)
+REMAT_POLICIES = (False, *REPLAYED)   # remat=False and the nine policies
+POLICY_REL = 1e-3           # each policy's gradients against full recompute's, relative L2
+LATENT_BATCH = 16           # frames a precompute call encodes
+APP_FLAGS = ("--stage", "1", "--batch_size", "1", "--accum", "2", "--remat", APP_POLICY,
+             "--use_ema", "--log_every", "1", "--ckpt_every", "100000", "--full_ckpt_every",
+             "0")
+
+
+class SeededClips:
+    """An in-memory stand-in for WaymoDataset: `n` items with exactly the
+    keys, shapes and dtypes of its `load_item` (pixels uniform in [-1, 1]
+    from a generator seeded per item), or with `moments` (T, h, w, 2z) of
+    its `load_item_latents` (the given moments rolled by the item's index)
+    and frame-0 pixels. Tasks cycle color, semantic, depth."""
+
+    TASKS = ("color", "semantic", "depth")
+
+    def __init__(self, n, clip=APP_CLIP, seed=SEED, moments=None, frames=None):
+        self.n, self.clip, self.seed = n, clip, seed
+        self.moments, self.frames = moments, frames
+
+    def __len__(self):
+        return self.n
+
+    def load_item(self, index):
+        import numpy as np
+
+        from mudg_tpu_torch.data import waymo as W
+
+        rng = np.random.default_rng(self.seed + index)
+        t, h, w = self.clip
+        task = self.TASKS[index % len(self.TASKS)]
+        item = {"caption": W.DEFAULT_CAPTION, "fps": 10, "class_label": W.CLASS_LABELS[task]}
+        if self.moments is not None:
+            m = self.moments
+            item.update({k: np.roll(m, index + j, axis=0).astype(np.float32) for j, k in
+                         enumerate(("dense_moments", "sparse_moments", "depth_moments"))})
+            item["sparse_frame0"] = self.frames[index % len(self.frames)].astype(np.float32)
+            return item
+        for k in ("dense_frames", "sparse_frames", "sparse_depth"):
+            item[k] = rng.uniform(-1, 1, (t, h, w, 3)).astype(np.float32)
+        return item
+
+
+def app_args(app, out, size, *extra):
+    """The app's arguments: APP_FLAGS, `size` (device, and preset and clip
+    flags where phase_train_app is given them) and `extra`."""
+    return app.parser().parse_args(["--items", "in-memory", "--out", out, *APP_FLAGS, *size,
+                                    *extra])
+
+
+def app_launches(policy, steps, accum=2, val_forwards=0, sample_forwards=0):
+    """Every kernel's launches in an app run: `steps` x `accum` micro-steps
+    under `policy`, `val_forwards` no-grad training forwards (each kernel
+    once per site) and `sample_forwards` fp32 UNet forwards (impl="auto":
+    kernel 5 in fp32 at its sites, no other kernel)."""
+    counts = policy_launches("mdm512", policy, steps * accum)
+    for k, v in TRAIN_SITES["mdm512"].items():
+        counts[k] += val_forwards * v
+    counts["flash_attention"] += sample_forwards * SWITCH_SITES_F32["mdm512"]["flash_attention"]
+    return counts
+
+
+def check_launches(what, counts, expect):
+    if counts != expect:
+        bad = {k: (counts.get(k), v) for k, v in expect.items() if counts.get(k) != v}
+        raise AssertionError(f"{what}: launch counts differ from the expected (got, want): {bad}")
+
+
+def state_to_host(state):
+    """A host copy of a TrainState's tensors and counters."""
+    def host(d):
+        return None if d is None else {n: t.detach().to("cpu", copy=True) for n, t in d.items()}
+    return {"params": host(state.params), "mu": host(state.mu), "nu": host(state.nu),
+            "ema": host(state.ema), "count": state.count, "step": state.step}
+
+
+def same_state(torch, state, kept):
+    """The names of the TrainState parts that differ from `kept` bit for bit."""
+    bad = [k for k in ("count", "step") if getattr(state, k) != kept[k]]
+    for key in ("params", "mu", "nu", "ema"):
+        mine = getattr(state, key)
+        if (mine is None) != (kept[key] is None):
+            bad.append(key)
+        elif mine is not None and not all(torch.equal(mine[n].cpu(), kept[key][n])
+                                          for n in kept[key]):
+            bad.append(key)
+    return bad
+
+
+def artifact_bytes(torch, mdm_mod, cfg, use_ema):
+    """(step_N / final bytes, trainstate_N bytes) from the parameter counts:
+    fp32 values."""
+    with torch.device("meta"):
+        mdm = mdm_mod.MDM(cfg)
+    n_all = sum(p.numel() for p in mdm.parameters())
+    n_train = sum(p.numel() for k in ("unet", "image_proj") for p in getattr(mdm, k).parameters())
+    return 4 * n_all, 4 * n_train * (4 if use_ema else 3)
+
+
+POLICY_RUNS = 4   # a warm-up and three timed micro-steps per policy
+
+
+def policy_micro_step(torch, K, mdm_mod, mdm, mb, draws, null_emb, policy):
+    """One micro-step's trainable gradients (dropout off) under `policy`,
+    run POLICY_RUNS times: (the last run's flat gradients, its launches, the
+    median ms of the runs after the first, peak GiB of all above what was
+    allocated before them)."""
+    params = [p for k in ("unet", "image_proj") for p in getattr(mdm, k).parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for run in range(POLICY_RUNS):
+        for p in params:
+            p.grad = None
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = mdm_mod.training_loss(mdm, mb, draws, null_emb=null_emb, impl="train",
+                                            remat=policy)
+            loss.backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+    g = torch.cat([p.grad.reshape(-1) for p in params])
+    for p in params:
+        p.grad = None
+    ms = sorted(times[1:])[len(times[1:]) // 2]
+    return g, counts, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=None):
+    """Phase 15 (a)-(d), the report and the launches of each run; `dev`,
+    `clip` (frames, height, width) and `preset` let the CPU tests run its
+    host side small."""
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from mudg_tpu_torch.apps import render_infer as ri_app
+    from mudg_tpu_torch.apps import train_mdm as app
+    from mudg_tpu_torch.conditioning.tokenizer import HashTokenizer
+    from mudg_tpu_torch.data import latents as L
+    from mudg_tpu_torch.data import waymo as W
+    from mudg_tpu_torch.nn import vae as V
+
+    work = os.path.join(ROOT, "_phase15")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    report, launches = {"card": card}, {}
+    tok = HashTokenizer()
+    t, h, w = clip
+    size = ["--device", dev]
+    if clip != APP_CLIP:
+        size += ["--video_length", str(t), "--height", str(h), "--width", str(w)]
+    if preset:
+        size += ["--preset", preset]
+    cfg, _, _ = app.recipe(app_args(app, work, size))
+    step_bytes, state_bytes = artifact_bytes(torch, mdm_mod, cfg, True)
+    # step_2, trainstate_2 and final of (a), the finals of (b) and (d)
+    need = 4 * step_bytes + state_bytes
+    free = shutil.disk_usage(work).free
+    log(f"  artifacts: step_N/final {step_bytes / 1e9:.2f} GB, trainstate_N "
+        f"{state_bytes / 1e9:.2f} GB; {need / 1e9:.1f} GB needed, {free / 1e9:.1f} GB free")
+    if free < need:
+        raise AssertionError(f"phase 15 needs {need / 1e9:.1f} GB of disk for its "
+                             f"checkpoints, {free / 1e9:.1f} GB are free: "
+                             f"{(need - free) / 1e9:.1f} GB short")
+    try:
+        # (a) the app loop
+        out_a = os.path.join(work, "a")
+        args = app_args(app, out_a, size, "--max_steps", str(APP_STEPS), "--seed",
+                        str(SEED + 15), "--val_every", "2", "--sample_every", str(APP_STEPS))
+        loader = W.BatchLoader(SeededClips(APP_ITEMS, clip), 1, accum_steps=2, tokenizer=tok,
+                               seed=SEED, prefetch=2)
+        val_loader = W.BatchLoader(SeededClips(APP_VAL, clip, seed=SEED + 100), 1,
+                                   accum_steps=1, tokenizer=tok, shuffle=False)
+        seen = {}
+
+        def on_step(step_i, state, metrics):
+            if step_i == 0:
+                seen["before"] = leaf_samples(state.params)
+            if step_i == 2:
+                torch.cuda.synchronize()
+                seen["kept"] = state_to_host(state)
+                os.kill(os.getpid(), signal.SIGUSR1)
+            if step_i == APP_STEPS:   # before the sample hook
+                seen["state"] = state
+                seen["params"] = {n: p.detach().clone() for n, p in state.params.items()}
+
+        def sink(step_i, video):
+            st = seen["state"]
+            seen["sample"] = (step_i, video, all(torch.equal(p, seen["params"][n])
+                                                 for n, p in st.params.items()))
+            del seen["params"]
+
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = app.train(args, loader, val_loader, tokenizer=tok, on_step=on_step,
+                        sample_sink=sink)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        val_forwards = (APP_STEPS // 2) * APP_VAL
+        check_launches("(a) the app loop", counts, app_launches(
+            APP_POLICY, APP_STEPS, val_forwards=val_forwards, sample_forwards=SAMPLE_STEPS))
+        launches["train_app"] = counts
+        recs = [json.loads(line) for line in open(os.path.join(out_a, "metrics.jsonl"))]
+        steps = [r for r in recs if "loss" in r]
+        vals = [r for r in recs if "val_loss" in r]
+        if ([r["step"] for r in steps] != list(range(1, APP_STEPS + 1))
+                or [r["step"] for r in vals] != [2, 4]):
+            raise AssertionError(f"(a) metrics.jsonl records: {recs}")
+        bad = [r for r in recs if not all(math.isfinite(v) for v in r.values())]
+        if bad:
+            raise AssertionError(f"(a) records not finite: {bad}")
+        state = res["state"]
+        after = leaf_samples(state.params)
+        still = [n for n in seen["before"] if torch.equal(seen["before"][n], after[n])]
+        if still:
+            raise AssertionError(f"(a) {len(still)} trainable leaves did not move, e.g. {still[:3]}")
+        ema = leaf_samples(state.ema)
+        if all(torch.equal(ema[n], after[n]) for n in after):
+            raise AssertionError("(a) the EMA equals the parameters")
+        step_i, video, restored = seen["sample"]
+        if not restored:
+            raise AssertionError("(a) the sample hook left the parameters changed")
+        if video.shape != (*clip, 3) or not np.isfinite(video).all():
+            raise AssertionError(f"(a) sample {video.shape} misshapen or not finite")
+        files = sorted(os.listdir(out_a))
+        if files != ["final", "metrics.jsonl", "step_2", "trainstate_2"]:
+            raise AssertionError(f"(a) files written: {files}")
+        arts = res["artifacts"]
+        t0 = time.perf_counter()
+        loaded = ri_app.load_params(argparse.Namespace(ckpt=os.path.join(out_a, "final")), cfg,
+                                    dev)
+        torch.cuda.synchronize()
+        arts["final"]["read_s"] = time.perf_counter() - t0
+        del loaded
+        sps = [r["sec_per_step"] for r in steps]
+        log(f"  (a) {APP_STEPS} steps in {run_s:.1f} s; s/step {sps} (step 1 cold; step 3 "
+            f"holds step 2's validation, checkpoints and this script's host copy of the "
+            f"state), peak {peak:.1f} GiB; val "
+            f"{[round(r['val_loss'], 5) for r in vals]}; sample at step {step_i} "
+            f"{video.shape}, parameters restored bit for bit; final loads strictly into "
+            f"render's model ({arts['final']['read_s']:.1f} s)")
+        report["a"] = {"s_per_step": sps, "run_s": run_s, "peak_gib": peak, "records": recs,
+                       "artifacts": arts, "launches": counts}
+
+        # (b) resume from trainstate_2 alone
+        out_b = os.path.join(work, "b")
+        os.makedirs(out_b)
+        try:
+            os.link(os.path.join(out_a, "trainstate_2"), os.path.join(out_b, "trainstate_2"))
+        except OSError:
+            shutil.copy(os.path.join(out_a, "trainstate_2"), out_b)
+        for f in ("step_2", "final"):
+            os.remove(os.path.join(out_a, f))
+        del res, state, seen["state"]
+        torch.cuda.empty_cache()
+        resumed = {}
+
+        def on_resume(step_i, state, metrics):
+            if metrics is None:
+                torch.cuda.synchronize()
+                resumed["t"] = time.perf_counter() - t0
+                resumed["bad"] = same_state(torch, state, seen["kept"])
+
+        args_b = app_args(app, out_b, size, "--max_steps", str(APP_STEPS), "--seed",
+                          str(SEED + 15), "--auto_resume")
+        loader = W.BatchLoader(SeededClips(APP_ITEMS, clip), 1, accum_steps=2, tokenizer=tok,
+                               seed=SEED, prefetch=2)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = app.train(args_b, loader, tokenizer=tok, on_step=on_resume)
+        counts = K.launch_counts()
+        if resumed["bad"]:
+            raise AssertionError(f"(b) restored state differs from step 2's in {resumed['bad']}")
+        check_launches("(b) resume", counts, app_launches(APP_POLICY, APP_STEPS - 2))
+        launches["train_app_resume"] = counts
+        recs_b = [json.loads(line) for line in open(os.path.join(out_b, "metrics.jsonl"))]
+        if [r["step"] for r in recs_b] != [3, 4]:
+            raise AssertionError(f"(b) records {recs_b}")
+        log(f"  (b) --auto_resume: trainstate_2 restored bit for bit (params, mu, nu, count, "
+            f"EMA) in {resumed['t']:.1f} s with the model's set-up, then steps 3-4, "
+            f"s/step {[r['sec_per_step'] for r in recs_b]}")
+        report["b"] = {"restore_s": resumed["t"], "records": recs_b}
+        mdm = res["mdm"]
+        del res, seen["kept"]
+        shutil.rmtree(out_a)
+        torch.cuda.empty_cache()
+
+        # (c) every remat policy, one micro-step, dropout off, the same draws
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        item = SeededClips(1, clip, seed=SEED + 16).load_item(0)
+        mb = app.to_device(W.BatchLoader(None, 1, tokenizer=tok).collate([item]), dev)
+        draws = mdm_mod.draw_training_noise(mdm.cfg, mdm_mod.training_shapes(mdm.cfg, mb), gen)
+        null_emb = mdm_mod.encode_text(mdm, torch.as_tensor(tok([""]), device=dev).long())
+        ref, policies, total = None, {}, {}
+        for policy in ("full",) + tuple(p for p in REMAT_POLICIES if p != "full"):
+            g, counts, ms, peak = policy_micro_step(torch, K, mdm_mod, mdm, mb, draws, null_emb,
+                                                    policy)
+            check_launches(f"(c) {policy}", counts, policy_launches("mdm512", policy))
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            if ref is None:
+                ref, ref_norm = g, g.norm()
+            rel = ((g - ref).norm() / ref_norm).item()
+            equal = bool(torch.equal(g, ref))
+            replay = {k: counts[k] - v for k, v in TRAIN_SITES["mdm512"].items()}
+            log(f"  (c) remat={policy!s:10} {ms:8.1f} ms/micro-step (median of "
+                f"{POLICY_RUNS - 1}), peak {peak:5.1f} GiB above the model's, "
+                f"rel L2 vs full {rel:.2e} (bit-equal {equal}), forwards replayed {replay}")
+            if not rel <= POLICY_REL:
+                raise AssertionError(f"(c) {policy}: gradients {rel:.3e} from full recompute's")
+            policies[str(policy)] = {"ms": ms, "peak_gib": peak, "rel_l2": rel,
+                                     "bit_equal": equal, "replayed": replay}
+            del g
+        launches["remat_policies"] = total
+        report["c"] = policies
+        del ref, mdm
+        torch.cuda.empty_cache()
+
+        # (d) precompute's device part, then the app in the moments form
+        with torch.device("meta"):
+            vae = V.AutoencoderKL(cfg.vae)
+        vae.to_empty(device=dev)
+        randomize_(torch, vae, torch.Generator(device=dev).manual_seed(SEED + 17))
+        pgen = torch.Generator(device=dev).manual_seed(SEED + 18)
+        px = torch.rand((LATENT_BATCH, h, w, 3), generator=pgen, device=dev) * 2 - 1
+        L.encode_moments(vae, px)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = L.encode_moments(vae, px)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            want = V.encode_moments_video(vae, px.to(torch.bfloat16)[None], chunk=0)[0]
+        if not torch.equal(m, want.to(torch.float16)):
+            raise AssertionError("(d) encode_moments differs from encode_moments_video")
+        host = m.cpu().numpy()
+        path = os.path.join(work, "m.npy")
+        np.save(path, host)
+        if not np.array_equal(np.load(path), host) or np.load(path).dtype != np.float16:
+            raise AssertionError("(d) the fp16 .npy round trip is not exact")
+        del vae
+        torch.cuda.empty_cache()
+        out_d = os.path.join(work, "d")
+        args_d = app_args(app, out_d, size, "--max_steps", "2", "--seed", str(SEED + 19),
+                          "--latents")
+        clips = SeededClips(APP_ITEMS, clip, moments=host[:t], frames=px.cpu().numpy())
+        loader = W.BatchLoader(clips, 1, accum_steps=2, tokenizer=tok, seed=SEED, prefetch=2)
+        K.reset_launch_counts()
+        res = app.train(args_d, loader, tokenizer=tok)
+        counts = K.launch_counts()
+        check_launches("(d) moments form", counts, app_launches(APP_POLICY, 2))
+        launches["train_app_latents"] = counts
+        recs_d = [json.loads(line) for line in open(os.path.join(out_d, "metrics.jsonl"))]
+        if not all(math.isfinite(r["loss"]) for r in recs_d):
+            raise AssertionError(f"(d) records {recs_d}")
+        log(f"  (d) {LATENT_BATCH} frames at {h}x{w} encoded in {enc_ms:.1f} ms, equal to "
+            f"encode_moments_video, fp16 .npy round trip exact; moments form s/step "
+            f"{[r['sec_per_step'] for r in recs_d]} (pixels, (a): {sps})")
+        report["d"] = {"encode_ms": enc_ms, "records": recs_d,
+                       "artifacts": res["artifacts"]}
+        del res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    art = report["a"]["artifacts"]
+    log("  checkpoint I/O: " + ", ".join(
+        f"{k} {v['bytes'] / 1e9:.2f} GB written in {v['write_s']:.1f} s"
+        + (f", read in {v['read_s']:.1f} s" if "read_s" in v else "") for k, v in art.items())
+        + f"; trainstate_2 restored in {report['b']['restore_s']:.1f} s ({card})")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -3139,7 +3587,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -3260,6 +3708,10 @@ def main(argv=None):
             8, "MDM1024 stage-2 step", phase_train_stage2, torch, K, mdm_mod, step_mod, mdm)
     del mdm
     torch.cuda.empty_cache()
+    if 15 in phases:
+        phase15, report["train_app"] = timed(15, "training app", phase_train_app, torch, K,
+                                             mdm_mod, card)
+        launches.update(phase15)
     if 14 in phases:
         launches["mdm512_serve"], rows14, report["serve"] = timed(
             14, "serving path", phase_serve, torch, K, U, nn_att, serve_app, ri_app, ckpt_mod,

@@ -4,16 +4,19 @@ Mirrors `python -m mudg_tpu`. Ported commands:
   render       multi-modal autoregressive inference (apps.render_infer)
   serve        warm-model request-spool daemon      (apps.serve)
   refine-gs    3DGS scene refinement                (apps.refine_gs)
-`render-infer` is an alias of `render`. The JAX CLI's other commands (train,
-conditions, eval, preprocess, segment, densify, quantize, precompute-latents,
+  train        MDM training                         (apps.train_mdm)
+  precompute-latents  VAE moment caches for train --latents
+                                                    (apps.precompute_latents)
+`render-infer` is an alias of `render`, `train-mdm` of `train`. The JAX CLI's
+other commands (conditions, eval, preprocess, segment, densify, quantize,
 bench and their hyphenated aliases) exit with code 2 and "not ported yet".
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("train", "train-mdm", "conditions", "make-conditions", "eval", "eval-nvs",
-              "preprocess", "segment", "densify", "quantize", "precompute-latents", "bench")
+NOT_PORTED = ("conditions", "make-conditions", "eval", "eval-nvs", "preprocess", "segment",
+              "densify", "quantize", "bench")
 
 
 def main(argv=None):
@@ -22,13 +25,17 @@ def main(argv=None):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    cmd = {"render-infer": "render"}.get(cmd, cmd)
+    cmd = {"render-infer": "render", "train-mdm": "train"}.get(cmd, cmd)
     if cmd == "render":
         from .apps.render_infer import main as run
     elif cmd == "serve":
         from .apps.serve import main as run
     elif cmd == "refine-gs":
         from .apps.refine_gs import main as run
+    elif cmd == "train":
+        from .apps.train_mdm import main as run
+    elif cmd == "precompute-latents":
+        from .apps.precompute_latents import main as run
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported yet (see ROADMAP.md); run it with "
               f"python -m mudg_tpu {cmd}", file=sys.stderr)

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..nn import remat as R
 
 D = 64          # head dim the kernel takes
 launches = 0    # calls of the forward wrapper that launched kernel 5
@@ -176,7 +177,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = flash_attention(q, k, v)
+        # attn_o, attn_lse: kept by remat="dots_attn", whose replay then
+        # launches no kernel 5
+        o, lse = R.kernel_outputs((("attn_o",), ("attn_lse",)), lambda: flash_attention(q, k, v))
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -186,5 +189,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_train(q, k, v):
-    """`flash_attention`'s o with the FlashAttention-2 gradient to q, k, v."""
+    """`flash_attention`'s o with the FlashAttention-2 gradient to q, k, v
+    (o and lse tagged attn_o / attn_lse, mudg_tpu/kernels/flash_attention.py:454-455)."""
+    R.tag("attn_o", "attn_lse")
     return _FlashAttention.apply(q, k, v)

@@ -27,9 +27,14 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..nn import remat as R
 
 launches = 0       # forward calls that launched kernel 3
 bwd_launches = 0   # backward calls that launched kernel 10
+# the remat tags whose keeping keeps the training ops' outputs (nn/remat.py):
+# the FF's output makes the transformer block's blk_ff, so the JAX replay
+# drops kernel 3's forward wherever the policy keeps that tag
+KEEP = (("blk_ff",),)
 
 
 class PackedFF(NamedTuple):
@@ -233,9 +238,15 @@ class _GegluFF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         ctx.save_for_backward(x, w1, b1, w2)
-        if x.device.type in ("cpu", "meta"):
-            return _plain_ff(x, w1, b1, w2, b2)
-        return _launch(x.contiguous(), pack_ff_params(None, None, w1, b1, w2, b2), block=False)
+
+        def launch():
+            if x.device.type in ("cpu", "meta"):
+                return (_plain_ff(x, w1, b1, w2, b2),)
+            return (_launch(x.contiguous(), pack_ff_params(None, None, w1, b1, w2, b2),
+                            block=False),)
+
+        # its output + x is the block's blk_ff: kept with it
+        return R.kernel_outputs(KEEP, launch)[0]
 
     @staticmethod
     def backward(ctx, dy):
@@ -250,9 +261,15 @@ class _GegluFFBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2):
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2)
-        if x.device.type in ("cpu", "meta"):
-            return _plain_ff(_layer_norm(x, ln_w, ln_b), w1, b1, w2, b2) + x
-        return _launch(x.contiguous(), pack_ff_params(ln_w, ln_b, w1, b1, w2, b2), block=True)
+
+        def launch():
+            if x.device.type in ("cpu", "meta"):
+                return (_plain_ff(_layer_norm(x, ln_w, ln_b), w1, b1, w2, b2) + x,)
+            return (_launch(x.contiguous(), pack_ff_params(ln_w, ln_b, w1, b1, w2, b2),
+                            block=True),)
+
+        # its output is the block's blk_ff: kept with it
+        return R.kernel_outputs(KEEP, launch)[0]
 
     @staticmethod
     def backward(ctx, dy):

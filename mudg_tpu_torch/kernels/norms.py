@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..nn import remat as R
 
 # per-program VMEM working set cap of the TPU kernels (input + output + fp32
 # temps head-room); kept so that the port dispatches at the JAX sites
@@ -346,7 +347,9 @@ class _GroupNorm(torch.autograd.Function):
     def forward(ctx, x, w, b, groups, eps):
         ctx.save_for_backward(x, w, b)
         ctx.groups, ctx.eps = groups, eps
-        return fused_group_norm(x, w, b, groups, eps)
+        # gn_out (nn/functional.group_norm tags it): kept by the gn_out policies
+        return R.kernel_outputs((("gn_out",),),
+                                lambda: (fused_group_norm(x, w, b, groups, eps),))[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -359,7 +362,8 @@ class _LayerNorm(torch.autograd.Function):
     def forward(ctx, x, w, b, eps):
         ctx.save_for_backward(x, w, b)
         ctx.eps = eps
-        return fused_layer_norm(x, w, b, eps)
+        # no tag on the JAX fused-LN path: only remat="except_ff" keeps it
+        return R.kernel_outputs((), lambda: (fused_layer_norm(x, w, b, eps),))[0]
 
     @staticmethod
     def backward(ctx, g):

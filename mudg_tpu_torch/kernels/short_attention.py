@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..nn import remat as R
 
 launches = 0          # short-KV kernel launches
 packed_launches = 0   # packed kernel launches
@@ -166,7 +167,8 @@ class _ShortAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, forward, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return forward(q, k, v)
+        # no JAX tag: only remat="except_ff" keeps its output
+        return R.kernel_outputs((), lambda: (forward(q, k, v),))[0]
 
     @staticmethod
     def backward(ctx, g):

@@ -30,6 +30,7 @@ import math
 import torch
 
 from . import _build
+from ..nn import remat as R
 from . import spatial_attn as SP
 from .spatial_attn import LOG2E, PackedStage, check_packed
 
@@ -268,13 +269,18 @@ class _DoubleSelfAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tokens, heads, *params):
         p1, p2 = params[:7], params[7:]
-        if tokens.device.type in ("cpu", "meta"):
-            h1 = plain_stage(tokens, p1, heads)
-            y = plain_stage(h1, p2, heads)
-        else:
+
+        def launch():
+            if tokens.device.type in ("cpu", "meta"):
+                h1 = plain_stage(tokens, p1, heads)
+                return plain_stage(h1, p2, heads), h1
             _check_tokens(tokens, heads, "temporal_attn")
-            y, h1 = _launch_double(tokens, (pack_stage_params(*p1, heads),
-                                            pack_stage_params(*p2, heads)))
+            return _launch_double(tokens, (pack_stage_params(*p1, heads),
+                                           pack_stage_params(*p2, heads)))
+
+        # y (attn_o, also the block's blk_attn2) and h1 (attn_h1): kept by
+        # remat="dots_attn", whose replay then launches no kernel 2
+        y, h1 = R.kernel_outputs((("attn_o", "blk_attn2"), ("attn_h1",)), launch)
         ctx.heads = heads
         ctx.save_for_backward(tokens, h1, *params)
         return y
@@ -288,5 +294,7 @@ class _DoubleSelfAttn(torch.autograd.Function):
 
 def double_self_attn_train(tokens, stage1, stage2, heads: int):
     """Both stages with the gradient to the tokens and to both stages' fp32
-    parameters. stage1/stage2: (LayerNorm module, CrossAttention module)."""
+    parameters. stage1/stage2: (LayerNorm module, CrossAttention module).
+    y and h1 are tagged attn_o / attn_h1 (mudg_tpu/kernels/temporal_attn.py:458-459)."""
+    R.tag("attn_o", "attn_h1")
     return _DoubleSelfAttn.apply(tokens, heads, *stage_params(*stage1), *stage_params(*stage2))

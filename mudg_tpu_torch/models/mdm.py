@@ -224,7 +224,8 @@ def _posterior_sample(cfg: MDMConfig, moments, eps):
 
 
 def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tokens=None,
-                  sched_arrays: dict | None = None, impl: str = "train", remat: bool = True,
+                  sched_arrays: dict | None = None, impl: str = "train",
+                  remat: bool | str = True,
                   compute_dtype=torch.bfloat16, generator: torch.Generator | None = None):
     """shared_step / p_losses of the MDM (ddpm3d.py:1056-1149, 741-788;
     mdm.py:163-310). Returns (loss, {"loss_simple", "t_mean"}).
@@ -236,7 +237,8 @@ def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tok
     draws: `draw_training_noise`'s dict. null_emb (1 or B, 77, D): the
     empty prompt's embedding, or null_tokens (77,) to encode it here.
     The frozen VAE and CLIP towers run under no_grad in compute_dtype; the
-    resampler (image_proj) and the UNet (remat, dropout from `generator`)
+    resampler (image_proj) and the UNet (remat: False, True or a policy of
+    `nn/remat.POLICIES`; dropout from `generator`)
     carry gradients to their fp32 parameters; the diffusion algebra and the
     loss are fp32."""
     cfg = mdm.cfg

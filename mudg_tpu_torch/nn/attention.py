@@ -16,7 +16,9 @@ read where it reads them, default "1": MUDG_FUSED_SPATIAL, MUDG_STREAM_SPATIAL
 and MUDG_FLASHBLOCK (kernel 1's sites, by the tier JAX puts them on),
 MUDG_FUSED_FF (kernel 3) and MUDG_FUSED_TEMPORAL (kernel 2); "0" sends their
 sites down the JAX fallback chain (MUDG_FUSED_TCONV is read in `unet3d.py`).
-Relative-position and joint task attention are not ported yet.
+Relative-position and joint task attention are not ported yet. A
+transformer block's three residual outputs are the tag sites blk_attn1,
+blk_attn2 and blk_ff of the remat policies (attention.py:419-438, :559-560).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from . import functional as F
+from . import remat as R
 from ..kernels import flash_attention as FA
 from ..kernels import mlp as M
 from ..kernels import short_attention as SA
@@ -221,18 +224,25 @@ def feed_forward(ff, x, impl="auto", packed=None):
         if impl == "train":
             return M.geglu_ff_train(x, ff)
         return M.fused_geglu_ff(x.contiguous(), ff, packed)
-    return M.plain_geglu_ff(x, ff)
+    # the (M, 2 * inner) product is tagged ff_inner, which the remat
+    # policies recompute (attention.py:307-309); `M.plain_geglu_ff`'s ops
+    u, g = F.linear(ff.net["0"].proj, x, tag="ff_inner").chunk(2, dim=-1)
+    return F.linear(ff.net["2"], u * F.gelu(g))
 
 
 def feed_forward_block(ff, norm, x, impl="auto", packed=None):
-    """LN -> GEGLU FF -> + x (attention.py:326-356). The LN and residual ride
-    the kernel only at C < 640, as in the JAX dispatch; wider blocks keep them
-    in plain torch around the bare FF kernel."""
+    """LN -> GEGLU FF -> + x (attention.py:326-356), the transformer block's
+    blk_ff. The LN and residual ride the kernel only at C < 640, as in the
+    JAX dispatch; wider blocks keep them in plain torch around the bare FF
+    kernel."""
     if x.shape[-1] < 640 and _ff_kernel_site(ff, x, impl):
+        R.tag("blk_ff")
         if impl == "train":
             return M.geglu_ff_block_train(x, norm, ff)
         return M.fused_geglu_ff_block(x.contiguous(), norm, ff, packed)
-    return feed_forward(ff, F.layer_norm(norm, x), impl=impl, packed=packed) + x
+    y = feed_forward(ff, F.layer_norm(norm, x), impl=impl, packed=packed)
+    with R.site("blk_ff"):
+        return y + x
 
 
 class BasicTransformerBlock(nn.Module):
@@ -288,24 +298,31 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context=None, *, image_cross=False, ip_scale=1.0,
                 text_len=77, impl="auto"):
         if self._spatial_kernel_site(x, impl):
+            R.tag("blk_attn1")
             x = SP.fused_self_attention(x.contiguous(), self.norm1, self.attn1, self.heads,
                                         self.kernel_packs.get("attn1"))
         else:
-            x = cross_attention(self.attn1, F.layer_norm(self.norm1, x), None,
-                                heads=self.heads, impl=impl) + x
-        x = cross_attention(self.attn2, F.layer_norm(self.norm2, x), context,
+            a = cross_attention(self.attn1, F.layer_norm(self.norm1, x), None,
+                                heads=self.heads, impl=impl)
+            with R.site("blk_attn1"):
+                x = a + x
+        a = cross_attention(self.attn2, F.layer_norm(self.norm2, x), context,
                             heads=self.heads, image_cross=image_cross,
-                            ip_scale=ip_scale, text_len=text_len, impl=impl) + x
+                            ip_scale=ip_scale, text_len=text_len, impl=impl)
+        with R.site("blk_attn2"):
+            x = a + x
         return feed_forward_block(self.ff, self.norm3, x, impl=impl,
                                   packed=self.kernel_packs.get("ff"))
 
 
 def _proj(m, x):
-    """proj_in/proj_out: a Linear, or a 1x1 Conv1d (weight (out, in, 1))."""
-    w = m.weight.to(x.dtype)
-    if w.ndim == 3:
-        w = w[..., 0]
-    return torch.nn.functional.linear(x, w, None if m.bias is None else m.bias.to(x.dtype))
+    """proj_in/proj_out: a Linear, or a 1x1 Conv1d (weight (out, in, 1));
+    a linear's mm_out site."""
+    with R.site("mm_out"):
+        w = m.weight.to(x.dtype)
+        if w.ndim == 3:
+            w = w[..., 0]
+        return torch.nn.functional.linear(x, w, None if m.bias is None else m.bias.to(x.dtype))
 
 
 def _make_proj(d_in, d_out, use_linear):
@@ -378,6 +395,7 @@ class TemporalTransformer(nn.Module):
                 continue
             packs = blk.kernel_packs
             stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
+            R.tag("blk_attn2")   # kernel 2's output
             if impl == "train":
                 x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
             else:

@@ -11,6 +11,12 @@ kernel 11 (`kernels/norms.py`), whatever the caller's `impl`, as the JAX
 dispatch sends it to its Pallas kernels (nn/functional.py:166-193,
 :226-233); the JAX dispatch's "backend is TPU" is "the tensor is on CUDA"
 here.
+
+Each layer runs inside the tag site the JAX package names its output by
+(`checkpoint_name`, read by the remat policies of `nn/remat.py`): mm_out
+(a linear, or the tag its caller gives), conv_out, tconv_out, gn_out and
+ln_out; the kernel-11 LayerNorm carries no tag, as the JAX fused-LN path
+(nn/functional.py:233) has none.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import os
 import torch.nn.functional as F
 
 from ..kernels import norms as N
+from . import remat as R
 
 
 def on_card(x) -> bool:
@@ -39,14 +46,21 @@ def _b(m, dtype):
     return None if m.bias is None else m.bias.to(dtype)
 
 
-def linear(m, x):
-    """x (..., in) -> (..., out)."""
-    return F.linear(x, _w(m, x.dtype), _b(m, x.dtype))
+def linear(m, x, tag: str = "mm_out"):
+    """x (..., in) -> (..., out); `tag` names the output for the remat
+    policies (the GEGLU inner passes "ff_inner", which they recompute)."""
+    with R.site(tag):
+        return F.linear(x, _w(m, x.dtype), _b(m, x.dtype))
 
 
 def conv2d(m, x, stride: int = 1, padding="SAME"):
     """x (N, H, W, C) -> (N, H', W', O). padding: "SAME" (k // 2 on every
     side, the stride-1 SAME of the JAX package) or ((top, bottom), (left, right))."""
+    with R.site("conv_out"):
+        return _conv2d(m, x, stride, padding)
+
+
+def _conv2d(m, x, stride, padding):
     kh, kw = m.weight.shape[-2:]
     xc = x.permute(0, 3, 1, 2)   # NCHW view with channels-last strides
     if padding == "SAME":
@@ -66,15 +80,16 @@ def temporal_conv311(m, x):
     """(3,1,1) temporal conv with zero padding in t, as three shifted
     products (nn/functional.py:118-136). x (N, T, H, W, C); weight
     (out, in, 3, 1, 1)."""
-    w = _w(m, x.dtype)
-    assert w.shape[2:] == (3, 1, 1), w.shape
-    w0, w1, w2 = w[:, :, 0, 0, 0], w[:, :, 1, 0, 0], w[:, :, 2, 0, 0]
-    y = F.linear(x, w1)
-    y = y + F.pad(F.linear(x[:, :-1], w0), (0, 0, 0, 0, 0, 0, 1, 0))
-    y = y + F.pad(F.linear(x[:, 1:], w2), (0, 0, 0, 0, 0, 0, 0, 1))
-    if m.bias is not None:
-        y = y + _b(m, x.dtype)
-    return y
+    with R.site("tconv_out"):
+        w = _w(m, x.dtype)
+        assert w.shape[2:] == (3, 1, 1), w.shape
+        w0, w1, w2 = w[:, :, 0, 0, 0], w[:, :, 1, 0, 0], w[:, :, 2, 0, 0]
+        y = F.linear(x, w1)
+        y = y + F.pad(F.linear(x[:, :-1], w0), (0, 0, 0, 0, 0, 0, 1, 0))
+        y = y + F.pad(F.linear(x[:, 1:], w2), (0, 0, 0, 0, 0, 0, 0, 1))
+        if m.bias is not None:
+            y = y + _b(m, x.dtype)
+        return y
 
 
 def group_norm(m, x, num_groups: int = 32, eps: float = 1e-5):
@@ -83,8 +98,10 @@ def group_norm(m, x, num_groups: int = 32, eps: float = 1e-5):
     (nn/functional.py:180-223); kernel 11 under `MUDG_FUSED_NORMS=1` where
     it fits."""
     if _fused_norms(x) and N.group_norm_fits(x):
+        R.tag("gn_out")
         return N.group_norm_op(x, m.weight, m.bias, num_groups, eps)
-    return N.plain_group_norm(x, m.weight, m.bias, num_groups, eps)
+    with R.site("gn_out"):
+        return N.plain_group_norm(x, m.weight, m.bias, num_groups, eps)
 
 
 def layer_norm(m, x, eps: float = 1e-5):
@@ -92,7 +109,8 @@ def layer_norm(m, x, eps: float = 1e-5):
     under `MUDG_FUSED_NORMS=1` where it fits."""
     if _fused_norms(x) and N.layer_norm_fits(x):
         return N.layer_norm_op(x, m.weight, m.bias, eps)
-    return N.plain_layer_norm(x, m.weight, m.bias, eps)
+    with R.site("ln_out"):
+        return N.plain_layer_norm(x, m.weight, m.bias, eps)
 
 
 def silu(x):

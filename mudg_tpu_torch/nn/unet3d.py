@@ -10,13 +10,14 @@ temporal layers (B, T, H, W, C).
 Training: `impl="train"` selects the JAX training dispatch (the kernels
 with a backward kernel, as autograd ops; the temporal conv plain, no kernel
 4), a `generator` turns on dropout at `cfg.dropout` in every ResBlock and in
-stages 2-4 of every TemporalConvBlock (unet3d.py:170-201), and `remat=True`
-runs every input, middle and output block under
-`torch.utils.checkpoint` (the JAX `remat=True`, full per-block recompute;
-`init_attn` is not checkpointed). The selective remat policies, sequence
-parallelism and the options that the MDM configs leave off (relative
-position, causal or cross temporal attention, joint task attention) are not
-ported yet and raise.
+stages 2-4 of every TemporalConvBlock (unet3d.py:170-201), and `remat`
+runs every input, middle and output block under `torch.utils.checkpoint`:
+True (or "full") recomputes the whole block, a policy name of
+`nn/remat.POLICIES` (unet3d.py:344-406: dots, dots_small, dots_ln,
+dots_attn, except_ff, dots_gn, convs, names) keeps what the policy names;
+`init_attn` is not checkpointed. Sequence parallelism and the options that
+the MDM configs leave off (relative position, causal or cross temporal
+attention, joint task attention) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -26,11 +27,11 @@ import os
 from typing import Sequence
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from . import attention as A
 from . import functional as F
+from . import remat as R
 from ..core.schedules import timestep_embedding
 from ..kernels import tconv as TC
 
@@ -323,11 +324,12 @@ class UNet3D(nn.Module):
                 remat=False, generator: torch.Generator | None = None):
         """x (B, T, H, W, C_in), timesteps (B,), context (B, 77 + T*16, D) or
         (B, L, D), c_label (B,), fs (B,) -> (B, T, H, W, out_channels).
-        remat: False or True (full per-block recompute); generator: dropout
-        on, each block drawing from its own generator seeded from this one."""
+        remat: False, True (full per-block recompute) or a policy name of
+        `nn/remat.POLICIES`; generator: dropout on, each block drawing from
+        its own generator seeded from this one."""
         cfg = self.cfg
-        if remat not in (False, True):
-            raise NotImplementedError(f"remat policy {remat!r} is not ported (only True)")
+        if remat is not False:
+            R.policy_names(remat)   # raises for an unknown policy
         b, t, hh, ww, _ = x.shape
         mc = cfg.model_channels
         dtype = x.dtype
@@ -369,11 +371,11 @@ class UNet3D(nn.Module):
 
         def run(block, plan, h):
             args = (block, plan, h, emb, context, b, impl, next(seeds))
-            if remat:
+            if remat is not False:
                 # dropout draws from per-block generators, so no global RNG
                 # state needs saving for the recompute
-                return torch.utils.checkpoint.checkpoint(
-                    self._run_block, *args, use_reentrant=False, preserve_rng_state=False)
+                with R.block():
+                    return R.checkpoint(self._run_block, *args, remat=remat)
             return self._run_block(*args)
 
         hs = []

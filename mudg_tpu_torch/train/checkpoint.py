@@ -15,10 +15,17 @@ The JAX package then moves every leaf into its channels-last layout; the
 port's modules hold the torch layouts, so the leaves stay as stored (fp16
 and bf16 leaves become fp32). The zip reader is restricted: it rebuilds
 tensors from their storages and calls no constructor of the pickle's own.
+
+The saving half (`save`, `load`; the JAX package's orbax `save_pytree` /
+`load_pytree`, checkpoint.py:352-368) writes torch files: the training
+app's `step_N` and `final` hold the merged MDM state dict (the apps'
+`--ckpt` loads it strictly), `trainstate_N` the train state (`train_state`).
+Orbax directories are not read: the port does not import JAX.
 """
 from __future__ import annotations
 
 import io
+import os
 import pickle
 import zipfile
 from typing import Mapping
@@ -279,3 +286,58 @@ def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
     if path.endswith(".safetensors"):
         return load_safetensors(path)
     return normalize_state_dict(_load_torch_pickle(path))
+
+
+def save(path: str, obj) -> int:
+    """torch.save `obj` (tensors copied to the host) to `path`, written to a
+    temporary name and renamed, so that a reader never sees half a file.
+    Returns the file's size in bytes."""
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu()
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v
+
+    tmp = path + ".tmp"
+    torch.save(host(obj), tmp)
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def load(path: str, device=None):
+    """What `save` wrote, its tensors on `device` (weights only: tensors,
+    dicts, numbers and None)."""
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def train_state(state) -> dict:
+    """The saved form of a `train/step.TrainState`: the trainable
+    parameters, the AdamW moments mu and nu, the update count, the EMA (or
+    None) and the step (the JAX trainstate's params, opt_state, ema, step)."""
+    return {"params": state.params, "mu": state.mu, "nu": state.nu, "count": state.count,
+            "ema": state.ema, "step": state.step}
+
+
+def restore_train_state(state, saved: dict) -> None:
+    """Copy a `train_state` dict into `state` in place; raises ValueError
+    where its structure differs (other parameter names, or an EMA on one
+    side only), leaving `state` as it was."""
+    names = set(state.params)
+    for key in ("params", "mu", "nu"):
+        if set(saved[key]) != names:
+            raise ValueError(f"{key}: the saved names differ from the model's")
+    if (saved["ema"] is None) != (state.ema is None):
+        raise ValueError("ema: saved " + ("without" if saved["ema"] is None else "with")
+                         + " an EMA, the run " + ("with" if state.ema is not None else "without"))
+    pairs = [(t, saved[key][n]) for key, dst in (("params", state.params), ("mu", state.mu),
+                                                 ("nu", state.nu), ("ema", state.ema or {}))
+             for n, t in dst.items()]
+    bad = [tuple(v.shape) for t, v in pairs if v.shape != t.shape]
+    if bad:
+        raise ValueError(f"{len(bad)} saved leaves differ in shape, e.g. {bad[0]}")
+    with torch.no_grad():
+        for t, v in pairs:
+            t.copy_(v)
+    state.count = int(saved["count"])
+    state.step = int(saved["step"])

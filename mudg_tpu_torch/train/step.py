@@ -12,8 +12,9 @@ at the update count) so that a step equals the JAX step's.
 The parameters are the modules' own fp32 tensors, updated in place (the
 JAX step returns new arrays; in place saves a copy of 1.44B parameters).
 The mesh placement (ZeRO, FSDP, tensor and sequence parallelism) waits for
-the multi-GPU slice, the remat policies other than full recompute for their
-own PR.
+the multi-GPU slice. `remat` takes False, True (full per-block recompute)
+or one of the selective policies of `nn/remat.py`; the default is
+"dots_attn", as in the JAX step.
 """
 from __future__ import annotations
 
@@ -31,11 +32,12 @@ FROZEN = ("vae", "clip_text", "clip_image")
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Mirrors mudg_tpu.train.step.TrainConfig (config.yaml:3,23,133,139-140),
-    less the two fields that only the training app reads (`scale_lr`, which
-    needs the world batch, and `temporal_frozen`, which selects the
-    `temporal_frozen_mask` it passes as `grad_mask`); they come with the
-    app."""
+    """Mirrors mudg_tpu.train.step.TrainConfig (config.yaml:3,23,133,139-140).
+    `scale_lr` multiplies the learning rate by the world batch only where
+    one is given (`AdamW(tc, world_batch)`); the step builds its optimizer
+    with none, as the JAX step does, so it changes nothing there.
+    `temporal_frozen` is read by the training app, which then passes
+    `temporal_frozen_mask` as `grad_mask`."""
     learning_rate: float = 1.0e-5
     weight_decay: float = 0.01
     beta1: float = 0.9
@@ -44,6 +46,8 @@ class TrainConfig:
     accum_steps: int = 2
     use_ema: bool = False
     ema_decay: float = 0.9999
+    scale_lr: bool = False
+    temporal_frozen: bool = False      # stage-2: freeze temporal layers
     # None (constant), "lambda_warmup" or "cosine" (ddpm3d.py:1007-1031)
     scheduler: str | None = None
     warmup_steps: int = 1000
@@ -104,11 +108,15 @@ class AdamW:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
     weight_decay)) in place on the parameters (step.py:195-203). A leaf whose
     gradient is masked to 0 keeps its moments decaying and is still weight
-    decayed, as in optax."""
+    decayed, as in optax. With `tc.scale_lr` and a `world_batch`, the
+    learning rate is multiplied by it (trainer.py:91)."""
 
-    def __init__(self, tc: TrainConfig):
+    def __init__(self, tc: TrainConfig, world_batch: int | None = None):
         self.tc = tc
-        self.lr = make_lr_schedule(tc, tc.learning_rate)
+        lr = tc.learning_rate
+        if tc.scale_lr and world_batch:
+            lr = lr * world_batch
+        self.lr = make_lr_schedule(tc, lr)
 
     def init(self, params: dict):
         zeros = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
@@ -148,7 +156,7 @@ def init_train_state(mdm: M.MDM, tc: TrainConfig) -> TrainState:
 
 
 def make_train_step(mdm: M.MDM, tc: TrainConfig, null_tokens, *, grad_mask: dict | None = None,
-                    impl: str = "train", remat: bool = True,
+                    impl: str = "train", remat: bool | str = "dots_attn",
                     compute_dtype=torch.bfloat16):
     """The train step: step(state, batch, generator, draws=None) -> (state,
     {"loss", "grad_norm"}) (step.py:220-326).
@@ -158,9 +166,10 @@ def make_train_step(mdm: M.MDM, tc: TrainConfig, null_tokens, *, grad_mask: dict
     before one optimizer update. The generator draws each microbatch's
     `draw_training_noise` (unless `draws`, one dict per microbatch, is
     given) and the UNet's dropout. grad_mask: trainable name -> False for
-    leaves whose gradient is zeroed (`temporal_frozen_mask`). The null
-    prompt's embedding is encoded once here. The frozen towers get
-    requires_grad False."""
+    leaves whose gradient is zeroed (`temporal_frozen_mask`). remat: False,
+    True or a policy name of `nn/remat.POLICIES`. The null prompt's
+    embedding is encoded once here. The frozen towers get requires_grad
+    False."""
     cfg = mdm.cfg
     for k in FROZEN:
         getattr(mdm, k).requires_grad_(False)

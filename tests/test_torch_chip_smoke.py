@@ -9,6 +9,8 @@ must fail it. This holds the checks' power to see a wrong
 kernel, not the kernels themselves (those run only on the card)."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -427,3 +429,137 @@ def test_chip_smoke_checkpoint_path():
     assert next(unet.parameters()).dtype == torch.bfloat16
     assert report["rel_l2_kernels"] == report["rel_l2_plain_bf16"] < 0.05
     assert sum(counts.values()) == 0
+
+
+def _waymo_items(scene, tmp_path):
+    """Items over the synthetic scene, their moment caches at 32x64 (a tiny
+    random VAE)."""
+    from mudg_tpu_torch.data import latents as TL
+    from mudg_tpu_torch.data import waymo as TW
+    from mudg_tpu_torch.models import mdm as TMDM
+    from mudg_tpu_torch.models import presets as TP
+    from test_torch_apps import scene_items
+
+    path = scene_items(scene, tmp_path / "items.txt", 2)
+    vae = TMDM.init_mdm(TP.tiny(), torch.Generator().manual_seed(0), "cpu").vae
+    TL.precompute(TW.read_items(path), vae, (32, 64), batch=4, skip_existing=False, log=None)
+    return path
+
+
+def _same_layout(ours: dict, theirs: dict):
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        if isinstance(v, np.ndarray):
+            assert (ours[k].shape, ours[k].dtype) == (v.shape, v.dtype), k
+        else:
+            assert type(ours[k]) is type(v), k
+
+
+def test_chip_smoke_app_clips_are_waymo_items(scene, tmp_path):
+    """Phase 15's SeededClips give WaymoDataset.load_item's keys, shapes and
+    dtypes (pixels) and load_item_latents' (moments), and batch through the
+    port's BatchLoader into its (accum, B, ...) batches."""
+    from mudg_tpu_torch.data import waymo as TW
+
+    path = _waymo_items(scene, tmp_path)
+    clip = (4, 32, 64)
+    ds = TW.WaymoDataset(path, video_length=4, resolution=clip[1:], seed=0)
+    for i, task in enumerate(("color", "semantic", "depth")):
+        item = CS.SeededClips(3, clip=clip).load_item(i)
+        _same_layout(item, ds.load_item(0, task))
+        assert item["class_label"] == TW.CLASS_LABELS[task]
+        assert all(item[k].min() >= -1 and item[k].max() <= 1
+                   for k in ("dense_frames", "sparse_frames", "sparse_depth"))
+    lat = TW.WaymoDataset(path, video_length=4, resolution=clip[1:], seed=0,
+                          latents=True).load_item(0, "depth")
+    frames = np.zeros((2, *clip[1:], 3), np.float32)
+    clips = CS.SeededClips(2, clip=clip, moments=lat["dense_moments"].astype(np.float16),
+                           frames=frames)
+    _same_layout(clips.load_item(1), lat)
+    batch = next(iter(TW.BatchLoader(clips, 1, accum_steps=2, prefetch=2)))
+    assert batch["dense_moments"].shape == (2, 1, *lat["dense_moments"].shape)
+    assert CS.SeededClips(2).load_item(0)["dense_frames"].shape == (*CS.APP_CLIP, 3)
+
+
+@pytest.mark.parametrize("policy", [False, *CS.REPLAYED])
+def test_chip_smoke_policy_launches_follow_the_sites(policy):
+    """Phase 15's per-policy expectations: each forward kernel once per
+    TRAIN_SITES site, again at every site but init_attn's where the policy
+    replays it; each backward kernel once per site; the app's runs add the
+    validation forwards and the sample's fp32 flash sites."""
+    sites, init = CS.TRAIN_SITES["mdm512"], CS.INIT_ATTN_SITES
+    got = CS.policy_launches("mdm512", policy, 2)
+    for k, v in sites.items():
+        again = policy and k in CS.REPLAYED[policy]
+        assert got[k] == 2 * (v + (v - init.get(k, 0) if again else 0))
+        assert got[k + "_bwd"] == 2 * v
+    assert sum(v for k, v in got.items() if k not in sites and not k.endswith("_bwd")) == 0
+    if policy == "dots_attn":
+        assert {k: got[k] for k in sites} == {"flash_attention": 20, "temporal_attn": 12,
+                                              "geglu_ff": 62}
+    if policy == "full":
+        assert got == CS.train_launches("mdm512", 2)
+        assert {k: got[k] for k in sites} == {"flash_attention": 40, "temporal_attn": 22,
+                                              "geglu_ff": 122}
+    app = CS.app_launches("dots_attn", 4, val_forwards=4, sample_forwards=10)
+    micro = CS.policy_launches("mdm512", "dots_attn", 8)
+    assert app["flash_attention"] == micro["flash_attention"] + 4 * 10 + 10 * 10
+    assert app["geglu_ff_bwd"] == micro["geglu_ff_bwd"]
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_chip_smoke_launch_check_sees_a_replaying_dots_attn(monkeypatch, fault):
+    """A dots_attn whose replay launches kernel 5's forward again (its
+    outputs not kept) must fail phase 15's launch check; the port's own
+    passes it. Launches counted on the meta device: each forward wrapper's
+    plain version and each backward wrapper per site."""
+    from mudg_tpu_torch.nn import remat as R
+    from test_torch_remat import _port_kernel_forwards
+
+    if fault:
+        keeps = R._keeps
+        monkeypatch.setattr(R, "_keeps", lambda rule, groups: (
+            False if groups == (("attn_o",), ("attn_lse",)) else keeps(rule, groups)))
+    calls = _port_kernel_forwards(monkeypatch, "dots_attn")
+    expect = CS.policy_launches("mdm512", "dots_attn")
+    counts = dict(expect)
+    for k in CS.TRAIN_SITES["mdm512"]:
+        counts[k] = calls["fwd"][k] + calls["bwd"].get(k, 0)
+    if fault:
+        assert counts["flash_attention"] == 20
+        with pytest.raises(AssertionError, match="flash_attention"):
+            CS.check_launches("(c) dots_attn", counts, expect)
+    else:
+        CS.check_launches("(c) dots_attn", counts, expect)
+
+
+def test_chip_smoke_train_app_phase_on_the_cpu(monkeypatch):
+    """Phase 15 (a)-(d) whole at the tiny preset, 4 frames of 32x64, on the
+    CPU (torch.cuda's timing and memory calls stubbed): the app's records,
+    files, SIGUSR1, the sample hook's restore, the resume bit for bit, every
+    policy's gradients, the moments' round trip, each launch check called
+    with its expectation (the wrappers launch nothing here), the work
+    directory gone."""
+    import mudg_tpu_torch.models.mdm as mdm_mod
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    for fn in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: 0)
+    checked = {}
+    monkeypatch.setattr(CS, "check_launches",
+                        lambda what, counts, expect: checked.setdefault(what, expect))
+    with torch.no_grad():   # as chip_smoke.main runs its phases
+        launches, report = CS.phase_train_app(torch, K, mdm_mod, "cpu", dev="cpu",
+                                              clip=(4, 32, 64), preset="tiny")
+    assert not os.path.exists(os.path.join(CS.ROOT, "_phase15"))
+    assert set(launches) == {"train_app", "train_app_resume", "remat_policies",
+                             "train_app_latents"}
+    assert checked["(a) the app loop"] == CS.app_launches("dots_attn", 4, val_forwards=4,
+                                                          sample_forwards=10)
+    assert checked["(b) resume"] == CS.app_launches("dots_attn", 2)
+    assert checked["(c) dots_attn"] == CS.policy_launches("mdm512", "dots_attn")
+    assert len([k for k in checked if k.startswith("(c)")]) == len(CS.REMAT_POLICIES)
+    assert [r["step"] for r in report["b"]["records"]] == [3, 4]
+    assert all(r["bit_equal"] for r in report["c"].values())
+    assert sorted(report["a"]["artifacts"]) == ["final", "step_2", "trainstate_2"]

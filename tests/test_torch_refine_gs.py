@@ -233,7 +233,7 @@ def test_gaussians_from_arrays_dtypes():
 def test_cli_mirrors_the_jax_commands():
     from mudg_tpu_torch.__main__ import main
 
-    assert main(["train", "--help"]) == 2
+    assert main(["eval", "--help"]) == 2
     assert main(["bench"]) == 2
     assert main(["nope"]) == 2
     for cmd in ("refine-gs", "render-infer", "serve"):

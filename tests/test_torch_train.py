@@ -259,11 +259,14 @@ def _tiny_unet_inputs(cfg, seed):
     return x, torch.tensor([10, 900]), ctx, torch.tensor([0, 500])
 
 
-def test_remat_gives_the_same_grads():
+@pytest.mark.parametrize("remat", [True, "full", "dots", "dots_small", "dots_ln", "dots_attn",
+                                   "except_ff", "dots_gn", "convs", "names"])
+def test_remat_gives_the_same_grads(remat):
     """The UNet with remat=True (every input, middle and output block under
-    torch.utils.checkpoint) gives the gradients of remat=False, dropout on:
-    each block draws its masks from a generator of its own, so the
-    recompute draws them again."""
+    torch.utils.checkpoint) or a selective policy (nn/remat.py) gives the
+    gradients of remat=False, dropout on: each block draws its masks from a
+    generator of its own, so the recompute draws them again. An unknown
+    policy raises."""
     cfg = TP.tiny()
     assert cfg.unet.dropout > 0
     unet = TU.UNet3D(cfg.unet)
@@ -272,16 +275,16 @@ def test_remat_gives_the_same_grads():
     unet = port(unet, tree)
     x, ts, ctx, lab = _tiny_unet_inputs(cfg, 96)
     grads = []
-    for remat in (False, True):
+    for r in (False, remat):
         unet.zero_grad(set_to_none=True)
-        y = unet(x, ts, ctx, c_label=lab, impl="train", remat=remat,
+        y = unet(x, ts, ctx, c_label=lab, impl="train", remat=r,
                  generator=torch.Generator().manual_seed(7))
         (y ** 2).sum().backward()
         grads.append({n: p.grad.clone() for n, p in unet.named_parameters()})
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-5, atol=1e-6, msg=n)
-    with pytest.raises(NotImplementedError):
-        unet(x, ts, ctx, c_label=lab, remat="dots_attn")
+    with pytest.raises(ValueError):
+        unet(x, ts, ctx, c_label=lab, remat="dots_everything")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
