@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16] [--out DIR] [--profile]
+    torchrun --nproc_per_node N chip_smoke.py --phases 16      (phase 16 over N cards)
 
 Phases:
   1. device and build: the card's name and power limit, torch and CUDA
@@ -201,7 +202,35 @@ Phases:
      device part (`data/latents.encode_moments`) on 16 seeded frames at
      320x512 equal to encode_moments_video, the fp16 .npy round trip exact,
      then 2 app steps in the moments form, s/step beside (a)'s. The work
-     directory (_phase15 in the checkout) is deleted at the end.
+     directory (_phase15 in the checkout) is deleted at the end;
+ 16. the multi-GPU paths (mudg_tpu_torch/parallel/, the sharded train step)
+     over a real process group: NCCL, one rank on this card at
+     tcp://localhost:<free port>, or the ranks torchrun started (WORLD_SIZE,
+     one card each): (a) one MDM512 optimizer step (`MDMConfig()`, all
+     five sub-models random, one seeded clip of 16 x 320x512 per data rank,
+     accumulation 2, dots_attn (full recompute above one rank, so that the
+     one-process step at the global batch fits a card), dropout off (each
+     data rank draws its own masks), the same draws) through data
+     parallelism with ZeRO-2 moments against the one-process step made
+     first on the same card: loss and gradient norm
+     within 1e-3 relative, mu within 2e-2 and nu 4e-2 relative L2, the
+     parameters' update (after - before) within 0.25 relative L2 (bf16
+     gradients; bit for bit is expected at one rank and printed, see
+     PAR_METRIC_TOL); launches at exactly the
+     training sites x micro-steps, counts reset just before the step and
+     read just after; a planted fault, the gradients averaged over the
+     microbatches twice (again in the all-reduce buckets), must miss these
+     gates; (b) the same step with FSDP (FSDP2 over `data`); (c) one bf16
+     UNet forward at batch 2 through the SP path (`seq` over every rank)
+     and through the TP path (data x model, model 2 from two ranks on),
+     each within phase 3's gate against the plain fp32 forward (TF32 off):
+     relative L2 within 1.5x the plain bf16 path's + 5e-3 (their layouts
+     differ, so bf16 rounds otherwise: bit equality with the plain bf16
+     result is printed, not required); (d) a 4-step bf16 `sample` (pixels
+     and token ids to the decoded clip) under SP against the one without,
+     the same gate against the fp32 sample. s/step (the one-process step
+     after a warm-up step), peak GiB, the gradient all-reduce's bucket
+     count and seconds, forward ms (the second of two calls), sample s.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -215,8 +244,8 @@ times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
-phase 13's forwards, phase 14's requests and phase 15's app runs and
-policy micro-steps). Then the
+phase 13's forwards, phase 14's requests, phase 15's app runs and
+policy micro-steps, and phase 16's data-parallel and FSDP steps). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -226,6 +255,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -2221,19 +2251,19 @@ def build_mdm(torch, mdm_mod, cfg, gen, dev="cuda"):
     return mdm
 
 
-def train_batch(torch, cfg, gen, hw, accum, dev="cuda"):
+def train_batch(torch, cfg, gen, hw, accum, dev="cuda", b=1):
     """A pixel-form batch with a leading microbatch axis: seeded dense,
-    sparse and depth videos (accum, 1, T, H, W, 3) in [-1, 1], token ids and
+    sparse and depth videos (accum, b, T, H, W, 3) in [-1, 1], token ids and
     a class label."""
-    shape = (accum, 1, cfg.unet.temporal_length, *hw, 3)
+    shape = (accum, b, cfg.unet.temporal_length, *hw, 3)
 
     def video():
         return torch.rand(shape, generator=gen, device=dev) * 2 - 1
 
     return {"dense_frames": video(), "sparse_frames": video(), "sparse_depth": video(),
-            "tokens": torch.randint(0, cfg.clip_text.vocab_size, (accum, 1, 77), generator=gen,
+            "tokens": torch.randint(0, cfg.clip_text.vocab_size, (accum, b, 77), generator=gen,
                                     device=dev),
-            "class_label": torch.zeros((accum, 1), dtype=torch.int64, device=dev)}
+            "class_label": torch.zeros((accum, b), dtype=torch.int64, device=dev)}
 
 
 def grad_check(torch, K, mdm_mod, mdm, batch, null_emb, gen, paths=("kernels",)):
@@ -3561,6 +3591,348 @@ def phase_serve(torch, K, U, nn_att, serve_mod, ri_mod, ckpt_mod, card):
     return total, rows, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the multi-GPU paths over a real process group
+# ---------------------------------------------------------------------------
+
+PAR_POLICY = "dots_attn"   # the app's default remat policy (full recompute above one rank)
+PAR_SAMPLE_STEPS = 4
+# gates of phase 16 against the one-process result. Data parallelism at one
+# rank runs the same graph and is expected bit for bit; FSDP2's hooks change
+# the order in which autograd sums a gradient (emb feeds every block), which
+# moves bf16 gradients by their rounding (mu ~4e-3 relative L2 on the CPU
+# rehearsal), and the sign of a gradient that is rounding noise (a conv bias
+# before a GroupNorm) sets AdamW's first update of its element. Loss and
+# gradient norm relative, mu relative L2 (nu twice it), the parameters'
+# update (after - before) relative L2:
+PAR_METRIC_TOL = 1e-3
+PAR_MOMENT_TOL = 2e-2
+PAR_UPDATE_TOL = 0.25
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def init_group(torch, dev="cuda"):
+    """The process group of phase 16: torchrun's when it launched the script
+    (WORLD_SIZE above 1; set up in main), else a group of one on this card
+    (NCCL; gloo on the CPU) at tcp://localhost:<free port>. Returns True
+    when it formed one here (to destroy after)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    cuda = torch.device(dev).type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device())
+                            if cuda else None)
+    return True
+
+
+def log0(msg):
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        log(msg)
+
+
+def rel_l2(torch, pairs) -> float:
+    """Relative L2 error over (got, ref) tensor pairs, one pair at a time
+    (ref moved to got's device)."""
+    num = den = 0.0
+    for got, ref in pairs:
+        ref = ref.to(got.device)
+        num += float(((got.float() - ref.float()) ** 2).sum())
+        den += float((ref.float() ** 2).sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """TF32 off for products and convolutions inside the block (phase 3's
+    fp32 reference), restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def par_gate(torch, what, table, name, y, ref32, plain=None, world=1):
+    """A bf16 path's result y against the fp32 plain result: its relative
+    L2 error kept in table[name]. With `plain` (the plain bf16 path's (y,
+    error)), phase 3's gate: within 1.5x the plain error + 5e-3, else
+    raise; bit equality with the plain bf16 result is kept beside it.
+    Returns (y, its error)."""
+    e = float(torch.linalg.vector_norm(y - ref32) / torch.linalg.vector_norm(ref32))
+    row = table[name]
+    row["rel_l2_vs_f32"] = e
+    if plain is None:
+        return y, e
+    bound = 1.5 * plain[1] + 5e-3
+    row["bit_equal"] = bool(torch.equal(y, plain[0]))
+    row["max_abs_diff_plain_bf16"] = float((y - plain[0]).abs().max())
+    t, unit = ("ms", "ms") if "ms" in row else ("s", "s")
+    log0(f"  {what}, {name} path at {world} rank(s): relative L2 against fp32 {e:.4e} "
+         f"(plain bf16 {plain[1]:.4e}, bound {bound:.4e}), bit for bit the plain bf16's: "
+         f"{row['bit_equal']}; {row[t]:.3f} {unit} (plain bf16 {table['plain'][t]:.3f} {unit})")
+    if not e <= bound:
+        raise AssertionError(f"{what}: the {name} path misses its gate")
+    return y, e
+
+
+def par_step(torch, K, step_mod, mdm, tc, state, batch, draws, null_tokens, dev, remat):
+    """One optimizer step of `state` timed alone (host clock, synchronized):
+    (state, metrics, seconds, the launch counts of the step)."""
+    step = step_mod.make_train_step(mdm, tc, null_tokens, remat=remat)
+    sync(torch, dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        state, m = step(state, batch, torch.Generator(device=dev).manual_seed(SEED + 17), draws)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    return state, {k: float(v) for k, v in m.items()}, secs, K.launch_counts()
+
+
+def par_compare(torch, what, state, m, ref, init, world):
+    """The step's state (gathered whole) and metrics against the one-process
+    `ref`; raises where a gate is missed. Returns the errors."""
+    lay = state.layout
+    whole = {k: {n: lay.full(k, n, t) for n, t in getattr(state, k).items()}
+             for k in ("params", "mu", "nu")}
+    err = {k: abs(m[k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+           for k in ("loss", "grad_norm")}
+    err["mu"] = rel_l2(torch, ((whole["mu"][n], ref["mu"][n]) for n in ref["mu"]))
+    err["nu"] = rel_l2(torch, ((whole["nu"][n], ref["nu"][n]) for n in ref["nu"]))
+    err["update"] = rel_l2(torch, ((whole["params"][n] - init[n].to(whole["params"][n].device),
+                                    ref["params"][n] - init[n]) for n in init))
+    bits = all(torch.equal(whole[k][n], ref[k][n].to(whole[k][n].device))
+               for k in ("params", "mu", "nu") for n in ref[k])
+    log0(f"  {what}: loss {m['loss']:.6f} (one process {ref['metrics']['loss']:.6f}), grad "
+         f"norm {m['grad_norm']:.6f} ({ref['metrics']['grad_norm']:.6f}); relative errors "
+         f"{ {k: f'{v:.3e}' for k, v in err.items()} }; bit for bit: {bits}")
+    ok = (err["loss"] <= PAR_METRIC_TOL and err["grad_norm"] <= PAR_METRIC_TOL
+          and err["mu"] <= PAR_MOMENT_TOL and err["nu"] <= 2 * PAR_MOMENT_TOL
+          and err["update"] <= PAR_UPDATE_TOL)
+    return ok, {**err, "bit_equal": bits, "world": world}
+
+
+def phase_parallel(torch, K, mdm_mod, step_mod, dev="cuda", preset=None, hw=None):
+    """Phase 16: the distributed code paths over a real process group (NCCL
+    on the card; one rank unless torchrun launched more): (a) one MDM512
+    optimizer step (MDMConfig(), a clip per data rank, accumulation 2,
+    dots_attn, seeded batch and draws) through data parallelism with ZeRO-2
+    moments against the one-process step (loss, gradient norm, mu, nu, the
+    parameters' update), launches at the training sites x micro-steps;
+    the same with a planted fault (the gradients averaged twice: once over
+    the microbatches, again in the all-reduce buckets), which must miss;
+    (b) the step with FSDP; (c) one UNet forward at batch 2 through the SP
+    path and through the TP path (data x model), each against the plain
+    forward; (d) a 4-step `sample` under SP against the one without. ms
+    per step, peak GiB, the gradient all-reduce's buckets and time."""
+    import torch.distributed as dist
+
+    from mudg_tpu_torch.models import presets
+    from mudg_tpu_torch.nn import unet3d as U
+    from mudg_tpu_torch.parallel import mesh as PM
+    from mudg_tpu_torch.parallel import sp as SP
+    from mudg_tpu_torch.parallel import tp as TP
+
+    made = init_group(torch, dev)
+    world = dist.get_world_size()
+    cuda = torch.device(dev).type == "cuda"
+    report, launches = {"world": world}, {}
+    try:
+        cfg = presets.get(preset) if preset else mdm_mod.MDMConfig()
+        # dropout off: each data rank draws its own masks, which one process
+        # at the global batch does not draw
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dropout=0.0))
+        f = 2 ** (len(cfg.vae.ch_mult) - 1)
+        hw = hw or tuple(n * f for n in LATENT["mdm512"])
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        mdm = build_mdm(torch, mdm_mod, cfg, gen, dev)
+        tc = step_mod.TrainConfig()
+        remat = PAR_POLICY if world == 1 else True
+        batch = train_batch(torch, cfg, gen, hw, tc.accum_steps, dev, b=world)
+        null_tokens = torch.randint(0, cfg.clip_text.vocab_size, (77,), generator=gen, device=dev)
+        mb = {k: v[0] for k, v in batch.items()}
+        draws = [mdm_mod.draw_training_noise(cfg, mdm_mod.training_shapes(cfg, mb), gen)
+                 for _ in range(tc.accum_steps)]
+        params = step_mod.trainable_params(mdm)
+        # above one rank the one-process step runs at the global batch: its
+        # result and the start wait on the host to leave the card its memory
+        keep = dev if world == 1 else "cpu"
+        init = {n: p.detach().to(keep, copy=True) for n, p in params.items()}
+
+        def restore():
+            with torch.no_grad():
+                for n, p in step_mod.trainable_params(mdm).items():
+                    PM.local_tensor(p).copy_(init[n])
+
+        # the one-process step (each rank makes it alone at the global batch),
+        # after a warm-up step from the same start
+        for warm in (True, False):
+            restore()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            state = step_mod.init_train_state(mdm, tc)
+            state, m, secs, _ = par_step(torch, K, step_mod, mdm, tc, state, batch, draws,
+                                         null_tokens, dev, remat)
+            if warm:
+                del state
+        ref = {"metrics": m}
+        for k in ("params", "mu", "nu"):
+            ref[k] = {n: t.detach().to(keep, copy=True) for n, t in getattr(state, k).items()}
+        del state
+        report["one_process"] = {"s_per_step": secs, "metrics": m,
+                                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                                 if cuda else None}
+        log0(f"  one process: {secs:.3f} s/step, loss {m['loss']:.6f}, grad norm "
+             f"{m['grad_norm']:.6f}")
+        expect = policy_launches("mdm512", remat if remat is not True else "full",
+                                 tc.accum_steps)
+
+        def distributed(what, fault=False, **layout):
+            restore()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            mesh = PM.Mesh([world], ("data",))
+            st = step_mod.place_train_state(mdm, tc, mesh, **layout)
+            st.layout.buckets.timed = True
+            local = PM.shard_batch(batch, mesh, "data", dim=1)
+            buckets = PM.Buckets.all_reduce
+            if fault:   # the gradients averaged twice
+                PM.Buckets.all_reduce = (lambda self, t, g, divide=1.0:
+                                         buckets(self, t, g, tc.accum_steps * divide))
+            try:
+                st, mm, sec, counts = par_step(torch, K, step_mod, mdm, tc, st, local, draws,
+                                               null_tokens, dev, remat)
+            finally:
+                PM.Buckets.all_reduce = buckets
+            ok, err = par_compare(torch, what, st, mm, ref, init, world)
+            rep = {"s_per_step": sec, "metrics": mm, "errors": err,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+                   "allreduce_s": st.layout.buckets.seconds,
+                   "allreduce_buckets": st.layout.buckets.last_buckets,
+                   "zero_leaves": len(st.layout.zero), "fsdp_leaves": len(st.layout.fsdp_dims)}
+            log0(f"  {what}: {sec:.3f} s/step, peak {rep['peak_gib']} GiB, gradient all-reduce "
+                 f"{rep['allreduce_buckets']} buckets in "
+                 f"{[round(v * 1e3, 3) for v in rep['allreduce_s']]} ms")
+            return ok, rep, counts
+
+        ok, report["dp_zero2"], counts = distributed("(a) data parallel, ZeRO-2")
+        check_launches("(a) data parallel", counts, expect)
+        launches["parallel_dp"] = counts
+        if not ok:
+            raise AssertionError("(a) the data-parallel step differs from the one-process step")
+        bad, report["dp_fault"], _ = distributed("(a) planted fault, gradients averaged twice",
+                                                 fault=True)
+        if bad:
+            raise AssertionError("(a) the planted fault passed the data-parallel gates")
+        ok, report["fsdp"], counts = distributed("(b) FSDP", fsdp=True)
+        check_launches("(b) FSDP", counts, expect)
+        launches["parallel_fsdp"] = counts
+        if not ok:
+            raise AssertionError("(b) the FSDP step differs from the one-process step")
+        del mdm, params, init, ref
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (c) the UNet forward through SP and TP against the plain paths
+        with torch.device("meta"):
+            unet = U.UNet3D(cfg.unet)
+        unet.to_empty(device=dev)
+        randomize_(torch, unet, gen)
+        unet.eval()
+        hh, ww = hw[0] // f, hw[1] // f
+        x = torch.randn((2, cfg.unet.temporal_length, hh, ww, cfg.unet.in_channels),
+                        generator=gen, device=dev)
+        t = torch.full((2,), 700, device=dev)
+        ctx = torch.randn((2, cfg.unet.text_context_len + cfg.unet.temporal_length
+                           * cfg.unet.image_tokens_per_frame, cfg.unet.context_dim),
+                          generator=gen, device=dev)
+        lab = torch.zeros(2, dtype=torch.int64, device=dev)
+        sp = SP.make_seq_sharding(PM.Mesh([world], ("seq",)))
+        n_tp = min(2, world)
+        grid = PM.Mesh([world // n_tp, n_tp], ("data", "model"))
+        fwd = {}
+
+        def forward(name, dtype=torch.bfloat16, **kw):
+            # the second of two calls timed (the first warms the path's
+            # kernels and communicators)
+            for _ in range(2):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                y = unet(x.to(dtype), t, ctx.to(dtype), c_label=lab, impl="plain", **kw).float()
+                sync(torch, dev)
+            fwd[name] = {"ms": (time.perf_counter() - t0) * 1e3}
+            return y
+
+        with no_tf32(torch):
+            ref32 = forward("plain_f32", torch.float32)
+        unet.to(torch.bfloat16)
+        plain = par_gate(torch, "(c) UNet forward", fwd, "plain", forward("plain"), ref32)
+        for name, run in (("sp", lambda: forward("sp", sp=sp)),
+                          ("tp", lambda: (TP.shard_unet_tp(unet, grid, "model"),
+                                          forward("tp"))[1])):
+            par_gate(torch, "(c) UNet forward", fwd, name, run(), ref32, plain, world)
+        report["forward"] = fwd
+        del unet, x, ctx, ref32
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (d) a 4-step sample under SP against the one without, both in bf16,
+        # against fp32's
+        mdm = build_mdm(torch, mdm_mod, cfg, gen, dev).float().eval()
+        video = torch.rand((1, cfg.unet.temporal_length, *hw, 3), generator=gen,
+                           device=dev) * 2 - 1
+        depth = torch.rand(video.shape, generator=gen, device=dev) * 2 - 1
+        tokens = torch.randint(0, cfg.clip_text.vocab_size, (1, 77), generator=gen, device=dev)
+        clips = {}
+
+        def sample(name, dtype=torch.bfloat16, **kw):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            out = mdm_mod.sample(
+                mdm, generator=torch.Generator(device=dev).manual_seed(SEED + 18),
+                sparse_frames=video.to(dtype), sparse_depth=depth.to(dtype), tokens=tokens,
+                null_tokens=null_tokens, class_label=torch.zeros(1, dtype=torch.int64,
+                                                                 device=dev),
+                num_steps=PAR_SAMPLE_STEPS, dtype=dtype, impl="plain", **kw)
+            sync(torch, dev)
+            clips[name] = {"s": time.perf_counter() - t0}
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"(d) the {name} sample is not finite")
+            return out
+
+        with no_tf32(torch):
+            ref32 = sample("plain_f32", torch.float32)
+        mdm.to(torch.bfloat16)
+        plain = par_gate(torch, f"(d) {PAR_SAMPLE_STEPS}-step sample", clips, "plain",
+                         sample("plain"), ref32)
+        par_gate(torch, f"(d) {PAR_SAMPLE_STEPS}-step sample", clips, "sp", sample("sp", sp=sp),
+                 ref32, plain, world)
+        report["sample"] = clips
+    finally:
+        if made:
+            dist.destroy_process_group()
+    return launches, report
+
+
 def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
@@ -3587,7 +3959,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -3631,6 +4003,11 @@ def main(argv=None):
 
     report = {}
     t_all = time.perf_counter()
+    multi = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if multi:   # torchrun: one card per rank, local rank 0 builds the kernels
+        from mudg_tpu_torch.parallel import mesh as par_mesh
+
+        par_mesh.init_distributed("cuda")
     for v in SWITCH_VARS + OPT_OUT:   # set only inside phases 12 and 13
         os.environ.pop(v, None)
 
@@ -3708,6 +4085,11 @@ def main(argv=None):
             8, "MDM1024 stage-2 step", phase_train_stage2, torch, K, mdm_mod, step_mod, mdm)
     del mdm
     torch.cuda.empty_cache()
+    if 16 in phases:
+        phase16, report["parallel"] = timed(16, "multi-GPU paths", phase_parallel, torch, K,
+                                            mdm_mod, step_mod)
+        launches.update(phase16)
+        torch.cuda.empty_cache()
     if 15 in phases:
         phase15, report["train_app"] = timed(15, "training app", phase_train_app, torch, K,
                                              mdm_mod, card)
@@ -3729,6 +4111,12 @@ def main(argv=None):
         if mod.split(".")[0] in ("jax", "jaxlib", "mudg_tpu"):
             raise AssertionError(f"{mod} was imported")
 
+    if multi:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if int(os.environ.get("RANK", "0")) > 0:
+            return 0
     table = kernel_line(K.KERNELS, rows, launches)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

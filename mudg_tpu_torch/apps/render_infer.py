@@ -20,9 +20,17 @@ Usage:
     python -m mudg_tpu_torch render --items items.txt --out out/ \
         [--ckpt model.ckpt] [--height 320 --width 512] [--steps 50] [--device cpu]
 
-`--quantize` (int8 serving) other than `none`, `--quantize_min_size` and
-`--seq_parallel` over more than one GPU exit with code 2: they wait for the
-port's int8 and multi-GPU slices.
+`--quantize` (int8 serving) other than `none` and `--quantize_min_size` exit
+with code 2: int8 serving is not ported yet.
+
+`--seq_parallel` under torchrun (one process per GPU; gloo with `--device
+cpu`) shards each clip's sampling over every rank (`parallel/sp.py`, the
+plain path): rank 0 reads the item list and broadcasts it, every rank loads
+the windows and samples, and rank 0 alone writes. On one process it is
+ignored, as the JAX app ignores it on one device; without it, the ranks past
+0 of a torchrun launch stay idle.
+
+    torchrun --nproc_per_node N -m mudg_tpu_torch render --seq_parallel ...
 """
 from __future__ import annotations
 
@@ -68,14 +76,22 @@ def load_params(args, cfg, device):
 
 
 def make_sp(seq_parallel: bool, device):
-    """(sp, impl): sequence parallelism over more than one visible GPU waits
-    for the multi-GPU slice; on one device --seq_parallel is ignored, as in
-    the JAX app."""
-    import torch
+    """(sp, impl) (render_infer.py:57-67): with --seq_parallel over more than
+    one process, a one-axis `seq` mesh over every rank and the plain path
+    (JAX's "xla"); else (None, "auto"), --seq_parallel ignored on one."""
+    from ..parallel import mesh as PM
 
-    if seq_parallel and torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
-        not_ported("--seq_parallel over more than one GPU")
+    if seq_parallel and PM.init_distributed(device):
+        from ..parallel import sp as SP
+
+        return SP.make_seq_sharding(PM.make_mesh(axis_names=("seq",))), "plain"
     return None, "auto"
+
+
+def idle_rank(seq_parallel: bool) -> bool:
+    """A torchrun rank past 0 without --seq_parallel: it has no part in the
+    run (the JAX app uses one device) and returns at once."""
+    return not seq_parallel and int(os.environ.get("RANK", "0")) > 0
 
 
 def prepare_serving_params(mdm, quantize: str, dtype, min_size=None):
@@ -142,27 +158,31 @@ def main(argv=None):
                    help="min weight elements to quantize (with --quantize); not "
                         "ported yet (exits 2 when given)")
     p.add_argument("--seq_parallel", action="store_true",
-                   help="shard one clip's sampling over all GPUs; not ported "
-                        "yet (exits 2 with more than one GPU), ignored on one")
+                   help="shard each clip's sampling over the processes torchrun runs "
+                        "(ignored on one)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
     import torch
 
     from ..data.waymo import read_items
+    from ..parallel import mesh as PM
 
     assert args.height % 16 == 0 and args.width % 16 == 0, \
         "image size must be a multiple of 16"  # virtual_pose_render.py:165
+    if idle_rank(args.seq_parallel):
+        return 0
 
     mdm, sample_fn, tokenizer = build_server(args)
-    items = read_items(args.items)
-    tokens = torch.as_tensor(tokenizer([args.prompt] * len(TASKS)), device=args.device).long()
-    null_tokens = torch.as_tensor(tokenizer([""])[0], device=args.device).long()
+    device = next(mdm.parameters()).device
+    items = PM.broadcast_object(read_items(args.items) if PM.rank() == 0 else None)
+    tokens = torch.as_tensor(tokenizer([args.prompt] * len(TASKS)), device=device).long()
+    null_tokens = torch.as_tensor(tokenizer([""])[0], device=device).long()
     render_items(
         mdm, sample_fn, items, args.out,
         tokens=tokens, null_tokens=null_tokens, video_length=args.video_length,
         resolution=(args.height, args.width), task_serial=args.task_serial, fps=args.fps,
-        max_windows=args.max_windows, seed=args.seed,
+        max_windows=args.max_windows, seed=args.seed, write=PM.rank() == 0,
     )
     return 0
 
@@ -170,7 +190,8 @@ def main(argv=None):
 def build_server(args):
     """The warm state of `render` and `serve` from their flags: (mdm,
     sample_fn, tokenizer), the MDM loaded, cast to --dtype and its kernel
-    weights packed."""
+    weights packed; under --seq_parallel over several processes, on this
+    rank's GPU, the sampler sequence-parallel."""
     from ..conditioning.tokenizer import default_tokenizer
     from ..models import presets
 
@@ -179,8 +200,10 @@ def build_server(args):
         import dataclasses as _dc
 
         cfg = _dc.replace(cfg, base_scale=args.base_scale)
-    _, impl = make_sp(args.seq_parallel, args.device)
-    mdm = load_params(args, cfg, args.device)
+    from ..parallel import mesh as PM
+
+    sp, impl = make_sp(args.seq_parallel, args.device)
+    mdm = load_params(args, cfg, PM.local_device(args.device))
     mdm = prepare_serving_params(mdm, args.quantize, torch_dtype(args.dtype),
                                  args.quantize_min_size)
     # real checkpoints demand the real BPE table (hash ids would index
@@ -191,19 +214,19 @@ def build_server(args):
         multiple_cond_cfg=args.multiple_cond_cfg,
         guidance_rescale=args.guidance_rescale, eta=args.eta,
         timestep_spacing=args.timestep_spacing, fps=args.fps,
-        dtype=torch_dtype(args.dtype), impl=impl, sampler=args.sampler,
+        dtype=torch_dtype(args.dtype), impl=impl, sampler=args.sampler, sp=sp,
     )
     return mdm, sample_fn, tokenizer
 
 
 def build_sampler(*, steps, cfg_scale=7.5, cfg_img=None, multiple_cond_cfg=False,
                   guidance_rescale=0.7, eta=1.0, timestep_spacing="uniform_trailing",
-                  fps=10, dtype=None, impl="auto", sampler="ddim"):
+                  fps=10, dtype=None, impl="auto", sampler="ddim", sp=None):
     """The 3-task guided sampler, reused across windows and requests
     (apps/serve.py keeps it warm): sample_fn(mdm, tokens, null_tokens,
     generator, sparse_frames, sparse_depth, class_label, x_T=None) -> the
     clip (B, T, H, W, 3) in [-1, 1], its start noise x_T or drawn from
-    `generator`."""
+    `generator`; sequence-parallel under `sp`."""
     import torch
 
     from ..models import mdm as M
@@ -220,7 +243,7 @@ def build_sampler(*, steps, cfg_scale=7.5, cfg_img=None, multiple_cond_cfg=False
             cfg_img=cfg_img, multiple_cond_cfg=multiple_cond_cfg,
             guidance_rescale=guidance_rescale, eta=eta,
             timestep_spacing=timestep_spacing, fs=fps,
-            dtype=dtype, impl=impl, sampler=sampler, x_T=x_T,
+            dtype=dtype, impl=impl, sampler=sampler, x_T=x_T, sp=sp,
         )
 
     return sample_fn
@@ -292,17 +315,19 @@ def item_windows(items, resolution, video_length):
 
 def render_items(mdm, sample_fn, items, out_dir, *, tokens, null_tokens,
                  video_length, resolution, task_serial=False, fps=10,
-                 max_windows=None, seed=123):
+                 max_windows=None, seed=123, write=True):
     """The autoregressive 3-task window loop (virtual_pose_render.py:150-368)
     over one item list; writes per-task frames + compare videos under
-    out_dir. Returns {'windows': N, 'seconds': dt}."""
+    out_dir (nothing with write False: a sequence-parallel rank past 0).
+    Returns {'windows': N, 'seconds': dt}."""
     import torch
 
     from ..utils import media
 
     vl = video_length
     generator = torch.Generator(device=tokens.device).manual_seed(seed)
-    os.makedirs(out_dir, exist_ok=True)
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     compare = {t: [] for t in TASKS}
 
     n_windows = 0
@@ -312,7 +337,7 @@ def render_items(mdm, sample_fn, items, out_dir, *, tokens, null_tokens,
             null_tokens=null_tokens, video_length=vl, generator=generator,
             task_serial=task_serial):
         index, task_data = win["index"], win["task_data"]
-        for ti, task in enumerate(TASKS):
+        for ti, task in enumerate(TASKS if write else ()):
             video = out[ti]
             dense = task_data[task]["dense_frames"]
             tdir = os.path.join(out_dir, f"virtual_{task}")
@@ -335,17 +360,19 @@ def render_items(mdm, sample_fn, items, out_dir, *, tokens, null_tokens,
         n_windows += 1
         if max_windows and n_windows >= max_windows:
             break
-        print(f"window {n_windows}: frames {index}..{index + vl // 2}")
+        if write:
+            print(f"window {n_windows}: frames {index}..{index + vl // 2}")
 
-    for task in TASKS:
+    for task in TASKS if write else ():
         if compare[task]:
             media.save_video(
                 os.path.join(out_dir, f"compare_{task}.mp4"),
                 np.stack(compare[task]), fps=fps,
             )
     dt = time.time() - t_start
-    print(f"done: {n_windows} windows in {dt:.1f}s "
-          f"({dt / max(n_windows, 1):.1f}s/window)")
+    if write:
+        print(f"done: {n_windows} windows in {dt:.1f}s "
+              f"({dt / max(n_windows, 1):.1f}s/window)")
     return {"windows": n_windows, "seconds": dt}
 
 

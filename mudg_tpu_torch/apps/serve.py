@@ -21,8 +21,14 @@ Model/sampler flags (preset, ckpt, steps, size, dtype, ...) are fixed for
 the daemon's lifetime — per-request knobs are only
 prompt/seed/items/out/max_windows/task_serial.
 
+Under torchrun with --seq_parallel every rank samples each clip
+(`parallel/sp.py`): rank 0 alone polls and claims the spool's requests and
+broadcasts each to the other ranks, and rank 0 alone writes the outputs and
+the .done/.err files, so the ranks never race on the spool.
+
 Usage:
     python -m mudg_tpu_torch serve --spool requests/ --preset mdm512 --ckpt m.ckpt [--device cpu]
+    torchrun --nproc_per_node N -m mudg_tpu_torch serve --seq_parallel --spool requests/ ...
 """
 from __future__ import annotations
 
@@ -32,11 +38,11 @@ import os
 import time
 import traceback
 
-from .render_infer import DTYPES, TASKS, build_server, render_items
+from .render_infer import DTYPES, TASKS, build_server, idle_rank, render_items
 
 
 def process_request(req, mdm, sample_fn, tokenizer, *, video_length,
-                    resolution, fps, default_prompt):
+                    resolution, fps, default_prompt, write=True):
     import torch
 
     from ..data.waymo import read_items
@@ -51,7 +57,7 @@ def process_request(req, mdm, sample_fn, tokenizer, *, video_length,
         tokens=tokens, null_tokens=null_tokens, video_length=video_length,
         resolution=resolution, task_serial=bool(req.get("task_serial")),
         fps=fps, max_windows=req.get("max_windows"),
-        seed=int(req.get("seed", 123)),
+        seed=int(req.get("seed", 123)), write=write,
     )
 
 
@@ -82,8 +88,8 @@ def parser():
                    help="min weight elements to quantize (with --quantize); not "
                         "ported yet (exits 2 when given)")
     p.add_argument("--seq_parallel", action="store_true",
-                   help="shard each clip's sampling over all GPUs; not ported "
-                        "yet (exits 2 with more than one GPU), ignored on one")
+                   help="shard each clip's sampling over the processes torchrun runs "
+                        "(ignored on one)")
     p.add_argument("--base_scale", type=float, default=None)
     p.add_argument("--sampler", default="ddim", choices=("ddim", "dpmpp"))
     p.add_argument("--poll", type=float, default=2.0,
@@ -98,55 +104,84 @@ def parser():
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if idle_rank(args.seq_parallel):
+        return 0
     mdm, sample_fn, tokenizer = build_server(args)
+    return _serve(args, mdm, sample_fn, tokenizer)
 
-    os.makedirs(args.spool, exist_ok=True)
-    print(f"serve: watching {args.spool} (poll {args.poll}s)", flush=True)
+
+def _claim(args, n_done):
+    """Rank 0's turn at the spool, oldest request first: ("req", name,
+    request, None), or ("req", name, None, traceback) when its file does not
+    read; ("wait",) when the spool is empty or a concurrent daemon took the
+    request (the rename to .active claims it atomically); ("stop",) when
+    the daemon ends."""
+    pending = sorted((f for f in os.listdir(args.spool) if f.endswith(".json")),
+                     key=lambda f: os.path.getmtime(os.path.join(args.spool, f)))
+    if not pending:
+        if args.exit_when_empty or (args.max_requests and n_done >= args.max_requests):
+            return ("stop",)
+        time.sleep(args.poll)
+        return ("wait",)
+    name = pending[0]
+    path = os.path.join(args.spool, name)
+    active = path[: -len(".json")] + ".active"
+    try:
+        os.rename(path, active)
+    except OSError:
+        return ("wait",)
+    try:
+        with open(active) as f:
+            return ("req", name, json.load(f), None)
+    except Exception:
+        return ("req", name, None, traceback.format_exc())
+
+
+def _serve(args, mdm, sample_fn, tokenizer):
+    """The spool loop: rank 0 claims each request and broadcasts it, every
+    rank renders it (rank 0 writes), rank 0 settles the request's file. In
+    one process the broadcast is the request itself."""
+    from ..parallel import mesh as PM
+
+    root = PM.rank() == 0
+    if root:
+        os.makedirs(args.spool, exist_ok=True)
+        print(f"serve: watching {args.spool} (poll {args.poll}s, {PM.world()} rank(s))",
+              flush=True)
     n_done = 0
     while True:
-        pending = sorted(
-            (f for f in os.listdir(args.spool) if f.endswith(".json")),
-            key=lambda f: os.path.getmtime(os.path.join(args.spool, f)),
-        )
-        if not pending:
-            if args.exit_when_empty or (
-                args.max_requests and n_done >= args.max_requests
-            ):
-                break
-            time.sleep(args.poll)
+        msg = PM.broadcast_object(_claim(args, n_done) if root else None)
+        if msg[0] == "stop":
+            break
+        if msg[0] == "wait":
             continue
-        name = pending[0]
-        path = os.path.join(args.spool, name)
-        active = path[: -len(".json")] + ".active"
-        try:  # claim atomically; a concurrent daemon may have taken it
-            os.rename(path, active)
-        except OSError:
-            continue
+        _, name, req, bad = msg
+        active = os.path.join(args.spool, name[: -len(".json")] + ".active")
         t0 = time.time()
         try:
-            with open(active) as f:
-                req = json.load(f)
+            if bad is not None:
+                raise ValueError(f"request {name} does not read:\n{bad}")
             metrics = process_request(
-                req, mdm, sample_fn, tokenizer,
-                video_length=args.video_length,
+                req, mdm, sample_fn, tokenizer, video_length=args.video_length,
                 resolution=(args.height, args.width), fps=args.fps,
-                default_prompt=args.prompt,
-            )
-            metrics["request"] = name
-            with open(active[: -len(".active")] + ".done", "w") as f:
-                json.dump(metrics, f)
-            print(f"serve: {name} done in {time.time()-t0:.1f}s", flush=True)
+                default_prompt=args.prompt, write=root)
+            if root:
+                metrics["request"] = name
+                with open(active[: -len(".active")] + ".done", "w") as f:
+                    json.dump(metrics, f)
+                print(f"serve: {name} done in {time.time()-t0:.1f}s", flush=True)
         except Exception:
-            with open(active[: -len(".active")] + ".err", "w") as f:
-                f.write(traceback.format_exc())
-            print(f"serve: {name} FAILED", flush=True)
+            if root:
+                with open(active[: -len(".active")] + ".err", "w") as f:
+                    f.write(traceback.format_exc())
+                print(f"serve: {name} FAILED", flush=True)
         finally:
-            if os.path.exists(active):
+            if root and os.path.exists(active):
                 os.remove(active)
         n_done += 1
         if args.max_requests and n_done >= args.max_requests:
             break
-    print(f"serve: exiting after {n_done} requests", flush=True)
+    PM.print0(f"serve: exiting after {n_done} requests", flush=True)
     return 0
 
 

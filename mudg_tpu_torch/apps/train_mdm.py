@@ -1,5 +1,5 @@
 """MDM training app, stage-1 512 / stage-2 1024 fine-tuning (port of
-`mudg_tpu/apps/train_mdm.py`, single GPU).
+`mudg_tpu/apps/train_mdm.py`), on one GPU or several.
 
 Rebuild of `main/trainer.py`: loads the DynamiCrafter/MuDG torch checkpoint
 with import-time surgery (conv_in 8->12, class-embed clone), builds the
@@ -9,30 +9,45 @@ metric logging, validation, sample logging and periodic checkpoints.
 Usage:
     python -m mudg_tpu_torch train --items train_items.txt --out run1/ \
         [--ckpt dynamicrafter_512.ckpt] [--stage 1|2] [--max_steps N] [--device cpu]
+    torchrun --nproc_per_node N -m mudg_tpu_torch train ... [--fsdp] [--tp K | --sp K]
 
 Writes `metrics.jsonl` (step, loss, grad_norm, sec_per_step; step, val_loss),
 `step_N` and `final` (the merged MDM state dict, which `render --ckpt`
 loads), `trainstate_N` (parameters, AdamW moments, update count, EMA, step)
 and, with --sample_every, `samples/step_N.mp4`. `--auto_resume` continues
 from the newest trainstate_N, or from the newest step_N when that is later.
-SIGUSR1 saves both artifacts at the end of the running step. `--fsdp` on one
-GPU shards nothing, as the JAX app on one device; `--tp` or `--sp` above 1
-exit with code 2 (the multi-GPU slice). `--ckpt` is a MuDG `.ckpt` or the
-port's own saved MDM state dict, where the JAX app reads an orbax
-directory. `train` is the loop over a loader, so that a caller can feed it
-batches from memory.
+SIGUSR1 saves both artifacts at the end of the running step. `--ckpt` is a
+MuDG `.ckpt` or the port's own saved MDM state dict, where the JAX app reads
+an orbax directory. `train` is the loop over a loader, so that a caller can
+feed it batches from memory.
+
+Under torchrun (one process per GPU, `parallel/mesh.py`; gloo with
+`--device cpu`) the mesh follows the JAX app (train_mdm.py:198-249): `--tp`
+and `--sp` exclude each other; n_data = gcd(batch, world / model_par) ranks
+on `data`, beside `--tp` ranks on `model` or `--sp` ranks on `seq`, and the
+ranks past n_data x model_par idle. Every rank builds the same loader from
+the same seed and takes its rows of each batch. The parameters are ZeRO-2
+(moments cut over `data`), or FSDP with `--fsdp` (over `seq` when `--sp`
+leaves one data rank); `--tp`/`--sp` run the UNet on the plain path, as
+JAX's "xla", and data parallelism alone keeps the kernels. Validation
+losses are averaged over `data`; rank 0 writes metrics.jsonl, samples and
+the checkpoints, gathered from every rank, and a run at one world size
+resumes at another. SIGUSR1's flag is summed over the ranks each step, so
+that every rank saves at the same step. `--fsdp` on one GPU shards
+nothing, as the JAX app on one device; `--tp` or `--sp` above the running
+processes exit with code 2.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
+import sys
 import time
 
 import numpy as np
-
-from .render_infer import not_ported
 
 REMATS = ("full", "dots_small", "dots_gn", "dots_ln", "dots_attn", "convs", "dots", "names",
           "except_ff")
@@ -74,15 +89,17 @@ def parser():
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the latest checkpoint in --out")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params, moments, EMA and frozen towers (nothing to shard "
-                        "on one GPU)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (multi-GPU)")
+                   help="shard params, moments, EMA and frozen towers over the ranks "
+                        "(FSDP2; nothing to shard on one GPU)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (ranks on 'model'; under torchrun)")
     p.add_argument("--latents", action="store_true",
                    help="train from precomputed VAE moment caches "
                         "(`python -m mudg_tpu_torch precompute-latents` first)")
     p.add_argument("--train_labels", default="color,semantic,depth",
                    help="comma list of tasks to sample (waymo_data.py:342-362)")
-    p.add_argument("--sp", type=int, default=1, help="sequence-parallel degree (multi-GPU)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree (ranks on 'seq'; under torchrun)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -156,16 +173,93 @@ def to_device(batch: dict, device) -> dict:
         device, torch.float32 if v.dtype.kind == "f" else torch.int64) for k, v in batch.items()}
 
 
-def log_samples(args, mdm, state, batch, tokenizer, step_i, sink=None):
+class Parallel:
+    """The run's layout over the ranks (`setup_parallel`): mesh None on one
+    process."""
+
+    def __init__(self, mesh=None, sp=None, tp_axis=None, fsdp_axis="data", impl="train"):
+        self.mesh, self.sp, self.tp_axis = mesh, sp, tp_axis
+        self.fsdp_axis, self.impl = fsdp_axis, impl
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is None or self.mesh.active
+
+    @property
+    def root(self) -> bool:
+        """The rank that writes (rank 0)."""
+        from ..parallel import mesh as PM
+
+        return PM.rank() == 0
+
+
+def refuse(msg: str):
+    print(f"train: {msg}", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def setup_parallel(args) -> Parallel:
+    """The mesh of train_mdm.py:198-249 over the processes torchrun runs:
+    --tp with --sp refused; n_data = gcd(batch, world / model_par) ranks on
+    'data' beside --tp ranks on 'model' or --sp on 'seq'; the mesh lines
+    printed. One process (no torchrun, or WORLD_SIZE 1): no mesh, and --tp
+    or --sp above 1 exit 2."""
+    from ..parallel import mesh as PM
+
+    if args.tp > 1 and args.sp > 1:
+        refuse("--tp and --sp are mutually exclusive")
+    model_par = max(args.tp, args.sp)
+    if not PM.init_distributed(args.device):
+        if model_par > 1:
+            refuse(f"--tp/--sp {model_par} needs {model_par} processes (torchrun "
+                   "--nproc_per_node N -m mudg_tpu_torch train ...)")
+        if args.fsdp:
+            print("fsdp: one GPU, nothing to shard")
+        return Parallel()
+    world = PM.world()
+    if world % model_par:
+        refuse(f"--tp/--sp {model_par} must divide the {world} processes")
+    n_data = math.gcd(args.batch_size, world // model_par)
+    if args.tp > 1:
+        mesh = PM.Mesh([n_data, args.tp], ("data", "model"))
+        PM.print0(f"mesh: {n_data} devices on 'data' x {args.tp} on 'model' "
+                  f"(batch {args.batch_size})")
+    elif args.sp > 1:
+        mesh = PM.Mesh([n_data, args.sp], ("data", "seq"))
+        PM.print0(f"mesh: {n_data} devices on 'data' x {args.sp} on 'seq' "
+                  f"(batch {args.batch_size}, sequence-parallel activations)")
+    else:
+        mesh = PM.Mesh([n_data], ("data",))
+        PM.print0(f"mesh: {n_data} devices on 'data' (batch {args.batch_size})")
+    sp = None
+    if args.sp > 1:
+        from ..parallel import sp as SP
+
+        sp = SP.make_seq_sharding(mesh)
+    # one clip per step leaves no data axis to FSDP over: shard over seq
+    fsdp_axis = "seq" if (args.fsdp and args.sp > 1 and n_data == 1) else "data"
+    if args.fsdp:
+        PM.print0(f"fsdp: params/moments/EMA/frozen towers sharded over '{fsdp_axis}'")
+    if not mesh.active:
+        print(f"rank {PM.rank()}: outside the mesh, idle")
+    return Parallel(mesh, sp, "model" if args.tp > 1 else None, fsdp_axis,
+                    "plain" if model_par > 1 else "train")
+
+
+def log_samples(args, mdm, state, batch, tokenizer, step_i, sink=None, par=None):
     """ImageLogger analog (main/callbacks.py:15-101): a 10-step sample of the
     batch's first clip under the EMA weights when there are any (swapped
     into the parameters and back, bit for bit), written to
-    out/samples/step_N.mp4, or handed to sink(step_i, video) instead."""
+    out/samples/step_N.mp4, or handed to sink(step_i, video) instead. Over
+    several ranks every rank samples (the layout's collectives; the plain
+    path under --tp/--sp) and rank 0 writes."""
     import torch
 
     from ..models import mdm as M
+    from ..train import step as TS
     from ..utils import media
 
+    par = par or Parallel()
     device = next(mdm.unet.parameters()).device
     latents = "sparse_moments" in batch
     key = "sparse_moments" if latents else "sparse_frames"
@@ -179,8 +273,11 @@ def log_samples(args, mdm, state, batch, tokenizer, step_i, sink=None):
     swap = state.ema is not None
 
     def swap_ema():
-        for n, p in state.params.items():
-            p.data, state.ema[n] = state.ema[n], p.data
+        with torch.no_grad():
+            for n, p in TS.local_params(state).items():
+                kept = p.clone()
+                p.copy_(state.ema[n])
+                state.ema[n].copy_(kept)
 
     if swap:
         swap_ema()
@@ -189,10 +286,14 @@ def log_samples(args, mdm, state, batch, tokenizer, step_i, sink=None):
                        tokens=b["tokens"],
                        null_tokens=torch.as_tensor(tokenizer([""])[0], device=device).long(),
                        class_label=b["class_label"], num_steps=10, guidance_scale=7.5,
-                       guidance_rescale=0.7, **conds)
+                       guidance_rescale=0.7, sp=par.sp,
+                       **({} if par.mesh is None or par.impl == "train" else
+                          {"impl": "plain"}), **conds)
     finally:
         if swap:
             swap_ema()
+    if not par.root:
+        return
     video = out[0].cpu().numpy()
     if sink is not None:
         sink(step_i, video)
@@ -212,10 +313,19 @@ def auto_resume(args, state, device):
     """The JAX app's choice: the newest trainstate_N when its step is at or
     after the newest step_N's, else step_N (weights only, optimizer fresh).
     A trainstate whose structure differs (an --use_ema mismatch) restores
-    its weights only. Returns the step to continue from."""
+    its weights only. Every rank reads the files and keeps its part.
+    Returns the step to continue from."""
     import torch
 
+    from ..parallel import mesh as PM
     from ..train import checkpoint as C
+    from ..train import step as TS
+
+    def weights(src):
+        with torch.no_grad():
+            for n, p in TS.local_params(state).items():
+                p.copy_(src[n] if state.layout is None else state.layout.local("params", n,
+                                                                               src[n]))
 
     w_step, w_name = _newest(args.out, "step_")
     f_step, f_name = _newest(args.out, "trainstate_")
@@ -225,23 +335,18 @@ def auto_resume(args, state, device):
         try:
             C.restore_train_state(state, saved)
         except (ValueError, KeyError) as e:
-            print(f"auto-resume: full restore of {latest} failed ({type(e).__name__}; "
-                  "--use_ema flag mismatch with the saving run?) — restoring weights "
-                  "only, optimizer state reset")
-            with torch.no_grad():
-                for n, p in state.params.items():
-                    p.copy_(saved["params"][n])
+            PM.print0(f"auto-resume: full restore of {latest} failed ({type(e).__name__}; "
+                      "--use_ema flag mismatch with the saving run?) — restoring weights "
+                      "only, optimizer state reset")
+            weights(saved["params"])
         state.step = step_i
     elif w_step is not None:
         step_i, latest = w_step, w_name
-        merged = C.load(os.path.join(args.out, latest), device)
-        with torch.no_grad():
-            for n, p in state.params.items():
-                p.copy_(merged[n])
+        weights(C.load(os.path.join(args.out, latest), device))
         state.step = step_i
     else:
         return 0
-    print(f"auto-resume: restored {latest} at step {step_i}")
+    PM.print0(f"auto-resume: restored {latest} at step {step_i}")
     return step_i
 
 
@@ -260,23 +365,25 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
     each optimizer step's record, before its validation, sample and
     checkpoints; sample_sink(step_i, video) takes the logged samples
     instead of the mp4 writer. Returns {"mdm", "state", "step",
-    "artifacts": {file: {"bytes", "write_s"}}, "sec_per_step": [...]}."""
+    "artifacts": {file: {"bytes", "write_s"}}, "sec_per_step": [...]}; a
+    rank outside the mesh returns None at once."""
     import torch
 
     from ..conditioning.tokenizer import default_tokenizer
     from ..models import mdm as M
+    from ..parallel import mesh as PM
     from ..train import checkpoint as C
     from ..train import step as TS
 
-    if args.tp > 1 or args.sp > 1:
-        not_ported("--tp/--sp above 1")
-    device = torch.device(args.device)
+    par = setup_parallel(args)
+    if not par.active:
+        return None
+    mesh = par.mesh
+    device = PM.local_device(args.device)
     cfg, _, temporal_frozen = recipe(args)
     tc = TS.TrainConfig(learning_rate=args.lr, accum_steps=args.accum, use_ema=args.use_ema,
                         temporal_frozen=temporal_frozen)
     mdm = load_model(args, cfg, device)
-    if args.fsdp:
-        print("fsdp: one GPU, nothing to shard")
     grad_mask = None
     if temporal_frozen:
         # the unet's temporal transformers frozen, image_proj all trainable
@@ -284,8 +391,12 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
     if tokenizer is None:
         tokenizer = default_tokenizer(args.bpe, require_real=bool(args.ckpt))
     null_tokens = torch.as_tensor(tokenizer([""])[0], device=device).long()
-    state = TS.init_train_state(mdm, tc)
-    step_fn = TS.make_train_step(mdm, tc, null_tokens, grad_mask=grad_mask, impl="train",
+    if mesh is None:
+        state = TS.init_train_state(mdm, tc)
+    else:
+        state = TS.place_train_state(mdm, tc, mesh, fsdp=args.fsdp, axis=par.fsdp_axis,
+                                     tp_axis=par.tp_axis, sp=par.sp)
+    step_fn = TS.make_train_step(mdm, tc, null_tokens, grad_mask=grad_mask, impl=par.impl,
                                  remat=True if args.remat == "full" else args.remat)
     with torch.no_grad():
         null_emb = M.encode_text(mdm, null_tokens[None])
@@ -294,17 +405,25 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
     log_path = os.path.join(args.out, "metrics.jsonl")
 
     def emit(rec):
+        if not par.root:
+            return
         print(json.dumps(rec))
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    def write(name, gathered):
+        # every rank gathers alike; rank 0 writes
+        if par.root:
+            _write(os.path.join(args.out, name), gathered, artifacts)
+
+    layout = state.layout
     step_i = auto_resume(args, state, device) if args.auto_resume else 0
     gen = torch.Generator(device=device).manual_seed(args.seed)
     artifacts, secs = {}, []
     want_ckpt = {"flag": False}
     prev_handler = signal.signal(signal.SIGUSR1, lambda *_: want_ckpt.update(flag=True))
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and par.root:
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
                                       + ([torch.profiler.ProfilerActivity.CUDA]
                                          if device.type == "cuda" else []))
@@ -318,6 +437,8 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
             for batch in loader:
                 n_batches += 1
                 tb = to_device(batch, device)
+                if mesh is not None:
+                    tb = PM.shard_batch(tb, mesh, "data", dim=1 if args.accum > 1 else 0)
                 state, metrics = step_fn(state, tb, gen)
                 step_i += 1
                 if step_i % args.log_every == 0:
@@ -331,21 +452,25 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
                 if on_step is not None:
                     on_step(step_i, state, metrics)
                 if val_loader is not None and step_i % args.val_every == 0:
-                    emit({"step": step_i, "val_loss": validate(mdm, val_loader, null_emb, device)})
+                    emit({"step": step_i, "val_loss": validate(mdm, val_loader, null_emb, device,
+                                                               par)})
                 if args.sample_every and step_i % args.sample_every == 0:
-                    log_samples(args, mdm, state, tb, tokenizer, step_i, sample_sink)
-                # SIGUSR1 (preemption) saves both artifacts
-                save_weights = want_ckpt["flag"] or step_i % args.ckpt_every == 0
-                save_full = want_ckpt["flag"] or (
-                    args.full_ckpt_every and step_i % args.full_ckpt_every == 0)
+                    log_samples(args, mdm, state, tb, tokenizer, step_i, sample_sink, par)
+                # SIGUSR1 (preemption) saves both artifacts; it reaches the
+                # ranks at different times, so every rank reads the sum
+                flag = want_ckpt["flag"]
+                if mesh is not None:
+                    f = torch.tensor(float(flag), device=device)
+                    torch.distributed.all_reduce(f, group=mesh.all)
+                    flag = bool(f > 0)
+                save_weights = flag or step_i % args.ckpt_every == 0
+                save_full = flag or (args.full_ckpt_every and step_i % args.full_ckpt_every == 0)
                 want_ckpt["flag"] = False
                 if save_weights:
                     # with the frozen towers, so that render runs from it alone
-                    _write(os.path.join(args.out, f"step_{step_i}"), mdm.state_dict(),
-                           artifacts)
+                    write(f"step_{step_i}", C.model_state_dict(mdm, layout))
                 if save_full:
-                    _write(os.path.join(args.out, f"trainstate_{step_i}"),
-                           C.train_state(state), artifacts)
+                    write(f"trainstate_{step_i}", C.train_state(state))
                 if step_i >= args.max_steps:
                     break
             if not n_batches:
@@ -357,20 +482,28 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
             prof.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-    _write(os.path.join(args.out, "final"), mdm.state_dict(), artifacts)
-    print("training done")
+    write("final", C.model_state_dict(mdm, layout))
+    PM.print0("training done")
     return {"mdm": mdm, "state": state, "step": step_i, "artifacts": artifacts,
             "sec_per_step": secs}
 
 
-def validate(mdm, val_loader, null_emb, device) -> float:
+def validate(mdm, val_loader, null_emb, device, par=None) -> float:
     """Mean loss over at most VAL_BATCHES validation batches (reference
     validation_step, ddpm3d.py:398-405): no gradient, remat=False, each
-    batch's draws and dropout from a generator seeded with its index."""
+    batch's draws and dropout from a generator seeded with its index. Over
+    several ranks each takes its rows of the batch and of the draws (made
+    at the global batch) and the losses are averaged over `data`."""
     import torch
+    import torch.distributed as dist
 
     from ..models import mdm as M
+    from ..parallel import mesh as PM
+    from ..train import step as TS
 
+    par = par or Parallel()
+    mesh = par.mesh
+    n_data = mesh.shape.get("data", 1) if mesh is not None else 1
     cfg = mdm.cfg
     losses = []
     with torch.no_grad():
@@ -380,16 +513,23 @@ def validate(mdm, val_loader, null_emb, device) -> float:
             vb = to_device(vb, device)
             gen = torch.Generator(device=device).manual_seed(vi)
             draws = M.draw_training_noise(cfg, M.training_shapes(cfg, vb), gen)
+            if mesh is not None:
+                vb = PM.shard_batch(vb, mesh, "data")
+                draws = TS.shard_draws(draws, n_data, mesh.coord("data"))
             loss, _ = M.training_loss(mdm, vb, draws, null_emb=null_emb, remat=False,
-                                      generator=gen)
+                                      generator=gen, sp=par.sp,
+                                      **({} if mesh is None else {"impl": par.impl}))
+            if n_data > 1:
+                dist.all_reduce(loss, group=mesh.group("data"))
+                loss = loss / n_data
             losses.append(float(loss))
     return float(np.mean(losses))
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.tp > 1 or args.sp > 1:
-        not_ported("--tp/--sp above 1")
+    if args.tp > 1 and args.sp > 1:
+        refuse("--tp and --sp are mutually exclusive")
     from ..conditioning.tokenizer import default_tokenizer
 
     _, resolution, _ = recipe(args)

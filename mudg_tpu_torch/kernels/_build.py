@@ -119,6 +119,19 @@ def build() -> Path:
     return lib
 
 
+def build_once_per_host() -> None:
+    """Under torchrun, where every rank would compile every source itself:
+    local rank 0 builds (or finds) the library while the other ranks wait
+    at a barrier of the default group, then every rank loads it. Every rank
+    must call it."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("LOCAL_RANK", "0")) == 0:
+        build()
+    dist.barrier()
+    load()
+
+
 def load():
     """The loaded kernel library (built first if needed)."""
     global _lib

@@ -75,7 +75,8 @@ def layer_norm_fits(x) -> bool:
     return _pick_rows(x.shape[1], x.shape[-1], x.element_size()) >= 8
 
 
-def plain_group_norm(x, w, b, groups: int, eps: float, *, one_pass=False, shift_groups=0):
+def plain_group_norm(x, w, b, groups: int, eps: float, *, one_pass=False, shift_groups=0,
+                     allsum=None):
     """`_gn_reference` (norms.py:101-113), the port's one GroupNorm formula
     (`nn/functional.group_norm` runs it off the kernel): statistics over
     each group of C // groups channels and every non-batch position in fp32
@@ -85,7 +86,10 @@ def plain_group_norm(x, w, b, groups: int, eps: float, *, one_pass=False, shift_
     as the kernel's statistics around each group's first element are.
     `one_pass` (the Pallas kernel's E[x^2] - E[x]^2) and `shift_groups` (the
     channel-to-group map shifted by that many channels) are planted faults
-    for the checks."""
+    for the checks. `allsum` (a differentiable sum over the ranks that each
+    hold a block of the positions, `parallel/sp.stats_sum`) makes the
+    statistics those of the whole: the per-channel sums with the element
+    count in one call, then the centered sums and squares in another."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     wf, bf = w.to(xf.dtype), b.to(xf.dtype)
     n, c = xf.shape[0], xf.shape[-1]
@@ -102,13 +106,26 @@ def plain_group_norm(x, w, b, groups: int, eps: float, *, one_pass=False, shift_
         gsum = per_channel.reshape(n, g, c // g).sum(-1, keepdim=True)
         return (gsum / count).expand(n, g, c // g).reshape((n,) + (1,) * len(dims) + (c,))
 
-    mean = group_mean(xf.sum(dims))
-    centered = xf - mean
-    corr = group_mean(centered.sum(dims))
-    if one_pass:
-        var = group_mean((xf * xf).sum(dims)) - mean * mean
+    if allsum is None:
+        s1 = xf.sum(dims)
     else:
-        var = group_mean((centered * centered).sum(dims)) - corr * corr
+        # the element count rides the first sum: blocks may differ in size
+        both = allsum(torch.cat([xf.sum(dims), xf.new_full((n, 1), float(count))], 1))
+        s1, count = both[:, :c], both[:, c:].reshape(n, 1, 1)
+    mean = group_mean(s1)
+    centered = xf - mean
+    if allsum is None:
+        s_c = centered.sum(dims)
+        s_q = (xf * xf if one_pass else centered * centered).sum(dims)
+    else:
+        s_c, s_q = allsum(torch.stack([centered.sum(dims),
+                                       (xf * xf if one_pass else centered * centered)
+                                       .sum(dims)])).unbind(0)
+    corr = group_mean(s_c)
+    if one_pass:
+        var = group_mean(s_q) - mean * mean
+    else:
+        var = group_mean(s_q) - corr * corr
     scale = torch.rsqrt(var + eps) * wf
     y = torch.addcmul(bf - corr * scale, centered, scale)
     if shift_groups:

@@ -12,8 +12,10 @@ call at batch n_variants*B. `sample` is the whole path from pixels and token
 ids to the clip; `sample_clip` is its second half with the context given.
 `training_loss` is the shared_step / p_losses of the reference; its random
 draws are explicit (`draw_training_noise`), so that a caller can pass the
-draws another implementation made. The sequence-parallel path (`sp`) waits
-for the multi-GPU slice.
+draws another implementation made. `sp` (a `parallel/sp.SeqSharding`) runs
+the UNet sequence-parallel in `training_loss` and `sample`, and in `sample`
+the frozen VAE's encode and decode on a block of the frames each, gathered
+after (mdm.py:401-402,454); the DDIM state stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..diffusion import ddim, dpm
 from ..nn import resampler as R
 from ..nn import unet3d as U
 from ..nn import vae as V
+from ..parallel import sp as SP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,12 +175,12 @@ def encode_conditions(mdm: MDM, sparse_frames, sparse_depth):
 
 
 def denoise(unet: U.UNet3D, z_noisy, t, c_concat, context, class_label, fs=None,
-            *, impl="auto", remat=False, generator=None):
+            *, impl="auto", remat=False, generator=None, sp=None):
     """DiffusionWrapper 'hybrid' forward (ddpm3d.py:1320-1324): channel-concat
     conditions + cross-attention context + class label."""
     x = torch.cat([z_noisy, c_concat.to(z_noisy.dtype)], dim=-1)
     return unet(x, t, context, c_label=class_label, fs=fs, impl=impl, remat=remat,
-                generator=generator)
+                generator=generator, sp=sp)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +229,8 @@ def _posterior_sample(cfg: MDMConfig, moments, eps):
 def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tokens=None,
                   sched_arrays: dict | None = None, impl: str = "train",
                   remat: bool | str = True,
-                  compute_dtype=torch.bfloat16, generator: torch.Generator | None = None):
+                  compute_dtype=torch.bfloat16, generator: torch.Generator | None = None,
+                  sp=None):
     """shared_step / p_losses of the MDM (ddpm3d.py:1056-1149, 741-788;
     mdm.py:163-310). Returns (loss, {"loss_simple", "t_mean"}).
 
@@ -238,9 +242,9 @@ def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tok
     empty prompt's embedding, or null_tokens (77,) to encode it here.
     The frozen VAE and CLIP towers run under no_grad in compute_dtype; the
     resampler (image_proj) and the UNet (remat: False, True or a policy of
-    `nn/remat.POLICIES`; dropout from `generator`)
-    carry gradients to their fp32 parameters; the diffusion algebra and the
-    loss are fp32."""
+    `nn/remat.POLICIES`; dropout from `generator`; sequence-parallel under
+    `sp`) carry gradients to their fp32 parameters; the diffusion algebra
+    and the loss are fp32."""
     cfg = mdm.cfg
     cdt = compute_dtype
     if sched_arrays is None:
@@ -300,7 +304,7 @@ def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tok
     target = D.get_v(z, noise, t, sa, soma)
     v_pred = denoise(mdm.unet, z_noisy.to(cdt), t, c_concat.to(cdt), context,
                      batch["class_label"], fs=batch.get("fps"), impl=impl, remat=remat,
-                     generator=generator).float()
+                     generator=generator, sp=sp).float()
     loss_simple = ((v_pred - target.float()) ** 2).mean(dim=(1, 2, 3, 4))
     loss = cfg.l_simple_weight * loss_simple.mean()
     if cfg.original_elbo_weight > 0:
@@ -310,7 +314,7 @@ def training_loss(mdm: MDM, batch: dict, draws: dict, *, null_emb=None, null_tok
 
 
 def _guided_model_fn(mdm, variants, c_concat, class_label, fs, guidance_scale, cfg_img,
-                     guidance_rescale, impl):
+                     guidance_rescale, impl, sp=None):
     """model_fn(x, t) -> guided v: one UNet call over the stacked variants
     (uncond [, image-only], full), combined by 2- or 3-point CFG, then
     guidance rescale."""
@@ -322,7 +326,7 @@ def _guided_model_fn(mdm, variants, c_concat, class_label, fs, guidance_scale, c
 
     def model_fn(x, tt):
         v = denoise(mdm.unet, x.repeat(n_var, 1, 1, 1, 1), tt.repeat(n_var), cc_all,
-                    ctx_all, label_all, fs=fs_all, impl=impl)
+                    ctx_all, label_all, fs=fs_all, impl=impl, sp=sp)
         parts = v.chunk(n_var)
         if n_var == 3:
             out = D.cfg_combine_multicond(parts[0], parts[1], parts[2], guidance_scale, cfg_img)
@@ -337,9 +341,10 @@ def _guided_model_fn(mdm, variants, c_concat, class_label, fs, guidance_scale, c
     return model_fn
 
 
-def _decode(mdm, z, chunk):
-    x = V.decode_video(mdm.vae, z, chunk=mdm.cfg.vae_chunk if chunk is None else chunk)
-    return torch.clamp(x, -1.0, 1.0).float()
+def _decode(mdm, z, chunk, sp=None):
+    x = V.decode_video(mdm.vae, SP.frames(z, sp),
+                       chunk=mdm.cfg.vae_chunk if chunk is None else chunk)
+    return SP.gather(torch.clamp(x, -1.0, 1.0).float(), 1, sp)
 
 
 @torch.no_grad()
@@ -350,7 +355,7 @@ def sample(mdm: MDM, *, generator: torch.Generator, sparse_frames=None, sparse_d
            multiple_cond_cfg: bool = False, guidance_rescale: float = 0.7,
            eta: float = 1.0, timestep_spacing: str = "uniform_trailing",
            fs: int | None = None, decode: bool = True, impl: str = "auto",
-           dtype=torch.float32, vae_dtype=None, sampler: str = "ddim", x_T=None):
+           dtype=torch.float32, vae_dtype=None, sampler: str = "ddim", x_T=None, sp=None):
     """image_guided_synthesis (virtual_pose_render.py:62-147; mdm.py:317-455).
 
     sparse_frames / sparse_depth (B, T, H, W, 3) in [-1, 1] (B = tasks);
@@ -364,7 +369,9 @@ def sample(mdm: MDM, *, generator: torch.Generator, sparse_frames=None, sparse_d
     encoders and of the decode; the UNet and the sampler run in `dtype`.
     The start noise is x_T or drawn from `generator`, which also draws the
     DDIM step noise. Returns the video (B, T, H, W, 3) in [-1, 1] as float32,
-    or the latents when decode is False.
+    or the latents when decode is False. sp: sequence-parallel (every rank
+    passes the same inputs and generator state and gets the whole clip;
+    impl "plain").
     """
     cfg = mdm.cfg
     vdt = dtype if vae_dtype is None else vae_dtype
@@ -378,8 +385,9 @@ def sample(mdm: MDM, *, generator: torch.Generator, sparse_frames=None, sparse_d
         sz, dz = V.sample_scaled(cfg.vae, m2).chunk(2)
         c_concat = torch.cat([sz, dz], dim=-1).to(dtype)
     else:
-        c_concat = encode_conditions(mdm, sparse_frames.to(vdt),
-                                     sparse_depth.to(vdt)).to(dtype)
+        c_concat = SP.gather(encode_conditions(mdm, SP.frames(sparse_frames.to(vdt), sp),
+                                               SP.frames(sparse_depth.to(vdt), sp)),
+                             1, sp).to(dtype)
 
     cond_emb = encode_text(mdm, tokens).to(dtype)
     uc_emb = encode_text(mdm, null_tokens.expand(tokens.shape)).to(dtype)
@@ -394,7 +402,7 @@ def sample(mdm: MDM, *, generator: torch.Generator, sparse_frames=None, sparse_d
     fs_arr = torch.full((b,), cfg.default_fs if fs is None else fs, device=device,
                         dtype=torch.int64)
     model_fn = _guided_model_fn(mdm, variants, c_concat, class_label, fs_arr,
-                                guidance_scale, cfg_img, guidance_rescale, impl)
+                                guidance_scale, cfg_img, guidance_rescale, impl, sp)
 
     shape = (b, t_frames, *c_concat.shape[2:4], cfg.unet.out_channels)
     if sampler == "dpmpp":
@@ -411,7 +419,7 @@ def sample(mdm: MDM, *, generator: torch.Generator, sparse_frames=None, sparse_d
         raise ValueError(f"unknown sampler {sampler!r}")
     if not decode:
         return z
-    return _decode(mdm, z.to(vdt), None)
+    return _decode(mdm, z.to(vdt), None, sp)
 
 
 @torch.no_grad()

@@ -34,6 +34,7 @@ from ..kernels import mlp as M
 from ..kernels import short_attention as SA
 from ..kernels import spatial_attn as SP
 from ..kernels import temporal_attn as TA
+from ..parallel import sp as SP_
 
 # Below this sequence length the JAX dispatch keeps attention dense
 # (mudg_tpu/nn/attention.py:28-32).
@@ -127,8 +128,8 @@ def attend(q, k, v, *, causal=False, impl="auto"):
 
 
 def _split_heads(x, heads):
-    b, l, _ = x.shape
-    return x.reshape(b, l, heads, -1)
+    b, l, c = x.shape
+    return x.reshape(b, l, heads, c // heads)
 
 
 def _merge_heads(x):
@@ -379,10 +380,12 @@ class TemporalTransformer(nn.Module):
             for d in range(depth)})
         self.proj_out = _make_proj(inner, in_channels, use_linear)
 
-    def forward(self, x, *, impl="auto"):
+    def forward(self, x, *, impl="auto", sp=None):
+        """sp: a sequence-parallel sharding whose ranks each hold a block of
+        W; the norm's statistics are then summed over them."""
         b, t, h, w, c = x.shape
         x_in = x
-        x = F.group_norm(self.norm, x, eps=1e-6)
+        x = F.group_norm(self.norm, x, eps=1e-6, **SP_.kw(sp))
         x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         x = _proj(self.proj_in, x)
         n, t, c = x.shape

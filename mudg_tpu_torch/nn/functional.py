@@ -17,6 +17,11 @@ Each layer runs inside the tag site the JAX package names its output by
 (a linear, or the tag its caller gives), conv_out, tconv_out, gn_out and
 ln_out; the kernel-11 LayerNorm carries no tag, as the JAX fused-LN path
 (nn/functional.py:233) has none.
+
+Two multi-GPU hooks: a Linear that `parallel/tp.py` cut over
+the model ranks carries a `tp` role and runs through it, and a GroupNorm
+given a sequence-parallel sharding sums its statistics over the seq ranks
+(`parallel/sp.stats_sum`).
 """
 from __future__ import annotations
 
@@ -49,6 +54,9 @@ def _b(m, dtype):
 def linear(m, x, tag: str = "mm_out"):
     """x (..., in) -> (..., out); `tag` names the output for the remat
     policies (the GEGLU inner passes "ff_inner", which they recompute)."""
+    tp = getattr(m, "tp", None)
+    if tp is not None:
+        return tp.linear(m, x, tag)
     with R.site(tag):
         return F.linear(x, _w(m, x.dtype), _b(m, x.dtype))
 
@@ -92,11 +100,19 @@ def temporal_conv311(m, x):
         return y
 
 
-def group_norm(m, x, num_groups: int = 32, eps: float = 1e-5):
+def group_norm(m, x, num_groups: int = 32, eps: float = 1e-5, sp=None):
     """GroupNorm over channels-last input, stats over every non-batch dim of
     each channel group, in fp32 with the centered (two-pass) variance
     (nn/functional.py:180-223); kernel 11 under `MUDG_FUSED_NORMS=1` where
-    it fits."""
+    it fits. sp: a sequence-parallel sharding whose ranks each hold a block
+    of the positions; the statistics are then summed over its group, on the
+    plain path."""
+    if sp is not None:
+        from ..parallel import sp as SP
+
+        with R.site("gn_out"):
+            return N.plain_group_norm(x, m.weight, m.bias, num_groups, eps,
+                                      allsum=SP.stats_sum(sp))
     if _fused_norms(x) and N.group_norm_fits(x):
         R.tag("gn_out")
         return N.group_norm_op(x, m.weight, m.bias, num_groups, eps)

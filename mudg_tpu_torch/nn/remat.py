@@ -37,7 +37,9 @@ port keeps the work behind a kept value instead of the value alone:
 products without batch dimensions, of the product sites; `except_ff` saves
 every op's output and every kernel op's but those of the ff_inner sites
 (its mode spans the block);
-`full` (remat=True) saves nothing. Every policy gives remat=False's values:
+`full` (remat=True) saves nothing. The forward hooks of a module that
+`exempt_hooks` names (FSDP2's gathers and reshards) keep nothing: they run
+in a block's forward but not alike in its replay. Every policy gives remat=False's values:
 a policy changes memory and time, never what is computed.
 """
 from __future__ import annotations
@@ -77,6 +79,7 @@ _scopes: list[str] = []      # the tag sites the running op is inside, innermost
 _block = None                # the running block's _Block, when it has a selective policy
 _record = None               # tag counts per block, while `record` runs
 _counts = None               # the running block's Counter under `record`
+_in_hooks = False            # an `exempt_hooks` module's forward hooks are running
 
 
 def policy_names(remat):
@@ -144,6 +147,8 @@ class _Keep(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _in_hooks:
+            return func(*args, **kwargs)
         if self.ops is None:
             keep = _no_alias(func) and "ff_inner" not in _scopes
         else:
@@ -172,6 +177,25 @@ def _detached(out):
     if isinstance(out, (tuple, list)):
         return type(out)(t.detach() if isinstance(t, torch.Tensor) else t for t in out)
     return out.detach() if isinstance(out, torch.Tensor) else out
+
+
+def _set_in_hooks(value):
+    def hook(*_):
+        global _in_hooks
+        _in_hooks = value
+    return hook
+
+
+def exempt_hooks(module):
+    """Keep the ops of the forward hooks that `module` has now out of every
+    keep mode. FSDP2's pre-forward hook all-gathers a unit's parameters in
+    a block's forward, but in the replay either gathers again or finds them
+    gathered by its pre-backward hook; its post-forward hook reshards only
+    in the forward. The hooks registered here bracket them."""
+    module.register_forward_pre_hook(_set_in_hooks(True), prepend=True)
+    module.register_forward_pre_hook(_set_in_hooks(False))
+    module.register_forward_hook(_set_in_hooks(True), prepend=True)
+    module.register_forward_hook(_set_in_hooks(False), always_call=True)
 
 
 def checkpoint(fn, *args, remat=True):

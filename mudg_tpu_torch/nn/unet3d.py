@@ -15,9 +15,17 @@ runs every input, middle and output block under `torch.utils.checkpoint`:
 True (or "full") recomputes the whole block, a policy name of
 `nn/remat.POLICIES` (unet3d.py:344-406: dots, dots_small, dots_ln,
 dots_attn, except_ff, dots_gn, convs, names) keeps what the policy names;
-`init_attn` is not checkpointed. Sequence parallelism and the options that
-the MDM configs leave off (relative position, causal or cross temporal
-attention, joint task attention) are not ported yet and raise.
+`init_attn` is not checkpointed. `sp` (a `parallel/sp.SeqSharding`) runs
+the forward sequence-parallel on the plain path: the frame rows of the
+spatial layers and W of the temporal ones sharded over the seq ranks, an
+all-to-all at each layout transition (unet3d.py:207,210,247,257,413,420),
+the temporal GroupNorms' statistics summed over the ranks, the output
+all-gathered. Under dropout each rank draws its own masks: the block seeds
+drawn from the generator are offset by `dropout_rank` (set per rank by
+`train/step.py`), so ranks that hold different samples or positions draw
+different masks. The options that the MDM configs leave off (relative
+position, causal or cross temporal attention, joint task attention) are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from . import functional as F
 from . import remat as R
 from ..core.schedules import timestep_embedding
 from ..kernels import tconv as TC
+from ..parallel import sp as SP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,8 +167,10 @@ class TemporalConvBlock(nn.Module):
         self.kernel_packs = ([TC.pack_tconv(conv, norm) for norm, conv in self.stages()]
                              if c <= TC.MAX_C else None)
 
-    def forward(self, x, impl="auto", drop=None):
-        """drop: None, or the dropout applied before the conv of stages 2-4."""
+    def forward(self, x, impl="auto", drop=None, sp=None):
+        """drop: None, or the dropout applied before the conv of stages 2-4;
+        sp: a sequence-parallel sharding (x a block of W), whose ranks the
+        GroupNorms sum their statistics over."""
         stages = self.stages()
         # MUDG_FUSED_TCONV=0 keeps the plain stages (the JAX switch,
         # mudg_tpu/nn/unet3d.py:148-151)
@@ -172,7 +183,7 @@ class TemporalConvBlock(nn.Module):
             return x + h
         h = x
         for i, (norm, conv) in enumerate(stages):
-            h = F.silu(F.group_norm(norm, h))
+            h = F.silu(F.group_norm(norm, h, **SP.kw(sp)))
             if i and drop is not None:
                 h = drop(h)
             h = F.temporal_conv311(conv, h)
@@ -194,9 +205,11 @@ class ResBlock(nn.Module):
         if temporal:
             self.temopral_conv = TemporalConvBlock(c_out)
 
-    def forward(self, x, emb, batch_size, impl="auto", drop=None):
+    def forward(self, x, emb, batch_size, impl="auto", drop=None, sp=None):
         """x (B*T, H, W, C), emb (B*T, emb_dim); drop: None, or the dropout
-        applied before the output conv and in the temporal conv block."""
+        applied before the output conv and in the temporal conv block; sp:
+        x a block of the frame rows, the temporal conv block run on a block
+        of W between two all-to-alls."""
         h = F.conv2d(self.in_layers["2"], F.silu(F.group_norm(self.in_layers["0"], x)))
         h = h + F.linear(self.emb_layers["1"], F.silu(emb)).to(h.dtype)[:, None, None, :]
         h = F.silu(F.group_norm(self.out_layers["0"], h))
@@ -207,9 +220,9 @@ class ResBlock(nn.Module):
             x = F.conv2d(self.skip_connection, x)
         h = x + h
         if hasattr(self, "temopral_conv"):
-            bt, hh, ww, c = h.shape
-            hv = h.reshape(batch_size, bt // batch_size, hh, ww, c)
-            h = self.temopral_conv(hv, impl=impl, drop=drop).reshape(bt, hh, ww, c)
+            ww = h.shape[2]
+            hv = SP.to_video(h, batch_size, sp)
+            h = SP.to_rows(self.temopral_conv(hv, impl=impl, drop=drop, **SP.kw(sp)), sp, ww)
         return h
 
 
@@ -294,10 +307,10 @@ class UNet3D(nn.Module):
     def _make_block(self, plan):
         return nn.ModuleDict({str(j): self._make_layer(lt, a) for j, (lt, a) in enumerate(plan)})
 
-    def _run_block(self, block, plan, h, emb, context, batch_size, impl, seed=None):
+    def _run_block(self, block, plan, h, emb, context, batch_size, impl, seed=None, sp=None):
         """One block of the plan. seed: None, or the seed of this block's own
         dropout generator (made here, so that a checkpointed block's
-        recompute draws the same masks)."""
+        recompute draws the same masks); sp: the sequence-parallel sharding."""
         cfg = self.cfg
         drop = None
         if seed is not None:
@@ -308,28 +321,33 @@ class UNet3D(nn.Module):
             if ltype == "conv_in":
                 h = F.conv2d(m, h)
             elif ltype == "res":
-                h = m(h, emb, batch_size, impl=impl, drop=drop)
+                h = m(h, emb, batch_size, impl=impl, drop=drop, **SP.kw(sp))
             elif ltype == "spatial":
                 h = m(h, context, image_cross=cfg.image_cross_attention,
                       text_len=cfg.text_context_len, impl=impl)
             elif ltype == "temporal":
-                bt, hh, ww, c = h.shape
-                hv = m(h.reshape(batch_size, bt // batch_size, hh, ww, c), impl=impl)
-                h = hv.reshape(bt, hh, ww, c)
+                ww = h.shape[2]
+                h = SP.to_rows(m(SP.to_video(h, batch_size, sp), impl=impl, **SP.kw(sp)), sp, ww)
             else:
                 h = m(h)
         return h
 
+    dropout_rank = 0   # offsets the block seeds: each rank's own masks
+
     def forward(self, x, timesteps, context, *, c_label=None, fs=None, impl="auto",
-                remat=False, generator: torch.Generator | None = None):
+                remat=False, generator: torch.Generator | None = None, sp=None):
         """x (B, T, H, W, C_in), timesteps (B,), context (B, 77 + T*16, D) or
         (B, L, D), c_label (B,), fs (B,) -> (B, T, H, W, out_channels).
         remat: False, True (full per-block recompute) or a policy name of
         `nn/remat.POLICIES`; generator: dropout on, each block drawing from
-        its own generator seeded from this one."""
+        its own generator seeded from this one; sp: a `parallel/sp.SeqSharding`
+        (impl "plain" only, as JAX's requires "xla", unet3d.py:324-330): every
+        rank passes the whole inputs and gets the whole output."""
         cfg = self.cfg
         if remat is not False:
             R.policy_names(remat)   # raises for an unknown policy
+        if sp is not None and impl != "plain":
+            raise ValueError(f"sequence parallelism requires impl='plain', got {impl!r}")
         b, t, hh, ww, _ = x.shape
         mc = cfg.model_channels
         dtype = x.dtype
@@ -361,16 +379,20 @@ class UNet3D(nn.Module):
             emb = emb + fs_emb.repeat_interleave(t, dim=0)
 
         h = x.reshape(b * t, hh, ww, x.shape[-1])
+        if sp is not None:
+            sp = sp.for_clip(t)
+            h, emb, context = SP.rows(h, sp), SP.rows(emb, sp), SP.rows(context, sp)
         inp_plan, mid_plan, out_plan = block_plan(cfg)
         n_blocks = len(inp_plan) + 1 + len(out_plan)
         seeds = [None] * n_blocks
         if generator is not None and cfg.dropout > 0.0:
             seeds = torch.randint(0, 2**62, (n_blocks,), generator=generator,
                                   device=generator.device).tolist()
+            seeds = [(s + self.dropout_rank * 0x9E3779B97F4A7C15) % 2**62 for s in seeds]
         seeds = iter(seeds)
 
         def run(block, plan, h):
-            args = (block, plan, h, emb, context, b, impl, next(seeds))
+            args = (block, plan, h, emb, context, b, impl, next(seeds), sp)
             if remat is not False:
                 # dropout draws from per-block generators, so no global RNG
                 # state needs saving for the recompute
@@ -382,13 +404,14 @@ class UNet3D(nn.Module):
         for i, plan in enumerate(inp_plan):
             h = run(self.input_blocks[str(i)], plan, h)
             if i == 0 and cfg.addition_attention:
-                bt, h_, w_, c = h.shape
-                h = self.init_attn["0"](h.reshape(b, t, h_, w_, c), impl=impl).reshape(bt, h_, w_, c)
+                w_ = h.shape[2]
+                h = SP.to_rows(self.init_attn["0"](SP.to_video(h, b, sp), impl=impl,
+                                                   **SP.kw(sp)), sp, w_)
             hs.append(h)
         h = run(self.middle_block, mid_plan, h)
         for i, plan in enumerate(out_plan):
             h = torch.cat([h, hs.pop()], dim=-1)
             h = run(self.output_blocks[str(i)], plan, h)
         h = F.silu(F.group_norm(self.out["0"], h))
-        y = F.conv2d(self.out["2"], h)
+        y = SP.gather(F.conv2d(self.out["2"], h), 0, sp)
         return y.reshape(b, t, hh, ww, cfg.out_channels)

@@ -20,7 +20,9 @@ The saving half (`save`, `load`; the JAX package's orbax `save_pytree` /
 `load_pytree`, checkpoint.py:352-368) writes torch files: the training
 app's `step_N` and `final` hold the merged MDM state dict (the apps'
 `--ckpt` loads it strictly), `trainstate_N` the train state (`train_state`).
-Orbax directories are not read: the port does not import JAX.
+A run over several GPUs gathers its shards to rank 0, which writes the same
+files, and `restore_train_state` cuts them again for any layout. Orbax
+directories are not read: the port does not import JAX.
 """
 from __future__ import annotations
 
@@ -311,12 +313,54 @@ def load(path: str, device=None):
     return torch.load(path, map_location=device, weights_only=True)
 
 
-def train_state(state) -> dict:
+def train_state(state) -> dict | None:
     """The saved form of a `train/step.TrainState`: the trainable
     parameters, the AdamW moments mu and nu, the update count, the EMA (or
-    None) and the step (the JAX trainstate's params, opt_state, ema, step)."""
-    return {"params": state.params, "mu": state.mu, "nu": state.nu, "count": state.count,
-            "ema": state.ema, "step": state.step}
+    None) and the step (the JAX trainstate's params, opt_state, ema, step).
+    A state laid over several ranks is gathered leaf by leaf (every rank
+    calls this alike) into whole host tensors on rank 0, which returns the
+    same dict as one process would; the other ranks return None. So a run
+    at one world size resumes at another."""
+    layout = state.layout
+    if layout is None:
+        return {"params": state.params, "mu": state.mu, "nu": state.nu,
+                "count": state.count, "ema": state.ema, "step": state.step}
+    root = _rank0()
+    out = {"count": state.count, "step": state.step}
+    for key, tree in (("params", state.params), ("mu", state.mu), ("nu", state.nu),
+                      ("ema", state.ema)):
+        if tree is None:
+            out[key] = None
+            continue
+        out[key] = {}
+        for n, t in tree.items():
+            full = layout.full(key, n, t)
+            if root:
+                out[key][n] = full.cpu()
+    return out if root else None
+
+
+def model_state_dict(mdm, layout=None) -> dict | None:
+    """mdm.state_dict() with every leaf whole (the file `step_N` and
+    `final` hold): the shards of a state laid over ranks gathered into
+    host tensors on rank 0 (every rank calls this alike; the others get
+    None)."""
+    if layout is None:
+        return mdm.state_dict()
+    root = _rank0()
+    out = {}
+    for n, t in mdm.state_dict().items():
+        if n in layout.tp or n in layout.fsdp_dims:
+            t = layout.full("params", n, t)
+        if root:
+            out[n] = t.detach().cpu()
+    return out if root else None
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def restore_train_state(state, saved: dict) -> None:
@@ -330,8 +374,16 @@ def restore_train_state(state, saved: dict) -> None:
     if (saved["ema"] is None) != (state.ema is None):
         raise ValueError("ema: saved " + ("without" if saved["ema"] is None else "with")
                          + " an EMA, the run " + ("with" if state.ema is not None else "without"))
-    pairs = [(t, saved[key][n]) for key, dst in (("params", state.params), ("mu", state.mu),
-                                                 ("nu", state.nu), ("ema", state.ema or {}))
+    layout = state.layout
+
+    def part(key, n, v):   # this rank's part of a whole saved leaf
+        return v if layout is None else layout.local(key, n, v)
+
+    from ..parallel.mesh import local_tensor
+
+    pairs = [(local_tensor(t), part(key, n, saved[key][n]))
+             for key, dst in (("params", state.params), ("mu", state.mu),
+                              ("nu", state.nu), ("ema", state.ema or {}))
              for n, t in dst.items()]
     bad = [tuple(v.shape) for t, v in pairs if v.shape != t.shape]
     if bad:
@@ -341,3 +393,4 @@ def restore_train_state(state, saved: dict) -> None:
             t.copy_(v)
     state.count = int(saved["count"])
     state.step = int(saved["step"])
+

@@ -432,15 +432,19 @@ def test_chip_smoke_checkpoint_path():
 
 
 def _waymo_items(scene, tmp_path):
-    """Items over the synthetic scene, their moment caches at 32x64 (a tiny
+    """Items over a copy of the synthetic scene (the caches written beside
+    its frames stay out of the worker's shared scene, whose caches
+    tests/test_latents.py counts), their moment caches at 32x64 (a tiny
     random VAE)."""
+    import shutil
+
     from mudg_tpu_torch.data import latents as TL
     from mudg_tpu_torch.data import waymo as TW
     from mudg_tpu_torch.models import mdm as TMDM
     from mudg_tpu_torch.models import presets as TP
     from test_torch_apps import scene_items
 
-    path = scene_items(scene, tmp_path / "items.txt", 2)
+    path = scene_items(shutil.copytree(scene, tmp_path / "scene"), tmp_path / "items.txt", 2)
     vae = TMDM.init_mdm(TP.tiny(), torch.Generator().manual_seed(0), "cpu").vae
     TL.precompute(TW.read_items(path), vae, (32, 64), batch=4, skip_existing=False, log=None)
     return path
@@ -563,3 +567,79 @@ def test_chip_smoke_train_app_phase_on_the_cpu(monkeypatch):
     assert [r["step"] for r in report["b"]["records"]] == [3, 4]
     assert all(r["bit_equal"] for r in report["c"].values())
     assert sorted(report["a"]["artifacts"]) == ["final", "step_2", "trainstate_2"]
+
+
+def _stub_card(monkeypatch):
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    for fn in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: 0)
+    checked = {}
+    monkeypatch.setattr(CS, "check_launches",
+                        lambda what, counts, expect: checked.setdefault(what, expect))
+    return checked
+
+
+def _group_of_one(tmp_path):
+    """A gloo group of one rank (FileStore rendezvous) for phase 16, which
+    uses a group formed before it as it is."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+
+
+def test_chip_smoke_parallel_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 16 whole at the tiny preset (4 frames of 32x64) over a gloo
+    group of one rank: the
+    data-parallel step bit for bit equal to the one-process step, its
+    planted fault (the gradients averaged twice) missing by the gradient
+    norm's factor 2, FSDP within the gates, the SP and TP forwards and the
+    SP sample checked; each launch check called with the training sites x
+    micro-steps (the wrappers launch nothing here)."""
+    import torch.distributed as dist
+
+    import mudg_tpu_torch.models.mdm as mdm_mod
+    from mudg_tpu_torch.train import step as step_mod
+
+    checked = _stub_card(monkeypatch)
+    _group_of_one(tmp_path)
+    try:
+        with torch.no_grad():   # as chip_smoke.main runs its phases
+            launches, report = CS.phase_parallel(torch, K, mdm_mod, step_mod, dev="cpu",
+                                                 preset="tiny", hw=(32, 64))
+    finally:
+        dist.destroy_process_group()
+    assert set(launches) == {"parallel_dp", "parallel_fsdp"}
+    want = CS.policy_launches("mdm512", "dots_attn", 2)
+    assert checked == {"(a) data parallel": want, "(b) FSDP": want}
+    assert report["dp_zero2"]["errors"]["bit_equal"]
+    assert report["dp_zero2"]["zero_leaves"] and report["fsdp"]["fsdp_leaves"]
+    assert abs(report["dp_fault"]["errors"]["grad_norm"] - 0.5) < 1e-6
+    assert report["forward"]["sp"]["bit_equal"] and report["sample"]["sp"]["bit_equal"]
+    for path in ("sp", "tp"):   # phase 3's gate against the fp32 forward
+        assert (report["forward"][path]["rel_l2_vs_f32"]
+                <= 1.5 * report["forward"]["plain"]["rel_l2_vs_f32"] + 5e-3)
+
+
+def test_chip_smoke_parallel_phase_fails_on_a_planted_fault(monkeypatch, tmp_path):
+    """With every gradient all-reduce dividing twice (over the data ranks
+    and again over the microbatches), phase 16's data-parallel check
+    fails."""
+    import torch.distributed as dist
+
+    import mudg_tpu_torch.models.mdm as mdm_mod
+    from mudg_tpu_torch.parallel import mesh as PM
+    from mudg_tpu_torch.train import step as step_mod
+
+    _stub_card(monkeypatch)
+    reduce = PM.Buckets.all_reduce
+    monkeypatch.setattr(PM.Buckets, "all_reduce",
+                        lambda self, t, g, divide=1.0: reduce(self, t, g, 2.0 * divide))
+    _group_of_one(tmp_path)
+    try:
+        with torch.no_grad(), pytest.raises(AssertionError, match="data-parallel step differs"):
+            CS.phase_parallel(torch, K, mdm_mod, step_mod, dev="cpu", preset="tiny",
+                              hw=(32, 64))
+    finally:
+        dist.destroy_process_group()

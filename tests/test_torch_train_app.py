@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import signal
 
 import jax
@@ -54,9 +55,12 @@ SIZE = ["--preset", "tiny", "--height", str(H), "--width", str(W), "--video_leng
 @pytest.fixture(scope="module")
 def items(scene, tmp_path_factory):
     """The scene's one camera window as 4 items, each with a dense normal
-    base of (1, H, W, 3) .npy maps (the fixture has none)."""
+    base of (1, H, W, 3) .npy maps (the fixture has none), over a copy of
+    the session's scene: the moment caches written beside its frames must
+    not reach the other tests of the worker (tests/test_latents.py counts
+    the caches it writes into the shared scene)."""
     root = tmp_path_factory.mktemp("train_items")
-    path = scene_items(scene, root / "items.txt", 4)
+    path = scene_items(shutil.copytree(scene, root / "scene"), root / "items.txt", 4)
     ndir = root / "normal"
     os.makedirs(ndir)
     rng = np.random.default_rng(80)
