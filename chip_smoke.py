@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17] [--out DIR] [--profile]
     torchrun --nproc_per_node N chip_smoke.py --phases 16      (phase 16 over N cards)
 
 Phases:
@@ -230,7 +230,30 @@ Phases:
      and token ids to the decoded clip) under SP against the one without,
      the same gate against the fp32 sample. s/step (the one-process step
      after a warm-up step), peak GiB, the gradient all-reduce's bucket
-     count and seconds, forward ms (the second of two calls), sample s.
+     count and seconds, forward ms (the second of two calls), sample s;
+ 17. int8 serving and the conditions app: (a) in the full-width MDM512
+     UNet forward (batch 2, bf16, re-randomized weights) under --quantize
+     int8, `linear_i8`, `conv_i8` and `temporal_conv311_i8` at every shape
+     the forward gives them: each int32 accumulator equal to the float64
+     product of the same int8 codes, each fp32 output within QUANT_ULPS fp32
+     ulps of its float64 dequantization, and two planted faults that must
+     miss that bound (the weight quantized per input channel with its
+     scales on the output axis; a conv's activation scale per sample
+     instead of over the batch); (b) that forward unquantized and under
+     each of the four --quantize modes, each at >= 15 dB SNR against the
+     unquantized bf16 one, launches at SITES with QUANT_SITES (the JAX
+     dispatch's sites per mode), weight bytes (size_report), forward ms
+     (median of 3) and peak memory above the weights, and a yardstick: one
+     ds1 linear's product in `_int_mm` against bf16 `torch.matmul`, and its
+     W8A8 layer against `F.linear` in bf16; (c) one 3-task
+     window at batch 6 (25 DDIM steps) from a server built as `serve`
+     builds it with --quantize int8-conv, then the same window from the
+     `quantize` app's artifact, bit for bit (an fp16 MDM512 file and the
+     artifact written under _phase17 in the checkout, deleted after); (d)
+     `conditions --render_virtual --six_frame_depth` on a seeded synthetic
+     scene at 1920x1280 (2M background points, three cars, two frames) on
+     the card and on the CPU, the maps equal but at rounding ties, the app's
+     seconds on each and one sparse frame's render time.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -245,7 +268,8 @@ configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
 phase 13's forwards, phase 14's requests, phase 15's app runs and
-policy micro-steps, and phase 16's data-parallel and FSDP steps). Then the
+policy micro-steps, phase 16's data-parallel and FSDP steps and phase 17's
+served int8 windows). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -398,6 +422,15 @@ SWITCHES_OFF = {
                         "gn_silu_tconv": 0, "flash_attention": 15}},
 }
 F32_PATH_TOL = 1e-4   # the fp32 switch forward's relative L2 against the fp32 plain one
+# Phase 17: the --quantize modes of render and serve, and the MDM512 kernel
+# sites of one bf16 UNet forward (batch 2) under each that differ from
+# SITES, held against a trace of the JAX UNet with its tree quantized by the
+# JAX app by tests/test_torch_switches.py
+QUANTIZE_MODES = ("int8", "int8-conv", "int8-conv-wide", "int8-weights")
+_INT8_OFF = {"spatial_attn": 0, "temporal_attn": 0, "geglu_ff": 0, "gn_silu_tconv": 0,
+             "flash_attention": 10}
+QUANT_SITES = {"int8": _INT8_OFF, "int8-conv": {}, "int8-conv-wide": {"geglu_ff": 21},
+               "int8-weights": _INT8_OFF}
 SWITCH_CLIP_EXTRA = {"group_norm": 0, "layer_norm": 9, "short_kv_attention": 0}
 SWITCH_TRAIN = {"fwd": {"group_norm": 117, "layer_norm": 85, "short_kv_attention": 10},
                 "bwd": {"group_norm": 86, "layer_norm": 76, "short_kv_attention": 10}}
@@ -3933,6 +3966,641 @@ def phase_parallel(torch, K, mdm_mod, step_mod, dev="cuda", preset=None, hw=None
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: int8 serving (quant.py, render/serve --quantize, the quantize
+# app) and the conditions app
+# ---------------------------------------------------------------------------
+
+QUANT_SNR_DB = 15.0   # int8 against full precision in bf16, tests/test_quant.py:229-231
+PEAK_INT8 = 1979e12   # int8 tensor cores, dense (the data sheet above)
+YARD_LINEAR = (2 * 16 * 2560, 320, 2560)   # MDM512 ds1's FF projection at batch 2: M, K, N
+QUANT_ULPS = 8        # an int8 op's fp32 output against its float64 dequantization
+QUANT_OPS = ("linear_i8", "conv_i8", "temporal_conv311_i8")
+COND_HW = (1280, 1920)          # the Waymo FRONT camera, height x width
+COND_POINTS = 2_000_000         # the background cloud
+COND_OBJECTS = (3, 20_000)      # objects, points each
+COND_LIDAR = 150_000            # points of each frame's lidar cloud
+COND_FRAMES = 2
+COND_MATCH, COND_TIE = 0.999, 1e-4   # tests/test_torch_conditions.py's tolerance
+
+
+def snr_db(torch, ref, y):
+    """10 log10(sum ref^2 / sum (ref - y)^2), tests/test_quant.py's measure."""
+    ref, y = ref.double(), y.double()
+    return 10 * math.log10(float((ref * ref).sum()) / max(float(((ref - y) ** 2).sum()), 1e-300))
+
+
+def record_int8_sites(torch, Q, fn):
+    """Run fn() with each int8 op of `Q` recording its first call per (op,
+    input shape, weight shape, arguments): [(op, layer, input, kwargs)]."""
+    sites, seen, saved = [], set(), {}
+    for op in QUANT_OPS:
+        saved[op] = orig = getattr(Q, op)
+
+        def wrapped(m, x, *, _op=op, _orig=orig, **kw):
+            key = (_op, tuple(x.shape), tuple(Q.weight_shape(m)), repr(sorted(kw.items())))
+            if key not in seen:
+                seen.add(key)
+                sites.append((_op, m, x.detach().clone(), kw))
+            return _orig(m, x, **kw)
+
+        setattr(Q, op, wrapped)
+    try:
+        out = fn()
+    finally:
+        for op, orig in saved.items():
+            setattr(Q, op, orig)
+    return sites, out
+
+
+def ref_codes(torch, x, per_row):
+    """The JAX package's dynamic activation quantization (quant.py:250-268),
+    written here apart from the port's: (int8 codes, fp32 scale), the
+    absmax per row (last axis) or over the whole tensor."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True) if per_row else xf.abs().amax()
+    scale = torch.maximum(amax, torch.tensor(1e-12, device=x.device)) / 127.0
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def _f64_conv(torch, x_i8, w_i8, stride, pads):
+    """The exact int8 convolution in float64: x (N, H, W, C) channels-last,
+    w (O, C, kh, kw); pads ((top, bottom), (left, right))."""
+    import torch.nn.functional as F
+
+    (t, b), (l, r) = pads
+    xc = F.pad(x_i8.double().permute(0, 3, 1, 2), (l, r, t, b))
+    return F.conv2d(xc, w_i8.double(), stride=stride).permute(0, 2, 3, 1)
+
+
+def _conv_pads(Q, m, x, kw):
+    k = Q.weight_shape(m)[2:]
+    s = kw.get("stride", 1)
+    p = kw.get("padding", "SAME")
+    return ([Q.same_pads(x.shape[1 + i], k[i], s) for i in range(2)] if p == "SAME"
+            else [tuple(v) for v in p])
+
+
+def _excess(torch, y, ref, terms):
+    """max over elements of |y - ref| / (QUANT_ULPS * 2^-24 * terms): <= 1
+    is fp32 rounding of the float64 dequantization."""
+    bound = QUANT_ULPS * 2.0 ** -24 * terms + 1e-30
+    return float(((y.double() - ref).abs() / bound).max())
+
+
+def check_int8_site(torch, Q, op, m, x, kw, w_master):
+    """One int8 op at one recorded site: its int32 accumulator equal to the
+    float64 product of the same int8 codes (`ref_codes`; exact: |sums| <
+    2^53); its fp32 output (the op on x in fp32, the same codes) within fp32
+    rounding of the float64 dequantization; and the planted faults, each of which must miss
+    that bound: "scale on input axis" (the weight quantized per input
+    channel, its scales applied on the output axis; square weights) and, for
+    a conv over more than one sample, "per-sample scale" (each sample's own
+    activation absmax). Returns {"acc_equal", "excess", "faults": {name:
+    excess}}."""
+    import torch.nn.functional as F
+
+    scale = m.scale.double()
+    bias = 0.0 if m.bias is None else m.bias.double()
+    babs = 0.0 if m.bias is None else m.bias.double().abs()
+    faults = {}
+    w = (m.weight_i8.flatten(1) if op == "linear_i8" else m.weight_i8)
+    square = w.shape[0] == w.shape[1]
+    if op == "linear_i8":
+        acc, _ = Q.linear_acc(m, x)
+        x_i8, xs = ref_codes(torch, x, True)
+
+        def prod(codes, wc):
+            return (codes.reshape(-1, codes.shape[-1]).double() @ wc.double().t()).reshape(
+                *codes.shape[:-1], wc.shape[0])
+
+        exact = prod(x_i8, w)
+        y = Q.linear_i8(m, x.float())
+        ref = exact * (xs.double() * scale) + bias
+        terms = (exact * (xs.double() * scale)).abs() + babs
+        if square:
+            wa, sa = Q.quantize_weight(w_master.flatten(1), axis=1)
+            faults["scale on input axis"] = _excess(
+                torch, prod(x_i8, wa) * (xs.double() * sa.double()) + bias, ref, terms)
+    elif op == "conv_i8":
+        acc, _ = Q.conv_acc(m, x, **kw)
+        x_i8, xs = ref_codes(torch, x, False)
+        pads = _conv_pads(Q, m, x, kw)
+        stride = kw.get("stride", 1)
+        exact = _f64_conv(torch, x_i8, w, stride, pads)
+        y = Q.conv_i8(m, x.float(), **kw)
+        ref = exact * (xs.double() * scale) + bias
+        terms = (exact * (xs.double() * scale)).abs() + babs
+        if x.shape[0] > 1:
+            per = []
+            for n in range(x.shape[0]):
+                xn, sn = ref_codes(torch, x[n:n + 1], False)
+                per.append(_f64_conv(torch, xn, w, stride, pads) * (sn.double() * scale) + bias)
+            faults["per-sample scale"] = _excess(torch, torch.cat(per), ref, terms)
+    else:
+        accs, _ = Q.temporal_accs(m, x)
+        x_i8, xs = ref_codes(torch, x, True)
+        s = xs.double() * scale
+
+        def taps(wc, codes=x_i8):
+            def tap(xi, t):
+                return (xi.reshape(-1, xi.shape[-1]).double() @ wc[:, :, t, 0, 0].double().t()
+                        ).reshape(*xi.shape[:-1], wc.shape[0])
+            return tap(codes[:, :-1], 0), tap(codes, 1), tap(codes[:, 1:], 2)
+
+        def combine(t3, sc):
+            parts = (t3[1] * sc, F.pad(t3[0] * sc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)),
+                     F.pad(t3[2] * sc[:, 1:], (0, 0, 0, 0, 0, 0, 0, 1)))
+            return parts[0] + parts[1] + parts[2] + bias, sum(p.abs() for p in parts) + babs
+
+        exact3 = taps(w)
+        acc, exact = torch.cat([a.reshape(-1) for a in accs]), torch.cat(
+            [e.reshape(-1) for e in exact3])
+        y = Q.temporal_conv311_i8(m, x.float())
+        ref, terms = combine(exact3, s)
+        if square:
+            wa, sa = Q.quantize_weight(w_master, axis=1)
+            faults["scale on input axis"] = _excess(
+                torch, combine(taps(wa), xs.double() * sa.double())[0], ref, terms)
+    return {"acc_equal": bool(torch.equal(acc.double(), exact)),
+            "excess": _excess(torch, y, ref, terms), "faults": faults}
+
+
+def check_int8_sites(torch, Q, sites, masters):
+    """check_int8_site at every recorded site (`masters`: layer -> its fp32
+    weight before quantization); raises where an accumulator differs, an
+    output leaves fp32 rounding or a planted fault passes, or a fault or op
+    was never tried. Returns per op the sites, the largest excess and the
+    faults' smallest excess."""
+    out, tried = {}, set()
+    for op, m, x, kw in sites:
+        r = check_int8_site(torch, Q, op, m, x, kw, masters[m])
+        label = f"{op} {tuple(x.shape)} w{tuple(Q.weight_shape(m))}"
+        if not r["acc_equal"]:
+            raise AssertionError(f"{label}: the int32 accumulator differs from float64")
+        if r["excess"] > 1.0:
+            raise AssertionError(f"{label}: output {r['excess']:.2f}x the fp32 rounding bound")
+        for name, e in r["faults"].items():
+            tried.add(name)
+            if e <= 1.0:
+                raise AssertionError(f"{label}: planted fault {name!r} passed ({e:.2f})")
+        o = out.setdefault(op, {"sites": 0, "max_excess": 0.0, "fault_min_excess": {}})
+        o["sites"] += 1
+        o["max_excess"] = max(o["max_excess"], r["excess"])
+        for name, e in r["faults"].items():
+            o["fault_min_excess"][name] = min(o["fault_min_excess"].get(name, math.inf), e)
+    missing = {"scale on input axis", "per-sample scale"} - tried
+    if missing or set(out) != set(QUANT_OPS):
+        raise AssertionError(f"int8 checks: ops {sorted(out)}, faults never tried {missing}")
+    return out
+
+
+def int_mm_yardstick(torch, Q, card):
+    """One ds1 linear of the MDM512 forward at batch 2 (YARD_LINEAR): the
+    product alone, `int_mm` of int8 codes against torch.matmul in bf16, and
+    the whole layer, `linear_i8` (quantize, product, dequantize) against
+    F.linear in bf16; median CUDA-event ms beside each product's bound."""
+    import torch.nn.functional as F
+
+    m, k, n = YARD_LINEAR
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    lin = torch.nn.Linear(k, n, device="cuda")
+    w16, b16 = lin.weight.detach().bfloat16(), lin.bias.detach().bfloat16()
+    Q.quantize_module(lin, min_size=0)
+    a8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    r = {"shape": [m, k, n],
+         "int_mm_ms": cuda_ms(torch, lambda: Q.int_mm(a8, lin.weight_i8)),
+         "bf16_matmul_ms": cuda_ms(torch, lambda: torch.matmul(x, w16.t())),
+         "linear_i8_ms": cuda_ms(torch, lambda: Q.linear_i8(lin, x)),
+         "linear_bf16_ms": cuda_ms(torch, lambda: F.linear(x, w16, b16)),
+         "int_mm_bound_ms": bound(2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8)[0],
+         "bf16_bound_ms": bound(2 * m * k * n, 2 * (m * k + k * n + m * n))[0]}
+    log(f"  yardstick, one ds1 linear {m}x{k} @ {k}x{n}: _int_mm {r['int_mm_ms']:.3f} ms "
+        f"(bound {r['int_mm_bound_ms']:.3f}) against bf16 matmul {r['bf16_matmul_ms']:.3f} "
+        f"(bound {r['bf16_bound_ms']:.3f}); the W8A8 layer {r['linear_i8_ms']:.3f} ms against "
+        f"F.linear bf16 {r['linear_bf16_ms']:.3f} ({card})")
+    return r
+
+
+def quant_unet(torch, K, Q, ri_mod, U, master, mode, cfg=None, dev="cuda", min_size=None):
+    """A UNet of `master`'s fp32 weights, quantized as `render --quantize
+    mode` does ('none': float), cast to bf16, its float kernel sites packed."""
+    with torch.device("meta"):
+        unet = U.UNet3D(cfg or U.UNetConfig())
+    unet.to_empty(device=dev)
+    unet.load_state_dict(master)
+    if mode != "none":
+        Q.quantize_module(unet, min_size=min_size, **ri_mod.quantize_options(mode))
+    unet.to(torch.bfloat16).eval()
+    K.prepare_kernels(unet)
+    return unet
+
+
+def phase_quant_forwards(torch, K, Q, ri_mod, U, card, cfg=None, latent=None, dev="cuda",
+                         min_size=None):
+    """Phase 17 (a) and (b): one full-width MDM512 UNet forward at batch 2
+    (re-randomized weights, bf16, 16 frames) unquantized and under each
+    --quantize mode; each mode's output at >= QUANT_SNR_DB against the
+    unquantized one, launches at SITES with QUANT_SITES; weight bytes
+    (size_report), forward time (median of 3) and the forward's peak memory
+    above the resident weights. The int8 mode's forward records every int8
+    op site, checked by check_int8_sites. `cfg`, `latent` and `min_size`
+    let the CPU tests run it small (no timing, no launch check)."""
+    on_card = dev == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    with torch.device("meta"):
+        ref_unet = U.UNet3D(cfg or U.UNetConfig())
+    ref_unet.to_empty(device=dev)
+    randomize_(torch, ref_unet, gen)
+    master = {k: v.detach().clone() for k, v in ref_unet.state_dict().items()}
+    del ref_unet
+    h, w = latent or LATENT["mdm512"]
+    b, t = 2, 16 if cfg is None else 4
+    c_in = (cfg or U.UNetConfig()).in_channels
+    ctx_dim = (cfg or U.UNetConfig()).context_dim
+    tokens = 77 + t * (cfg or U.UNetConfig()).image_tokens_per_frame
+    x = torch.randn(b, t, h, w, c_in, generator=gen, device=dev).bfloat16()
+    ctx = torch.randn(b, tokens, ctx_dim, generator=gen, device=dev).bfloat16()
+    ts = torch.full((b,), 700, device=dev)
+    lab = torch.zeros(b, dtype=torch.int64, device=dev)
+    report, ref, sites = {"card": card}, None, None
+    for mode in ("none", *QUANTIZE_MODES):
+        unet = quant_unet(torch, K, Q, ri_mod, U, master, mode, cfg, dev, min_size)
+        size = Q.size_report(unet)
+
+        def fwd():
+            return unet(x, ts, ctx, c_label=lab)
+
+        with torch.no_grad():
+            base = torch.cuda.memory_allocated() if on_card else 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            if mode == "int8":
+                sites, y = record_int8_sites(torch, Q, fwd)
+            else:
+                y = fwd()
+            counts = K.launch_counts()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else None
+            ms = cuda_ms(torch, fwd, iters=3, warmup=1) if on_card else None
+        r = {"int8_bytes": size["int8_bytes"], "other_bytes": size["other_bytes"], "ms": ms,
+             "peak_forward_gib": peak}
+        if mode == "none":
+            ref = y.float()
+        else:
+            r["snr_db"] = snr_db(torch, ref, y.float())
+            if not bool(torch.isfinite(y).all()) or r["snr_db"] < QUANT_SNR_DB:
+                raise AssertionError(f"--quantize {mode}: SNR {r['snr_db']:.2f} dB against "
+                                     f"bf16 is below {QUANT_SNR_DB} dB")
+        if on_card:
+            expect = {**SITES["mdm512"], **QUANT_SITES.get(mode, {})}
+            if counts != expect:
+                raise AssertionError(f"--quantize {mode}: launches {counts} != {expect}")
+        r["launches"] = counts
+        report[mode] = r
+        log(f"  --quantize {mode}: weights {size['int8_bytes'] / 2**20:.0f} MiB int8 + "
+            f"{size['other_bytes'] / 2**20:.0f} MiB fp, forward "
+            f"{'not timed' if ms is None else f'{ms:.1f} ms'}, peak above the weights "
+            f"{'not measured' if peak is None else f'{peak:.2f} GiB'}"
+            + (f", SNR vs bf16 {r['snr_db']:.2f} dB" if mode != "none" else "")
+            + f" ({card})")
+        if mode == "int8":
+            masters = {m: master[n + (".weight")] for n, m in unet.named_modules()
+                       if Q.is_w8a8(m)}
+            report["int8_sites"] = check_int8_sites(torch, Q, sites, masters)
+            log(f"  int8 ops at every quantized shape of the forward: "
+                f"{ {op: v['sites'] for op, v in report['int8_sites'].items()} } sites, "
+                f"accumulators equal to float64, outputs within {QUANT_ULPS} fp32 ulps, "
+                f"planted faults missed: "
+                f"{ {op: v['fault_min_excess'] for op, v in report['int8_sites'].items()} }")
+            del sites
+        del unet, y
+        if on_card:
+            torch.cuda.empty_cache()
+    return report
+
+
+def _serve_window(torch, K, ri_mod, serve_mod, flags, window, seed, clip=SERVE_CLIP):
+    """One 3-task window through a server built as `serve` builds it: the
+    clip (3, T, H, W, 3), its seconds and launches."""
+    import numpy as np
+
+    args = serve_mod.parser().parse_args(["--spool", "unused", *SERVE_FLAGS, *flags])
+    mdm, sample_fn, tokenizer = ri_mod.build_server(args)
+    dev = next(mdm.parameters()).device
+    tokens = torch.as_tensor(tokenizer(["A photo a of driving scene."] * 3), device=dev).long()
+    null_tokens = torch.as_tensor(tokenizer([""])[0], device=dev).long()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    (_, _, out), = ri_mod.render_windows(mdm, sample_fn, window, tokens=tokens,
+                                        null_tokens=null_tokens, video_length=clip[0],
+                                        generator=gen)
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    del mdm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if out.shape != (3, *clip, 3) or not np.isfinite(out).all() or np.abs(out).max() > 1:
+        raise AssertionError(f"served int8 window: output {out.shape} misshapen, not finite "
+                             "or outside [-1, 1]")
+    return out, secs, counts
+
+
+def phase_quant_serve(torch, K, mdm_mod, ri_mod, serve_mod, qa_mod, card, dev="cuda",
+                      preset="mdm512", small=None):
+    """Phase 17 (c): an MDM512 (init_mdm seeded 0, its parameters stored
+    fp16 in a torch file) served through `serve`'s build with --quantize
+    int8-conv answering one seeded window at batch 6 (launches at 25 x the
+    int8-conv sites); then the same window from the `quantize` app's
+    artifact of that file (--which conv), bit for bit. The files live in
+    _phase17 in the checkout and are deleted. Returns the launches of both
+    windows and the report. `dev`, `preset` and `small` (frames, height,
+    width, steps, min_size) let the CPU tests run it small (no launch
+    check)."""
+    import shutil
+
+    import numpy as np
+
+    from mudg_tpu_torch.models import presets
+    from mudg_tpu_torch.train import checkpoint as C
+
+    work = os.path.join(ROOT, "_phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    saved_env = os.environ.get("MUDG_ALLOW_HASH_TOKENIZER")
+    os.environ["MUDG_ALLOW_HASH_TOKENIZER"] = "1"   # random weights, no BPE table
+    try:
+        mdm = mdm_mod.init_mdm(presets.get(preset), torch.Generator(device=dev).manual_seed(0))
+        params = {n for n, _ in mdm.named_parameters()}
+        sd = {k: (v.half() if k in params else v) for k, v in mdm.state_dict().items()}
+        # the fp16 source, then the artifact: the int8 UNet layers, the rest fp32
+        need = sum(v.numel() * 6 for v in sd.values())
+        free = shutil.disk_usage(work).free
+        if free < need:
+            raise AssertionError(f"phase 17 needs {need / 1e9:.1f} GB of disk, "
+                                 f"{free / 1e9:.1f} GB are free")
+        src, art = os.path.join(work, "mdm_fp16.pt"), os.path.join(work, "mdm_int8.pt")
+        C.save(src, sd)
+        del mdm, sd
+        clip, size, min_size = SERVE_CLIP, [], []
+        if small:
+            frames, hh, ww, steps, min_q = small
+            clip, min_size = (frames, hh, ww), ["--min_size", str(min_q)]
+            size = ["--video_length", str(frames), "--height", str(hh), "--width", str(ww),
+                    "--steps", str(steps), "--quantize_min_size", str(min_q)]
+        size += ["--preset", preset, "--device", dev]
+        window = serve_windows(1, SEED + 17, clip)
+        out_q, s_q, c_q = _serve_window(torch, K, ri_mod, serve_mod,
+                                        ["--ckpt", src, "--quantize", "int8-conv", *size],
+                                        window, SEED + 17, clip)
+        t0 = time.perf_counter()
+        if qa_mod.main(["--ckpt", src, "--out", art, "--preset", preset, "--which", "conv",
+                        "--device", dev, *min_size]) != 0:
+            raise AssertionError("the quantize app failed")
+        quantize_s = time.perf_counter() - t0
+        art_gb = os.path.getsize(art) / 1e9
+        out_a, s_a, c_a = _serve_window(torch, K, ri_mod, serve_mod, ["--ckpt", art, *size],
+                                        window, SEED + 17, clip)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("MUDG_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["MUDG_ALLOW_HASH_TOKENIZER"] = saved_env
+    expect = serve_launches({**SITES["mdm512"], **QUANT_SITES["int8-conv"]}, SERVE_STEPS, 1,
+                            False)
+    for what, counts in (("--quantize int8-conv", c_q), ("artifact", c_a)):
+        if dev == "cuda" and counts != expect:
+            raise AssertionError(f"served window ({what}): launches {counts} != {expect}")
+    if not np.array_equal(out_q, out_a):
+        raise AssertionError("the artifact's window differs from --quantize int8-conv's: max "
+                             f"|diff| {np.abs(out_q - out_a).max():.3e}")
+    log(f"  served window at batch {SERVE_BATCH}, --quantize int8-conv: {s_q:.3f} s/window; "
+        f"quantize app {quantize_s:.1f} s, artifact {art_gb:.2f} GB; the artifact's window "
+        f"{s_a:.3f} s, bit for bit ({card})")
+    return ({"mdm512_serve_int8_conv": c_q, "mdm512_serve_int8_artifact": c_a},
+            {"s_per_window": s_q, "s_per_window_artifact": s_a, "quantize_s": quantize_s,
+             "artifact_gb": art_gb, "card": card})
+
+
+def _rotation_y(angle):
+    import numpy as np
+
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+def conditions_scene(root, hw=COND_HW, n_points=COND_POINTS, objects=COND_OBJECTS,
+                     lidar=COND_LIDAR, frames=COND_FRAMES, seed=SEED + 17):
+    """A seeded synthetic processed scene for the conditions app: a FRONT
+    camera of `hw` with Waymo-like intrinsics moving forward and turning, a
+    background cloud of `n_points` (a road plane and building walls), moving
+    objects (cars of `objects[1]` points) and per-frame lidar clouds.
+    Returns its directory."""
+    import pickle
+
+    import numpy as np
+
+    from mudg_tpu_torch.render import pointcloud as PC
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    f = 2000.0 * w / 1920
+    K = np.array([[f, 0, w / 2 + 0.3], [0, f, h / 2 - 0.2], [0, 0, 1]])
+    c2ws = []
+    for i in range(frames):
+        c2w = np.eye(4)
+        c2w[:3, :3] = _rotation_y(0.02 * i)
+        c2w[:3, 3] = [0.1 * i, 0.0, 1.5 * i]
+        c2ws.append(c2w)
+    scenario = {"observers": {
+        "camera_FRONT": {"class_name": "Camera", "n_frames": frames,
+                         "data": {"hw": [(h, w)] * frames, "intr": [K] * frames, "c2w": c2ws}},
+        "lidar_TOP": {"n_frames": frames}}}
+    os.makedirs(os.path.join(root, "objects"), exist_ok=True)
+    with open(os.path.join(root, "scenario.pt"), "wb") as fh:
+        pickle.dump(scenario, fh)
+    n_road = n_points // 2
+    road = np.stack([rng.uniform(-20, 20, n_road), np.full(n_road, 1.6) + rng.normal(0, .02, n_road),
+                     rng.uniform(2, 80, n_road)], 1)
+    n_wall = n_points - n_road
+    side = rng.choice([-12.0, 12.0], n_wall)
+    wall = np.stack([side + rng.normal(0, .1, n_wall), rng.uniform(-8, 1.6, n_wall),
+                     rng.uniform(2, 80, n_wall)], 1)
+    xyz = np.concatenate([road, wall]).astype(np.float32)
+    rgb = (rng.random((n_points, 3)) * 255).astype(np.uint8)
+    PC.store_ply(os.path.join(root, "objects", "background.ply"), xyz, rgb)
+    info = []
+    for k in range(objects[0]):
+        tfs = []
+        for i in range(frames):
+            tf = np.eye(4)
+            tf[:3, :3] = _rotation_y(0.1 * k)
+            tf[:3, 3] = [-4.0 + 4.0 * k, 0.8, 10.0 + 6.0 * k + 0.8 * i]
+            tfs.append(tf)
+        info.append({"id": f"car{k}", "visibility": np.ones(frames, np.int64),
+                     "transform_obj": tfs,
+                     "point_cloud": {"points": (rng.normal(0, 1, (objects[1], 3))
+                                                * [0.9, 0.6, 2.0]).astype(np.float32),
+                                     "colors": rng.random((objects[1], 3)).astype(np.float32)}})
+    with open(os.path.join(root, "objects_info.pkl"), "wb") as fh:
+        pickle.dump(info, fh)
+    os.makedirs(os.path.join(root, "lidar_clouds"), exist_ok=True)
+    for i in range(frames):
+        sel = rng.choice(n_points, lidar, replace=False)
+        PC.store_ply(os.path.join(root, "lidar_clouds", f"{i:08d}.ply"), xyz[sel], rgb[sel])
+    return root
+
+
+COND_OUTPUTS = ("sparse", "depth", "virtual_sparse", "virtual_depth", "six_frames_depth",
+                "six_frames_sparse")
+
+
+def run_conditions(mc_mod, media, scene, dev):
+    """`conditions --render_virtual --six_frame_depth` on `dev`, its images
+    kept in memory (the savers' inputs: the card's machine has no OpenCV)
+    and its .npy maps read back; the outputs are removed after. Returns
+    ({output name: array}, seconds)."""
+    import shutil
+
+    import numpy as np
+
+    maps, save = {}, media.save_image
+
+    def keep(path, img):
+        maps[os.path.relpath(path, scene)] = np.array(img)
+
+    media.save_image = keep
+    try:
+        t0 = time.perf_counter()
+        if mc_mod.main(["--scene", scene, "--render_virtual", "--six_frame_depth",
+                        "--device", dev]) != 0:
+            raise AssertionError(f"conditions on {dev} failed")
+        secs = time.perf_counter() - t0
+    finally:
+        media.save_image = save
+    for out in COND_OUTPUTS:
+        for d, _, fs in os.walk(os.path.join(scene, out)):
+            for fname in fs:
+                if fname.endswith(".npy"):
+                    p = os.path.join(d, fname)
+                    maps[os.path.relpath(p, scene)] = np.load(p)
+        shutil.rmtree(os.path.join(scene, out), ignore_errors=True)
+    return maps, secs
+
+
+def tie_pixels(torch, SP, xyz, K, w2c, hw, point_size):
+    """The pixels a rounding tie of a point's u or v (within COND_TIE of a
+    half-integer) could move: each such point's footprint, widened by one."""
+    import numpy as np
+
+    u, v, z = (a.numpy() for a in SP.project_points(
+        torch.as_tensor(xyz, dtype=torch.float32), torch.as_tensor(K, dtype=torch.float32),
+        torch.as_tensor(w2c, dtype=torch.float32)))
+    near = np.zeros(hw, bool)
+    tie = ((np.abs(u - np.floor(u) - 0.5) < COND_TIE) | (np.abs(v - np.floor(v) - 0.5) < COND_TIE)
+           ) & (z > SP.ZNEAR)
+    r = max(int(round(point_size)), 1) // 2 + 1
+    for uu, vv in zip(np.round(u[tie]).astype(int), np.round(v[tie]).astype(int)):
+        near[max(vv - r, 0):vv + r + 1, max(uu - r, 0):uu + r + 1] = True
+    return near
+
+
+def compare_conditions(torch, SP, PC, scene, card_maps, cpu_maps):
+    """The card's maps against the CPU's: the same outputs; each equal at
+    >= COND_MATCH of its pixels, every differing pixel near a rounding tie
+    of the frame's clouds (at its pose). Returns the count of differing
+    pixels."""
+    import pickle
+
+    import numpy as np
+
+    if sorted(card_maps) != sorted(cpu_maps) or not card_maps:
+        raise AssertionError("the card's and the CPU's conditions outputs differ in name")
+    with open(os.path.join(scene, "scenario.pt"), "rb") as fh:
+        cam = pickle.load(fh)["observers"]["camera_FRONT"]["data"]
+    with open(os.path.join(scene, "objects_info.pkl"), "rb") as fh:
+        info = pickle.load(fh)
+    vis = PC.object_visibility_table(info)
+    clouds = [PC.fetch_ply(os.path.join(scene, "objects", "background.ply"))[0]]
+    for d, _, fs in os.walk(os.path.join(scene, "lidar_clouds")):
+        clouds += [PC.fetch_ply(os.path.join(d, f))[0] for f in fs]
+    n_diff = 0
+    for name, a in card_maps.items():
+        b = cpu_maps[name]
+        diff = a != b
+        if diff.ndim == 3:
+            diff = diff.any(-1)
+        if not diff.any():
+            continue
+        n_diff += int(diff.sum())
+        if diff.mean() > 1 - COND_MATCH:
+            raise AssertionError(f"{name}: {diff.mean():.2%} of the pixels differ")
+        parts = os.path.splitext(os.path.basename(name))[0].split("_")
+        frame = int(parts[0])
+        K, c2w = np.asarray(cam["intr"][frame]), np.asarray(cam["c2w"][frame], np.float32)
+        if len(parts) > 1 and parts[1].isdigit():   # a virtual pose
+            c2w = SP.virtual_poses(c2w)[int(parts[1])]
+        xyz = np.concatenate([*clouds, PC.merge_objects_at_frame(info, vis, frame)[0]])
+        near = tie_pixels(torch, SP, xyz, K, SP.pose_inverse(c2w, "cpu").numpy(), diff.shape,
+                          4.0)
+        if not (diff & ~near).any():
+            continue
+        raise AssertionError(f"{name}: {int((diff & ~near).sum())} differing pixels are no "
+                             "rounding tie")
+    return n_diff
+
+
+def phase_conditions(torch, card, dev="cuda", **scene_kw):
+    """Phase 17 (d): `conditions --render_virtual --six_frame_depth` on a
+    seeded synthetic scene at the Waymo FRONT camera's 1920x1280 (about 2M
+    background points, three cars, per-frame lidar clouds; two frames: 2
+    real, 4 virtual and 2 six-frame depth renders), on `dev` and on the
+    CPU; the maps compared (compare_conditions); the app's seconds on each,
+    and one sparse frame's render time on `dev` alone (median of 3)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from mudg_tpu_torch.apps import make_conditions as mc_mod
+    from mudg_tpu_torch.render import pointcloud as PC
+    from mudg_tpu_torch.render import splat as SP
+    from mudg_tpu_torch.utils import media
+
+    with tempfile.TemporaryDirectory(dir=ROOT if dev == "cuda" else None) as d:
+        scene = conditions_scene(d, **scene_kw)
+        card_maps, card_s = run_conditions(mc_mod, media, scene, dev)
+        cpu_maps, cpu_s = run_conditions(mc_mod, media, scene, "cpu")
+        n_diff = compare_conditions(torch, SP, PC, scene, card_maps, cpu_maps)
+        bg, rgb, _ = PC.fetch_ply(os.path.join(scene, "objects", "background.ply"))
+        with open(os.path.join(scene, "objects_info.pkl"), "rb") as fh:
+            info = pickle.load(fh)
+        oxyz, orgb = PC.merge_objects_at_frame(info, PC.object_visibility_table(info), 0)
+        with open(os.path.join(scene, "scenario.pt"), "rb") as fh:
+            cam = pickle.load(fh)["observers"]["camera_FRONT"]["data"]
+        h, w = cam["hw"][0]
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        args = (f32(bg), f32(rgb), f32(oxyz), f32(orgb), f32(cam["intr"][0]),
+                np.asarray(cam["c2w"][0], np.float32))
+        frame_ms = (cuda_ms(torch, lambda: SP.render_sparse_frame(*args, height=h, width=w),
+                            iters=3, warmup=1) if dev == "cuda" else None)
+    maps = sum(1 for k in card_maps if k.endswith(".npy"))
+    depth = [float((v > 0).mean()) for k, v in card_maps.items() if k.endswith(".npy")]
+    log(f"  conditions at {w}x{h}, {len(bg):,} background points: {len(card_maps)} outputs "
+        f"({maps} depth maps, hit fraction {min(depth):.3f}-{max(depth):.3f}); app "
+        f"{card_s:.2f} s on {dev}, {cpu_s:.2f} s on the CPU; the maps equal but for "
+        f"{n_diff} pixels at rounding ties; one sparse frame "
+        f"{'not timed' if frame_ms is None else f'{frame_ms:.2f} ms'} on the card ({card})")
+    return {"app_s": card_s, "app_s_cpu": cpu_s, "frame_ms": frame_ms, "outputs": len(card_maps),
+            "pixels_at_ties": n_diff, "points": len(bg), "card": card}
+
+
 def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
@@ -3959,7 +4627,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -3997,6 +4665,8 @@ def main(argv=None):
         from mudg_tpu_torch.kernels import tile_raster as gs_k
         from mudg_tpu_torch.kernels import norms as norm_k
         from mudg_tpu_torch.kernels import short_attention as short_k
+        from mudg_tpu_torch import quant as quant_mod
+        from mudg_tpu_torch.apps import quantize_ckpt as qa_app
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT}: {e}", file=sys.stderr)
         return 2
@@ -4099,6 +4769,16 @@ def main(argv=None):
             14, "serving path", phase_serve, torch, K, U, nn_att, serve_app, ri_app, ckpt_mod,
             card)
         report["serve"]["kernels_batch6"] = rows14
+    if 17 in phases:
+        t17 = time.perf_counter()
+        report["quant_forwards"] = phase_quant_forwards(torch, K, quant_mod, ri_app, U, card)
+        report["int_mm_yardstick"] = int_mm_yardstick(torch, quant_mod, card)
+        torch.cuda.empty_cache()
+        served, report["quant_serve"] = phase_quant_serve(torch, K, mdm_mod, ri_app, serve_app,
+                                                          qa_app, card)
+        launches.update(served)
+        report["conditions"] = phase_conditions(torch, card)
+        log(f"phase 17 (int8 serving, conditions): {time.perf_counter() - t17:.1f} s")
     if 9 in phases:
         rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr,
                           args.profile, args.out))

@@ -7,16 +7,18 @@ Mirrors `python -m mudg_tpu`. Ported commands:
   train        MDM training                         (apps.train_mdm)
   precompute-latents  VAE moment caches for train --latents
                                                     (apps.precompute_latents)
-`render-infer` is an alias of `render`, `train-mdm` of `train`. The JAX CLI's
-other commands (conditions, eval, preprocess, segment, densify, quantize,
-bench and their hyphenated aliases) exit with code 2 and "not ported yet".
+  quantize     checkpoint -> int8 torch file for serving (apps.quantize_ckpt)
+  conditions   offline sparse RGB/depth generation  (apps.make_conditions)
+`render-infer` is an alias of `render`, `train-mdm` of `train`,
+`make-conditions` of `conditions`. The JAX CLI's other commands (eval,
+preprocess, segment, densify, bench and their hyphenated aliases) exit with
+code 2 and "not ported yet".
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("conditions", "make-conditions", "eval", "eval-nvs", "preprocess", "segment",
-              "densify", "quantize", "bench")
+NOT_PORTED = ("eval", "eval-nvs", "preprocess", "segment", "densify", "bench")
 
 
 def main(argv=None):
@@ -25,7 +27,8 @@ def main(argv=None):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    cmd = {"render-infer": "render", "train-mdm": "train"}.get(cmd, cmd)
+    cmd = {"render-infer": "render", "train-mdm": "train",
+           "make-conditions": "conditions"}.get(cmd, cmd)
     if cmd == "render":
         from .apps.render_infer import main as run
     elif cmd == "serve":
@@ -36,6 +39,10 @@ def main(argv=None):
         from .apps.train_mdm import main as run
     elif cmd == "precompute-latents":
         from .apps.precompute_latents import main as run
+    elif cmd == "quantize":
+        from .apps.quantize_ckpt import main as run
+    elif cmd == "conditions":
+        from .apps.make_conditions import main as run
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported yet (see ROADMAP.md); run it with "
               f"python -m mudg_tpu {cmd}", file=sys.stderr)

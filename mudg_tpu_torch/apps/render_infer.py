@@ -20,8 +20,11 @@ Usage:
     python -m mudg_tpu_torch render --items items.txt --out out/ \
         [--ckpt model.ckpt] [--height 320 --width 512] [--steps 50] [--device cpu]
 
-`--quantize` (int8 serving) other than `none` and `--quantize_min_size` exit
-with code 2: int8 serving is not ported yet.
+`--quantize int8 | int8-conv | int8-conv-wide | int8-weights` serves the
+UNet in int8 (`quant.py`: W8A8 on every conv and linear, on the spatial
+convs only, on those and the wide matmuls, or weight-only), quantized from
+the fp32 weights before the cast to --dtype; `--ckpt` also takes an
+artifact of `python -m mudg_tpu_torch quantize`.
 
 `--seq_parallel` under torchrun (one process per GPU; gloo with `--device
 cpu`) shards each clip's sampling over every rank (`parallel/sp.py`, the
@@ -36,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 import numpy as np
@@ -45,16 +47,12 @@ TASKS = ("color", "depth", "semantic")
 DTYPES = ("bf16", "f32")
 
 
-def not_ported(what: str):
-    print(f"{what} is not ported yet (see ROADMAP.md)", file=sys.stderr)
-    raise SystemExit(2)
-
-
 def load_params(args, cfg, device):
     """The MDM in fp32 on `device`: a MuDG `.ckpt` through
-    `train/checkpoint.py`, another path as a `torch.save`d MDM state dict,
-    else random weights from `init_mdm` (generator seeded 0); every
-    sub-model loads strictly."""
+    `train/checkpoint.py`, another path as a `torch.save`d MDM state dict
+    (a `quantize` artifact's int8 layers restructured to match its keys,
+    their buffers loaded intact), else random weights from `init_mdm`
+    (generator seeded 0); every sub-model loads strictly."""
     import torch
 
     from ..models import mdm as M
@@ -70,8 +68,11 @@ def load_params(args, cfg, device):
 
         C.load_into(mdm, C.load_mudg_checkpoint(args.ckpt))
     else:
-        mdm.load_state_dict(torch.load(args.ckpt, map_location=device, weights_only=True),
-                            strict=True)
+        from .. import quant
+
+        sd = torch.load(args.ckpt, map_location=device, weights_only=True)
+        quant.quantize_like(mdm, sd)
+        mdm.load_state_dict(sd, strict=True)
     return mdm
 
 
@@ -94,19 +95,58 @@ def idle_rank(seq_parallel: bool) -> bool:
     return not seq_parallel and int(os.environ.get("RANK", "0")) > 0
 
 
-def prepare_serving_params(mdm, quantize: str, dtype, min_size=None):
-    """The serving-time form of the loaded MDM: cast to the compute dtype,
-    every kernel site's weights packed (`kernels.prepare_kernels`). int8
-    quantization, and its `min_size`, wait for the port's int8 slice."""
+QUANTIZE = ("none", "int8", "int8-conv", "int8-conv-wide", "int8-weights")
+
+
+def quantize_options(quantize: str, sharded=False) -> dict:
+    """`quant.quantize_module`'s options for a --quantize mode other than
+    'none'; under `sharded` the convs take weight-only."""
+    return dict(mode="w8" if quantize == "int8-weights" else "w8a8",
+                which={"int8-conv": "conv", "int8-conv-wide": "conv_wide"}.get(quantize, "all"),
+                conv_mode="w8" if sharded else None)
+
+
+def prepare_serving_params(mdm, quantize: str, dtype, min_size=None, sharded=False):
+    """The serving-time form of the loaded fp32 MDM (render_infer.py:71-116):
+    the UNet quantized as `quantize` names ('int8' W8A8 on every conv and
+    linear, 'int8-conv' on the spatial convs only, 'int8-conv-wide' on those
+    and the wide matmuls, 'int8-weights' weight-only; `min_size` the least
+    weight elements quantized, quant.MIN_QUANT_SIZE by default), then cast to
+    the compute dtype and every float kernel site's weights packed
+    (`kernels.prepare_kernels`). `sharded` (sequence parallelism over
+    several processes): conv layers take weight-only, and a loaded
+    artifact's W8A8 convs are demoted (`quant.conv_w8a8_to_w8`), as JAX
+    does because its SPMD partitioner cannot split int8 convs."""
+    from .. import quant
     from ..kernels import prepare_kernels
 
     if quantize != "none":
-        not_ported(f"--quantize {quantize}")
-    if min_size is not None:
-        not_ported("--quantize_min_size")
+        quant.quantize_module(mdm.unet, min_size=min_size,
+                              **quantize_options(quantize, sharded))
+    if sharded:
+        n = quant.conv_w8a8_to_w8(mdm.unet)
+        if n:
+            print(f"seq-parallel: {n} int8 conv layers demoted to weight-only", flush=True)
+    if quantize != "none":
+        rep = quant.size_report(mdm.unet)
+        print(f"{quantize} UNet: {rep['int8_bytes'] / 2**20:.0f} MiB int8 + "
+              f"{rep['other_bytes'] / 2**20:.0f} MiB fp", flush=True)
     mdm.to(dtype).eval()
     prepare_kernels(mdm)
     return mdm
+
+
+def add_quantize_args(p):
+    """render's and serve's --quantize and --quantize_min_size."""
+    p.add_argument("--quantize", default="none", choices=QUANTIZE,
+                   help="post-training int8 quantization of the UNet for serving: "
+                        "'int8' W8A8 on every conv and linear (the fused kernels 1-4 "
+                        "then leave every quantized site), 'int8-conv' W8A8 on the "
+                        "spatial convs only, 'int8-conv-wide' those and the matmuls "
+                        "of C >= 1024, 'int8-weights' weight-only (int8 storage, "
+                        "compute in --dtype)")
+    p.add_argument("--quantize_min_size", type=int, default=None,
+                   help="min weight elements to quantize (default: quant.MIN_QUANT_SIZE)")
 
 
 def torch_dtype(name: str):
@@ -150,13 +190,7 @@ def main(argv=None):
                    help="compute dtype; bf16 matches the reference's fp16 "
                         "autocast inference (virtual_pose_render.py:218); fp32 "
                         "norm/softmax islands apply either way")
-    p.add_argument("--quantize", default="none",
-                   choices=("none", "int8", "int8-conv", "int8-conv-wide",
-                            "int8-weights"),
-                   help="int8 serving; not ported yet (exits 2 unless 'none')")
-    p.add_argument("--quantize_min_size", type=int, default=None,
-                   help="min weight elements to quantize (with --quantize); not "
-                        "ported yet (exits 2 when given)")
+    add_quantize_args(p)
     p.add_argument("--seq_parallel", action="store_true",
                    help="shard each clip's sampling over the processes torchrun runs "
                         "(ignored on one)")
@@ -205,7 +239,7 @@ def build_server(args):
     sp, impl = make_sp(args.seq_parallel, args.device)
     mdm = load_params(args, cfg, PM.local_device(args.device))
     mdm = prepare_serving_params(mdm, args.quantize, torch_dtype(args.dtype),
-                                 args.quantize_min_size)
+                                 args.quantize_min_size, sharded=sp is not None)
     # real checkpoints demand the real BPE table (hash ids would index
     # meaningless rows of the learned text embedding)
     tokenizer = default_tokenizer(args.bpe, require_real=bool(args.ckpt))

@@ -38,7 +38,8 @@ import os
 import time
 import traceback
 
-from .render_infer import DTYPES, TASKS, build_server, idle_rank, render_items
+from .render_infer import (DTYPES, TASKS, add_quantize_args, build_server, idle_rank,
+                           render_items)
 
 
 def process_request(req, mdm, sample_fn, tokenizer, *, video_length,
@@ -80,13 +81,7 @@ def parser():
     p.add_argument("--fps", type=int, default=10)
     p.add_argument("--prompt", default="A photo a of driving scene.")
     p.add_argument("--dtype", default="bf16", choices=DTYPES)
-    p.add_argument("--quantize", default="none",
-                   choices=("none", "int8", "int8-conv", "int8-conv-wide",
-                            "int8-weights"),
-                   help="int8 serving; not ported yet (exits 2 unless 'none')")
-    p.add_argument("--quantize_min_size", type=int, default=None,
-                   help="min weight elements to quantize (with --quantize); not "
-                        "ported yet (exits 2 when given)")
+    add_quantize_args(p)
     p.add_argument("--seq_parallel", action="store_true",
                    help="shard each clip's sampling over the processes torchrun runs "
                         "(ignored on one)")

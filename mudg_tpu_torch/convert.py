@@ -7,10 +7,14 @@ of `mudg_tpu/train/checkpoint.py:pytree_to_state_dict` and
 `jax_to_torch_layout`, in numpy: the port imports nothing of the JAX
 package). The port's modules have exactly those keys, so the result loads
 with `strict=True`. After the load every kernel site packs its weights once
-(`prepare_kernels`).
+(`prepare_kernels`). A tree that JAX's `quant.quantize_pytree` made int8
+loads into a module that `quant.quantize_module` restructured with the same
+selection: its `weight_i8`/`weight_q8` leaves take `weight`'s layout rule
+and stay int8, `scale` stays as it is.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Mapping
 
 import numpy as np
@@ -21,6 +25,9 @@ from .kernels import prepare_kernels
 # Modules whose '.weight' is an embedding table (kept (vocab, dim), not
 # transposed like a Linear); checkpoint.py:30-32.
 _EMBEDDING_MODULES = ("token_embedding",)
+# the leaves laid out as a Linear or Conv weight: the float one and JAX's
+# int8 ones (quant.py)
+_WEIGHT_LEAVES = ("weight", "weight_i8", "weight_q8")
 
 
 def jax_to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
@@ -31,7 +38,7 @@ def jax_to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
     leaf = key.rsplit(".", 1)[-1]
     if leaf == "in_proj_weight":
         return value.T
-    if leaf != "weight":
+    if leaf not in _WEIGHT_LEAVES:
         return value
     if any(key == s + ".weight" or key.endswith("." + s + ".weight")
            for s in _EMBEDDING_MODULES):
@@ -65,7 +72,8 @@ def pytree_to_state_dict(tree, *, prefix: str = "") -> dict[str, np.ndarray]:
 
 def tree_to_state_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """A JAX parameter tree (leaves: numpy or JAX arrays, any float dtype)
-    -> a torch-layout state dict of float32 tensors."""
+    -> a torch-layout state dict of float32 tensors (int8 leaves stay
+    int8)."""
     out = {}
     for k, a in pytree_to_state_dict(tree, prefix=prefix).items():
         if a.dtype.kind == "f" or a.dtype.name == "bfloat16":
@@ -81,7 +89,7 @@ def load_tree(module: torch.nn.Module, tree, *, device=None, dtype=None):
     `device`, by default the card ("cuda"), which raises where there is none:
     the CPU is used only when the caller asks for it."""
     sd = tree_to_state_dict(tree)
-    if any(p.is_meta for p in module.parameters()):
+    if any(p.is_meta for p in itertools.chain(module.parameters(), module.buffers())):
         module.to_empty(device=device or "cuda")
     elif device is not None:
         module.to(device)

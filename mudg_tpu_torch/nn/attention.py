@@ -19,6 +19,10 @@ sites down the JAX fallback chain (MUDG_FUSED_TCONV is read in `unet3d.py`).
 Relative-position and joint task attention are not ported yet. A
 transformer block's three residual outputs are the tag sites blk_attn1,
 blk_attn2 and blk_ff of the remat policies (attention.py:419-438, :559-560).
+A layer that `quant.quantize_module` made int8 keeps its site off the fused
+kernels 1-3, as the JAX predicates' `"weight" in p` tests send int8 layers
+to the XLA path (attention.py:291,335,376,535); kernel 5 takes activations
+only and still applies.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from torch import nn
 
 from . import functional as F
 from . import remat as R
+from .. import quant as Q
 from ..kernels import flash_attention as FA
 from ..kernels import mlp as M
 from ..kernels import short_attention as SA
@@ -212,7 +217,8 @@ def _ff_kernel_site(ff, x, impl):
     own predicate, and under "train" the backward kernel's as well;
     MUDG_FUSED_FF=0 keeps the plain FF."""
     inner = ff.net["2"].in_features
-    if (impl not in ("auto", "train") or os.environ.get("MUDG_FUSED_FF", "1") != "1"
+    if (impl not in ("auto", "train") or not Q.is_float(ff.net["0"].proj)
+            or os.environ.get("MUDG_FUSED_FF", "1") != "1"
             or not M.eligible(x.shape, x.dtype, inner)):
         return False
     c = x.shape[-1]
@@ -268,13 +274,16 @@ class BasicTransformerBlock(nn.Module):
 
     def _self_attn_square(self, attn):
         c = self.norm1.weight.shape[0]
-        return (attn.to_q.weight.shape == (c, c) and attn.to_k.weight.shape == (c, c)
+        return (all(Q.is_float(m) for m in (attn.to_q, attn.to_k, attn.to_v, attn.to_out["0"]))
+                and attn.to_q.weight.shape == (c, c) and attn.to_k.weight.shape == (c, c)
                 and not attn.image_cross)
 
     def pack_kernel_weights(self):
-        """Kernel-side weights of this block's sites, packed once."""
+        """Kernel-side weights of this block's float sites, packed once."""
         c = self.norm1.weight.shape[0]
-        packs = {"ff": M.pack_ff(self.ff, self.norm3)}
+        packs = {}
+        if Q.is_float(self.ff.net["0"].proj):
+            packs["ff"] = M.pack_ff(self.ff, self.norm3)
         pack_stage = TA.pack_stage if self.temporal else SP.pack_stage
         if c <= SP.MAX_C and c == self.heads * 64:
             for name, norm, attn in (("attn1", self.norm1, self.attn1),
@@ -317,13 +326,9 @@ class BasicTransformerBlock(nn.Module):
 
 
 def _proj(m, x):
-    """proj_in/proj_out: a Linear, or a 1x1 Conv1d (weight (out, in, 1));
-    a linear's mm_out site."""
-    with R.site("mm_out"):
-        w = m.weight.to(x.dtype)
-        if w.ndim == 3:
-            w = w[..., 0]
-        return torch.nn.functional.linear(x, w, None if m.bias is None else m.bias.to(x.dtype))
+    """proj_in/proj_out: a Linear, or a 1x1 Conv1d (weight (out, in, 1)),
+    run as a linear in its mm_out site (attention.py:440-449)."""
+    return F.linear(m, x)
 
 
 def _make_proj(d_in, d_out, use_linear):
@@ -393,7 +398,7 @@ class TemporalTransformer(nn.Module):
                 and TA.eligible(x.shape, x.dtype, c, self.heads)
                 and (impl == "auto" or TA.bwd_eligible(n * t, c)))
         for blk in self.transformer_blocks.values():
-            if not site:
+            if not (site and Q.is_float(blk.attn1.to_q) and Q.is_float(blk.attn2.to_q)):
                 x = blk(x, None, impl=impl)
                 continue
             packs = blk.kernel_packs

@@ -18,6 +18,13 @@ Each layer runs inside the tag site the JAX package names its output by
 ln_out; the kernel-11 LayerNorm carries no tag, as the JAX fused-LN path
 (nn/functional.py:233) has none.
 
+A layer that `quant.quantize_module` made int8 dispatches on its buffers as
+the JAX layers dispatch on their leaves (nn/functional.py:38-151): a
+`weight_i8` layer runs `quant.linear_i8`, `conv_i8` or
+`temporal_conv311_i8` (a linear inside its caller's tag site; the int8
+convs carry no tag, as in JAX), a `weight_q8` layer the float path on its
+dequantized weight.
+
 Two multi-GPU hooks: a Linear that `parallel/tp.py` cut over
 the model ranks carries a `tp` role and runs through it, and a GroupNorm
 given a sequence-parallel sharding sums its statistics over the seq ranks
@@ -29,6 +36,7 @@ import os
 
 import torch.nn.functional as F
 
+from .. import quant as Q
 from ..kernels import norms as N
 from . import remat as R
 
@@ -44,6 +52,9 @@ def _fused_norms(x) -> bool:
 
 
 def _w(m, dtype):
+    """The layer's weight in `dtype`, a weight-only layer's dequantized."""
+    if Q.W8 in m._buffers:
+        return Q.dequantize_weight(m, dtype)
     return m.weight.to(dtype)
 
 
@@ -53,23 +64,28 @@ def _b(m, dtype):
 
 def linear(m, x, tag: str = "mm_out"):
     """x (..., in) -> (..., out); `tag` names the output for the remat
-    policies (the GEGLU inner passes "ff_inner", which they recompute)."""
+    policies (the GEGLU inner passes "ff_inner", which they recompute). A
+    1x1 Conv1d (weight (out, in, 1)) runs as the linear it is."""
     tp = getattr(m, "tp", None)
     if tp is not None:
         return tp.linear(m, x, tag)
     with R.site(tag):
-        return F.linear(x, _w(m, x.dtype), _b(m, x.dtype))
+        if Q.is_w8a8(m):
+            return Q.linear_i8(m, x)
+        return F.linear(x, _w(m, x.dtype).flatten(1), _b(m, x.dtype))
 
 
 def conv2d(m, x, stride: int = 1, padding="SAME"):
     """x (N, H, W, C) -> (N, H', W', O). padding: "SAME" (k // 2 on every
     side, the stride-1 SAME of the JAX package) or ((top, bottom), (left, right))."""
+    if Q.is_w8a8(m):
+        return Q.conv_i8(m, x, stride=stride, padding=padding)
     with R.site("conv_out"):
         return _conv2d(m, x, stride, padding)
 
 
 def _conv2d(m, x, stride, padding):
-    kh, kw = m.weight.shape[-2:]
+    kh, kw = Q.weight_shape(m)[-2:]
     xc = x.permute(0, 3, 1, 2)   # NCHW view with channels-last strides
     if padding == "SAME":
         pad = (kh // 2, kw // 2)
@@ -88,6 +104,8 @@ def temporal_conv311(m, x):
     """(3,1,1) temporal conv with zero padding in t, as three shifted
     products (nn/functional.py:118-136). x (N, T, H, W, C); weight
     (out, in, 3, 1, 1)."""
+    if Q.is_w8a8(m):
+        return Q.temporal_conv311_i8(m, x)
     with R.site("tconv_out"):
         w = _w(m, x.dtype)
         assert w.shape[2:] == (3, 1, 1), w.shape

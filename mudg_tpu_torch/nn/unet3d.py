@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from . import attention as A
+from .. import quant as Q
 from . import functional as F
 from . import remat as R
 from ..core.schedules import timestep_embedding
@@ -163,9 +164,11 @@ class TemporalConvBlock(nn.Module):
                 (self.conv3["0"], self.conv3["3"]), (self.conv4["0"], self.conv4["3"])]
 
     def pack_kernel_weights(self):
-        c = self.conv1["2"].weight.shape[0]
-        self.kernel_packs = ([TC.pack_tconv(conv, norm) for norm, conv in self.stages()]
-                             if c <= TC.MAX_C else None)
+        """Kernel 4's weights, where every stage's conv is float and C fits."""
+        stages = self.stages()
+        fits = (all(Q.is_float(conv) for _, conv in stages)
+                and self.conv1["2"].weight.shape[0] <= TC.MAX_C)
+        self.kernel_packs = [TC.pack_tconv(conv, norm) for norm, conv in stages] if fits else None
 
     def forward(self, x, impl="auto", drop=None, sp=None):
         """drop: None, or the dropout applied before the conv of stages 2-4;
@@ -175,7 +178,8 @@ class TemporalConvBlock(nn.Module):
         # MUDG_FUSED_TCONV=0 keeps the plain stages (the JAX switch,
         # mudg_tpu/nn/unet3d.py:148-151)
         if (impl == "auto" and drop is None and os.environ.get("MUDG_FUSED_TCONV", "1") == "1"
-                and all(TC.eligible(x.shape, x.dtype, conv.weight.shape) for _, conv in stages)):
+                and all(Q.is_float(conv) and TC.eligible(x.shape, x.dtype, conv.weight.shape)
+                        for _, conv in stages)):
             packs = self.kernel_packs or [None] * 4
             h = x.contiguous()
             for (norm, conv), pack in zip(stages, packs):

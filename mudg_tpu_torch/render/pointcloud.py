@@ -1,4 +1,5 @@
-"""Point-cloud host utilities: voxel downsampling and PLY I/O (numpy).
+"""Point-cloud host utilities: voxel downsampling, hidden-point removal,
+PLY I/O and dynamic-object assembly (numpy and scipy, on the host).
 
 Copy of what the port needs from `mudg_tpu/render/pointcloud.py`; the
 numpy `voxel_downsample` also stands in for the JAX package's native
@@ -29,6 +30,41 @@ def voxel_downsample(xyz: np.ndarray, rgb: np.ndarray | None, voxel: float):
         out_rgb /= counts[:, None]
         out_rgb = out_rgb.astype(rgb.dtype)
     return out_xyz.astype(xyz.dtype), out_rgb
+
+
+def hidden_point_removal(xyz: np.ndarray, camera: np.ndarray, radius: float = 1e5):
+    """Katz et al. spherical flip + convex hull visibility (Open3D
+    hidden_point_removal, pipeline_depth.py:123). Returns the sorted indices
+    of the visible points."""
+    from scipy.spatial import ConvexHull
+
+    p = xyz - camera[None, :]
+    norm = np.maximum(np.linalg.norm(p, axis=1, keepdims=True), 1e-9)
+    flipped = p + 2 * (radius - norm) * (p / norm)
+    pts = np.concatenate([flipped, np.zeros((1, 3))], axis=0)  # the camera at the origin
+    hull = ConvexHull(pts)
+    return np.sort(np.setdiff1d(hull.vertices, [len(pts) - 1]))
+
+
+def object_visibility_table(obj_info: list[dict]) -> np.ndarray:
+    """(frames, n_objects) visibility matrix from the per-object records."""
+    return np.stack([obj["visibility"] for obj in obj_info], axis=0).T
+
+
+def merge_objects_at_frame(obj_info: list[dict], obj_vis: np.ndarray, frame: int):
+    """Every object visible at `frame`, its canonical cloud moved into the
+    world by its pose there: (xyz (N, 3), rgb (N, 3)); one far-away black
+    point when none is visible (generate_sparse.py:226-260)."""
+    xs, cs = [], []
+    for index, visible in enumerate(obj_vis[frame]):
+        if visible == 1:
+            obj = obj_info[index]
+            tf = obj["transform_obj"][frame]
+            xs.append(obj["point_cloud"]["points"] @ tf[:3, :3].T + tf[:3, 3])
+            cs.append(obj["point_cloud"]["colors"])
+    if not xs:
+        return np.array([[1000.0, 1000.0, 1000.0]]), np.array([[0.0, 0.0, 0.0]])
+    return np.concatenate(xs, axis=0), np.concatenate(cs, axis=0)
 
 
 def store_ply(path: str, xyz: np.ndarray, rgb_uint8: np.ndarray):

@@ -643,3 +643,88 @@ def test_chip_smoke_parallel_phase_fails_on_a_planted_fault(monkeypatch, tmp_pat
                               hw=(32, 64))
     finally:
         dist.destroy_process_group()
+
+
+def _tiny_int8_forwards(monkeypatch=None):
+    from mudg_tpu_torch import quant as Q
+    from mudg_tpu_torch.apps import render_infer as ri
+    from test_torch_model import TINY_UNET
+
+    with torch.no_grad():   # as chip_smoke.main runs its phases
+        return CS.phase_quant_forwards(torch, K, Q, ri, U, "cpu", cfg=U.UNetConfig(**TINY_UNET),
+                                       latent=(8, 8), dev="cpu", min_size=0)
+
+
+def test_chip_smoke_int8_phase_on_the_cpu():
+    """Phase 17 (a) and (b) at the tiny UNet (min_size 0, an 8x8 latent) on
+    the CPU: every --quantize mode's forward at >= 15 dB against the bf16
+    one, and at every int8 site of the int8 forward the accumulator equal
+    to float64, the output within fp32 rounding and both planted faults
+    missing (check_int8_sites raises otherwise)."""
+    rep = _tiny_int8_forwards()
+    assert set(rep["int8_sites"]) == set(CS.QUANT_OPS)
+    faults = set()
+    for v in rep["int8_sites"].values():
+        assert v["max_excess"] <= 1.0 and v["sites"] > 0
+        faults |= set(v["fault_min_excess"])
+    assert faults == {"scale on input axis", "per-sample scale"}
+    for mode in CS.QUANTIZE_MODES:
+        assert rep[mode]["snr_db"] >= CS.QUANT_SNR_DB
+    assert rep["int8"]["int8_bytes"] > rep["int8-conv"]["int8_bytes"] > 0
+    assert rep["none"]["int8_bytes"] == 0
+
+
+def test_chip_smoke_int8_check_sees_a_per_sample_conv(monkeypatch):
+    """A port whose conv quantizes each sample on its own absmax (not the
+    batch's, as JAX does) fails phase 17 (a): its accumulators differ."""
+    from mudg_tpu_torch import quant as Q
+
+    def per_sample(x):
+        xf = x.float()
+        return Q._quantize_act(xf, xf.abs().amax(dim=tuple(range(1, x.ndim)), keepdim=True))
+
+    monkeypatch.setattr(Q, "_dyn_quant_tensor", per_sample)
+    with pytest.raises(AssertionError, match="accumulator differs"):
+        _tiny_int8_forwards()
+
+
+def test_chip_smoke_int8_serve_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 17 (c) at the tiny preset (4 frames of 32x64, 1 step, min_size
+    0) on the CPU: the --quantize int8-conv window and the artifact's, bit
+    for bit; the work directory gone."""
+    import mudg_tpu_torch.models.mdm as mdm_mod
+    from mudg_tpu_torch.apps import quantize_ckpt as qa
+    from mudg_tpu_torch.apps import render_infer as ri
+    from mudg_tpu_torch.apps import serve as sv
+
+    monkeypatch.setattr(CS, "ROOT", str(tmp_path))
+    with torch.no_grad():
+        launches, rep = CS.phase_quant_serve(torch, K, mdm_mod, ri, sv, qa, "cpu", dev="cpu",
+                                             preset="tiny", small=(4, 32, 64, 1, 0))
+    assert set(launches) == {"mdm512_serve_int8_conv", "mdm512_serve_int8_artifact"}
+    assert rep["artifact_gb"] > 0 and not os.path.exists(tmp_path / "_phase17")
+
+
+def test_chip_smoke_conditions_phase_on_the_cpu(monkeypatch):
+    """Phase 17 (d) on a small scene (96x64, 20k points) on the CPU: the
+    scene, both app runs, their comparison; and the comparison refuses a
+    pixel that differs away from any rounding tie."""
+    from mudg_tpu_torch.render import pointcloud as PC
+    from mudg_tpu_torch.render import splat as SP
+
+    small = dict(hw=(64, 96), n_points=20_000, objects=(2, 500), lidar=3000)
+    rep = CS.phase_conditions(torch, "cpu", dev="cpu", **small)
+    assert rep["outputs"] == 2 * 3 + 4 * 3 + 2 * 2 and rep["pixels_at_ties"] == 0
+    import tempfile
+
+    from mudg_tpu_torch.apps import make_conditions as mc
+    from mudg_tpu_torch.utils import media
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = CS.conditions_scene(d, **small)
+        maps, _ = CS.run_conditions(mc, media, scene, "cpu")
+        moved = {k: v.copy() for k, v in maps.items()}
+        name = next(k for k in moved if k.startswith("depth") and k.endswith(".npy"))
+        moved[name][5, 5] += 1.0
+        with pytest.raises(AssertionError, match="no rounding tie"):
+            CS.compare_conditions(torch, SP, PC, scene, moved, maps)

@@ -38,6 +38,9 @@ import mudg_tpu.kernels.spatial_attn as JSP
 import mudg_tpu.kernels.tconv as JTC
 import mudg_tpu.kernels.temporal_attn as JTA
 from mudg_tpu.nn import unet3d as JU
+from mudg_tpu.apps import render_infer as JR
+from mudg_tpu_torch import quant as Q
+from mudg_tpu_torch.apps import render_infer as TR
 from mudg_tpu_torch.kernels import flash_attention as FA
 from mudg_tpu_torch.kernels import spatial_attn as SP
 from mudg_tpu_torch.nn import unet3d as TU
@@ -96,9 +99,10 @@ def test_switched_off_names_only_the_sites_jax_sends_away(monkeypatch, l, c, off
     assert SP.switched_off((2, l, c), torch.bfloat16, c, c // 64) == expect
 
 
-def _jax_calls(monkeypatch, dtype, latent):
+def _jax_calls(monkeypatch, dtype, latent, quantize="none"):
     """Calls of each JAX kernel (by port name) in `jax.eval_shape` of one
-    full-width JAX UNet forward at batch 2, 16 frames."""
+    full-width JAX UNet forward at batch 2, 16 frames; its tree quantized
+    as the JAX app's `prepare_serving_params` does for `quantize`."""
     calls = collections.Counter()
     for mod, fn, name in JAX_KERNELS:
         def fake(*a, _name=name, **k):
@@ -108,6 +112,9 @@ def _jax_calls(monkeypatch, dtype, latent):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     cfg = JU.UNetConfig()
     params = jax.eval_shape(lambda: JU.init_unet(jax.random.PRNGKey(0), cfg))
+    if quantize != "none":
+        params = jax.eval_shape(lambda p: JR.prepare_serving_params(
+            {"unet": p}, quantize, None)["unet"], params)
     S = jax.ShapeDtypeStruct
     h, w = latent
     jax.eval_shape(lambda p, x, ts, c, lab: JU.unet_apply(p, cfg, x, ts, c, c_label=lab), params,
@@ -116,13 +123,17 @@ def _jax_calls(monkeypatch, dtype, latent):
     return {k: v for k, v in calls.items() if v}
 
 
-def _port_calls(monkeypatch, dtype, latent):
+def _port_calls(monkeypatch, dtype, latent, quantize="none"):
     """Calls of each port kernel wrapper in one full-width UNet forward
-    (batch 2, 16 frames, impl="auto") on the meta device."""
+    (batch 2, 16 frames, impl="auto") on the meta device; quantized as
+    `render --quantize` quantizes it."""
     calls = count_kernel_calls(monkeypatch)
     h, w = latent
     with torch.device("meta"), torch.no_grad():
-        unet = TU.UNet3D(TU.UNetConfig()).to(dtype)
+        unet = TU.UNet3D(TU.UNetConfig())
+        if quantize != "none":
+            Q.quantize_module(unet, **TR.quantize_options(quantize))
+        unet.to(dtype)
         x = torch.empty(2, 16, h, w, 12, dtype=dtype)
         ctx = torch.empty(2, 77 + 256, 1024, dtype=dtype)
         ts = torch.zeros(2, dtype=torch.int64)
@@ -165,6 +176,22 @@ def test_f32_forward_flash_sites_match_jax_trace(monkeypatch, config):
     flash = CS.SWITCH_SITES_F32[config]["flash_attention"]
     assert ours == theirs == {"flash_attention": flash}
     assert flash == {"mdm512": 10, "mdm1024": 15}[config]
+
+
+@pytest.mark.parametrize("quantize", CS.QUANTIZE_MODES)
+def test_quantized_sites_match_jax_trace(monkeypatch, quantize):
+    """Under each --quantize mode, a full-width bf16 MDM512 forward (batch
+    2) calls the port's kernel wrappers where the traced JAX UNet, its tree
+    quantized by the JAX app, calls its kernels (an int8 layer's site takes
+    the XLA path, kernel 5 still applies): chip_smoke.py's QUANT_SITES."""
+    for var in CS.OPT_OUT:
+        monkeypatch.delenv(var, raising=False)
+    latent = CS.LATENT["mdm512"]
+    with monkeypatch.context() as mp:
+        theirs = _jax_calls(mp, jnp.bfloat16, latent, quantize)
+    ours = _port_calls(monkeypatch, torch.bfloat16, latent, quantize)
+    expect = {**CS.SITES["mdm512"], **CS.QUANT_SITES[quantize]}
+    assert ours == theirs == {k: v for k, v in expect.items() if v}
 
 
 def _qkv(shape, seed):
