@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18] [--out DIR] [--profile]
     torchrun --nproc_per_node N chip_smoke.py --phases 16      (phase 16 over N cards)
 
 Phases:
@@ -121,7 +121,8 @@ Phases:
      offset of 1e3 against the plain version run in float64; planted faults: GN with the one-pass variance (at the
      offset) and with the channel-to-group map shifted by one channel, LN
      without its mean subtraction, short-KV with the padded keys unmasked
-     and with half the keys, packed with another sequence's keys; each
+     and with half the keys (with one key: the next head's value), packed
+     with another sequence's keys; each
      autograd op's gradients against autograd of the plain math (within
      5e-2 * max|ref|); GN and LN rerun bit for bit; times beside the bound
      and torch's group_norm (channels-last), layer_norm and
@@ -164,11 +165,11 @@ Phases:
      forward_keys; phase 2's tolerances and planted faults, each timed
      median of 3); (c) a warm server built as serve.main builds it
      (`presets.mdm512()`, init_mdm on the card from a generator seeded 0,
-     bf16, HashTokenizer, 25 DDIM steps with guidance 7.5, rescale 0.7, eta
+     bf16, HashTokenizer, 10 DDIM steps with guidance 7.5, rescale 0.7, eta
      1.0, uniform_trailing, fps 10) answering three requests through
      render_windows on seeded in-memory windows of 16 frames at 320x512:
      r1 2 windows (the carry), r2 another prompt and seed, r3 task_serial;
-     each clip (3, 16, 320, 512, 3) finite in [-1, 1], launches exactly 25 x
+     each clip (3, 16, 320, 512, 3) finite in [-1, 1], launches exactly 10 x
      the MDM512 sites per sampler call (counts reset just before each
      request, read just after), window 2's sparse condition the carried
      color with frame 0 the GT; s/request, s/window, the UNet forward's
@@ -198,7 +199,8 @@ Phases:
      under remat=False and each of the nine policies, each within 1e-3
      relative L2 of full recompute's gradients (bit-equality printed),
      launches at policy_launches (kernels 5 and 2's forwards not replayed
-     under dots_attn), ms and peak memory per policy; (d) precompute's
+     under dots_attn), ms (one micro-step after a warm-up) and peak memory
+     per policy; (d) precompute's
      device part (`data/latents.encode_moments`) on 16 seeded frames at
      320x512 equal to encode_moments_video, the fp16 .npy round trip exact,
      then 2 app steps in the moments form, s/step beside (a)'s. The work
@@ -246,14 +248,39 @@ Phases:
      (median of 3) and peak memory above the weights, and a yardstick: one
      ds1 linear's product in `_int_mm` against bf16 `torch.matmul`, and its
      W8A8 layer against `F.linear` in bf16; (c) one 3-task
-     window at batch 6 (25 DDIM steps) from a server built as `serve`
+     window at batch 6 (10 DDIM steps) from a server built as `serve`
      builds it with --quantize int8-conv, then the same window from the
      `quantize` app's artifact, bit for bit (an fp16 MDM512 file and the
      artifact written under _phase17 in the checkout, deleted after); (d)
      `conditions --render_virtual --six_frame_depth` on a seeded synthetic
      scene at 1920x1280 (2M background points, three cars, two frames) on
      the card and on the CPU, the maps equal but at rounding ties, the app's
-     seconds on each and one sparse frame's render time.
+     seconds on each and one sparse frame's render time;
+ 18. the learned offline stages and eval on a seeded scene at the Waymo
+     FRONT camera's 1280x1920 (three frames, 5% of each frame's pixels with
+     a lidar depth; every weight random from a seed; fp32 with TF32 off;
+     images kept in memory: the card's machine has no OpenCV; files under
+     _phase18 in the checkout, deleted after): (c) the segment app with
+     SegFormer-B3 from an HF-named pytorch_model.bin, each frame's fp32
+     logits within 1e-4 relative L2 of the same module in float64, the
+     class ids float64's but where its top-2 margin is below 1e-3 x
+     max|logit|; (b) the densify app (DepthLab, two full-width SD2 UNets and
+     the SD VAE, from a 7 GB checkpoint directory in load_depthlab_dir's
+     layout with the diffusers VAE names) on the first frame at its
+     defaults but for the steps (10 DDIM steps, not 50, at strength 0.8: one
+     write pass, 8 read passes),
+     finite outputs, the sky of (c)'s maps at 100 m, launches at kernel 5's
+     10 write-pass sites, then densify_scene again from the same directory
+     bit for bit; s/frame, each pass's ms, peak GiB; (a) the write pass and
+     one read pass (160x240 latent) on four paths, kernels fp32 within 1e-4
+     relative L2 of plain fp32, kernels bf16 within 1.5x the plain bf16
+     path's error + 5e-3, launches at DEPTHLAB_SITES; kernel 5 in fp32 and
+     bf16 at L = 38400 and 9600 against its plain version (phase 2's
+     bounds, faults and SDPA yardstick); the read pass's self-attentions
+     alone, plain and in SDPA; (d) the eval app's three tasks over 16 pairs
+     at 576x1024 (LPIPS from a seeded lpips-layout file) on the card and on
+     the CPU, the PSNR, depth and mIoU rows equal, each pair's SSIM and
+     LPIPS within 1e-5 relative of float64, ms per frame.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -262,14 +289,15 @@ UNet forward's worth of a forward kernel at each of the two
 configurations, summed, and one batch-1 training micro-step's backward
 at each configuration, summed, for a backward kernel (phase 2's per-call
 medians or bounds times the sites; kernel 5 at the training lengths has
-sites 0 there: checked and timed, not summed), and kernel 13's per-call
-times at scene (b); kernels 11 and 12 one UNet forward's worth at both
+sites 0 there: checked and timed, not summed; phase 18's DepthLab shapes
+join the row's "shapes" and its max_abs_err, not its sums, unless phase 2
+did not run), and kernel 13's per-call times at scene (b); kernels 11 and 12 one UNet forward's worth at both
 configurations (the packed kernel one call at each temporal shape);
 "launches" is the count from the main paths (phases 4, 6, 7, 8, 10, the
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
 phase 13's forwards, phase 14's requests, phase 15's app runs and
-policy micro-steps, phase 16's data-parallel and FSDP steps and phase 17's
-served int8 windows). Then the
+policy micro-steps, phase 16's data-parallel and FSDP steps, phase 17's
+served int8 windows and phase 18's segment, densify and eval runs). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -280,6 +308,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -438,8 +467,10 @@ SWITCH_TRAIN = {"fwd": {"group_norm": 117, "layer_norm": 85, "short_kv_attention
 # configuration (batch 2; "sites" per forward), and (sites 0: checked and
 # timed, not in the row's sums) those that only the VAE at a training encode
 # chunk, the MDM512 training micro-step (batch 1), the MDM1024 clip's
-# resampler and the fp32 forwards ("-f32", in fp32) reach: phase 11 checks
-# and times each
+# resampler, the fp32 forwards ("-f32", in fp32), DepthLab's write and read
+# passes at a 1280x1920 frame in bf16 and fp32 and SegFormer-B3 on that frame
+# in fp32 reach (tests/test_torch_depthlab.py holds the last three against
+# the JAX predicates): phase 11 checks and times each
 GN_SHAPES = {
     "mdm512": {(2, 16, 5, 8, 1280): 29, (32, 10, 16, 1280): 11, (32, 10, 16, 1920): 1,
                (32, 10, 16, 2560): 2, (32, 10, 16, 640): 1, (32, 20, 32, 1280): 1,
@@ -461,6 +492,8 @@ GN_SHAPES = {
                                  (32, 40, 64, 320), (32, 5, 8, 1280), (32, 5, 8, 2560)), 0),
     "mdm1024-f32": dict.fromkeys(((32, 18, 32, 1280), (32, 18, 32, 640), (32, 36, 64, 320),
                                   (32, 9, 16, 1280), (32, 9, 16, 2560)), 0),
+    "depthlab": dict.fromkeys(((1, 20, 30, 1280), (1, 20, 30, 2560), (1, 40, 60, 640)), 0),
+    "depthlab-f32": {(1, 20, 30, 1280): 0},
 }
 LN_SHAPES = {
     "mdm512": {(1280, 16, 640): 5, (32, 160, 1280): 15, (32, 2560, 320): 5, (32, 40, 1280): 3,
@@ -478,6 +511,13 @@ LN_SHAPES = {
     "mdm1024-f32": dict.fromkeys(((1152, 16, 1280), (18432, 16, 320), (18432, 16, 512),
                                   (288, 16, 1280), (32, 144, 1280), (32, 2304, 640),
                                   (32, 576, 1280), (32, 9216, 320), (4608, 16, 640)), 0),
+    "depthlab": dict.fromkeys(((1, 38400, 320), (1, 9600, 640), (1, 2400, 1280),
+                               (1, 600, 1280)), 0),
+    "depthlab-f32": dict.fromkeys(((1, 38400, 320), (1, 9600, 640), (1, 2400, 1280),
+                                   (1, 600, 1280)), 0),
+    "segformer-f32": dict.fromkeys(((1, 153600, 64), (1, 2400, 64), (1, 38400, 128),
+                                    (1, 2400, 128), (1, 9600, 320), (1, 2400, 320),
+                                    (1, 2400, 512)), 0),
 }
 # Beside GN_SHAPES, the GroupNorms gn_plan also plans (n, rows, C, itemsize,
 # silu): kernel 4's clips at MDM512 and MDM1024 ds1, and the largest samples
@@ -497,6 +537,9 @@ SKV_SHAPES = {
                     ((32, 2304, 10, 64), (32, 77, 10, 64)): 0,
                     ((32, 9216, 5, 64), (32, 16, 5, 64)): 0,
                     ((32, 9216, 5, 64), (32, 77, 5, 64)): 0},
+    # DepthLab's cross-attention to its one context token
+    "depthlab": {((1, 38400, 5, 64), (1, 1, 5, 64)): 0},
+    "depthlab-f32": {((1, 38400, 5, 64), (1, 1, 5, 64)): 0},
 }
 # the temporal attention's (B*H*W, 16, heads, 64) at C = 320, 640, 1280 of MDM512
 PACKED_SHAPES = ((5120, 16, 5, 64), (1280, 16, 10, 64), (320, 16, 20, 64))
@@ -1408,9 +1451,13 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
         lk = ks[1]
         pad = (0, 0, 0, 0, 0, -lk % 64)
         faults = {"padded keys unmasked": lambda: SA.plain_short_attention(
-                      q, F.pad(k, pad), F.pad(v, pad)),
-                  "half the keys": lambda: SA.plain_short_attention(
-                      q, k[:, :lk // 2], v[:, :lk // 2])}
+                      q, F.pad(k, pad), F.pad(v, pad))}
+        if lk > 1:
+            faults["half the keys"] = lambda: SA.plain_short_attention(
+                q, k[:, :lk // 2], v[:, :lk // 2])
+        else:   # one key (DepthLab's context token): each head reads the next head's value
+            faults["another head's value"] = lambda: SA.plain_short_attention(
+                q, k, v.roll(1, dims=2))
         f32 = dtype == f4
         if f32:
             faults["1xTF32"] = lambda: SA.plain_short_attention(
@@ -1853,7 +1900,8 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",), batch=2):
     on it (impl="auto": kernels 11 and 12 and kernel 5 in fp32) within
     F32_PATH_TOL relative L2 of the fp32 plain one, launches at
     SWITCH_SITES_F32. Each path's forward is timed (median of 3; above batch
-    2 the plain path's once). Returns the UNet (bf16, packed), the report
+    2 the plain path's checked call and the kernel paths' median of 2 after
+    the checked call). Returns the UNet (bf16, packed), the report
     and, with "off", phase 13's summed launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1891,9 +1939,16 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",), batch=2):
         def run(impl):
             return unet(xb, t, cb, c_label=lab, fs=fs, impl=impl)
 
-        plain = run("plain")
-        ms_p = cuda_ms(torch, lambda: run("plain"),
-                       **(dict(iters=3, warmup=1) if batch == 2 else dict(iters=1, warmup=0)))
+        if batch == 2:
+            plain = run("plain")
+            ms_p = cuda_ms(torch, lambda: run("plain"), iters=3, warmup=1)
+        else:   # above batch 2 the checked call is the timed one
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            plain = run("plain")
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms_p = ev[0].elapsed_time(ev[1])
 
     def rel(a):
         return ((a.float() - ref).norm() / ref.norm()).item()
@@ -1912,7 +1967,8 @@ def phase_unet(torch, K, U, cfg, paths=("kernels",), batch=2):
             K.reset_launch_counts()
             kern = run("auto")
             counts = K.launch_counts()
-            ms_k = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1)
+            ms_k = cuda_ms(torch, lambda: run("auto"),
+                           **(dict(iters=3, warmup=1) if batch == 2 else dict(iters=2, warmup=0)))
         e_k = rel(kern)
         log(f"  {path} path: out {tuple(kern.shape)}, rel L2 vs fp32 {e_k:.4e} (bound "
             f"{err_bound:.4e}), forward bf16 {ms_k:.1f} ms")
@@ -2647,7 +2703,7 @@ def artifact_bytes(torch, mdm_mod, cfg, use_ema):
     return 4 * n_all, 4 * n_train * (4 if use_ema else 3)
 
 
-POLICY_RUNS = 4   # a warm-up and three timed micro-steps per policy
+POLICY_RUNS = 2   # a warm-up and one timed micro-step per policy
 
 
 def policy_micro_step(torch, K, mdm_mod, mdm, mb, draws, null_emb, policy):
@@ -2861,7 +2917,7 @@ def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=N
             equal = bool(torch.equal(g, ref))
             replay = {k: counts[k] - v for k, v in TRAIN_SITES["mdm512"].items()}
             log(f"  (c) remat={policy!s:10} {ms:8.1f} ms/micro-step (median of "
-                f"{POLICY_RUNS - 1}), peak {peak:5.1f} GiB above the model's, "
+                f"{POLICY_RUNS - 1} after a warm-up), peak {peak:5.1f} GiB above the model's, "
                 f"rel L2 vs full {rel:.2e} (bit-equal {equal}), forwards replayed {replay}")
             if not rel <= POLICY_REL:
                 raise AssertionError(f"(c) {policy}: gradients {rel:.3e} from full recompute's")
@@ -3370,7 +3426,7 @@ SERVE_BATCH = 6
 # 3 tasks x 3 CFG variants (--multiple_cond_cfg): phase 14 (a) also runs the
 # MDM1024 forward at this batch, the largest a served request makes
 MULTI_COND_BATCH = 9
-SERVE_STEPS = 25
+SERVE_STEPS = 10   # the app defaults to 50; cut to fit the time limit
 SERVE_FLAGS = ("--preset", "mdm512", "--steps", str(SERVE_STEPS), "--cfg_scale", "7.5",
                "--guidance_rescale", "0.7", "--eta", "1.0", "--timestep_spacing",
                "uniform_trailing", "--fps", "10", "--dtype", "bf16")
@@ -4312,7 +4368,7 @@ def phase_quant_serve(torch, K, mdm_mod, ri_mod, serve_mod, qa_mod, card, dev="c
                       preset="mdm512", small=None):
     """Phase 17 (c): an MDM512 (init_mdm seeded 0, its parameters stored
     fp16 in a torch file) served through `serve`'s build with --quantize
-    int8-conv answering one seeded window at batch 6 (launches at 25 x the
+    int8-conv answering one seeded window at batch 6 (launches at SERVE_STEPS x the
     int8-conv sites); then the same window from the `quantize` app's
     artifact of that file (--which conv), bit for bit. The files live in
     _phase17 in the checkout and are deleted. Returns the launches of both
@@ -4601,6 +4657,644 @@ def phase_conditions(torch, card, dev="cuda", **scene_kw):
             "pixels_at_ties": n_diff, "points": len(bg), "card": card}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the learned offline stages (segment, densify) and eval
+# ---------------------------------------------------------------------------
+
+OFFLINE_HW = (1280, 1920)    # the Waymo FRONT camera, height x width
+# densify's defaults are 50 steps at strength 0.8 (40 denoising UNet calls);
+# (b) runs 10 steps (8 calls, each pass the same shapes) to fit the time limit
+DL_STEPS, DL_STRENGTH = 10, 0.8
+DL_LIDAR = 0.05              # share of the frame's pixels with a lidar depth
+SEG_FRAMES = 3
+SEG_TOL = 1e-4               # fp32 logits against float64, relative L2
+SEG_MARGIN = 1e-3            # ids may differ where float64's top-2 margin < this x max|logit|
+EVAL_PAIRS = 16
+EVAL_HW = (576, 1024)        # the MDM1024 output
+EVAL_TOL = 1e-5              # SSIM and LPIPS against float64, relative
+# Kernel sites of DepthLab's reference write pass and one denoising read pass
+# (batch 1, a 160x240 latent), held against a trace of the JAX UNet by
+# tests/test_torch_depthlab.py: kernel 5 at the write pass's self-attention
+# with L = 38400 and 9600 (L = 2400 and 600 fail L % 64; the read pass's
+# keys are twice its queries), kernel 3 in bf16 at the FF blocks with C =
+# 320 (rows % 256 rejects the wider ones)
+DEPTHLAB_SITES = {"f32": {"write": {"flash_attention": 10}, "read": {}},
+                  "bf16": {"write": {"flash_attention": 10, "geglu_ff": 5},
+                           "read": {"geglu_ff": 5}}}
+# kernel 5's (L, heads) in the write pass, five sites each
+DL_FLASH = ((38400, 5), (9600, 10))
+DL_FLASH_SITES = 5
+# the read pass's self-attention, plain in fp32 (keys = queries + the bank's
+# entry): (Lq, heads, sites)
+DL_READ_ATTN = ((38400, 5, 5), (9600, 10, 5), (2400, 20, 5), (600, 20, 1))
+
+
+def _diffusers_vae_key(key: str, num_levels: int) -> str:
+    """A CompVis (nn/vae.py) VAE key under diffusers' AutoencoderKL name, the
+    inverse of `models/depthlab._rename_diffusers_vae_key`."""
+    k = key.replace("norm_out", "conv_norm_out")
+    k = k.replace("mid.block_1", "mid_block.resnets.0").replace("mid.block_2", "mid_block.resnets.1")
+    k = k.replace("mid.attn_1", "mid_block.attentions.0")
+    if ".attentions.0." in k:
+        k = k.replace(".norm.", ".group_norm.").replace(".proj_out.", ".to_out.0.")
+        k = k.replace(".q.", ".to_q.").replace(".k.", ".to_k.").replace(".v.", ".to_v.")
+    k = k.replace(".nin_shortcut.", ".conv_shortcut.")
+    if ".down." in k:
+        k = k.replace(".down.", ".down_blocks.").replace(".block.", ".resnets.")
+        k = k.replace(".downsample.conv.", ".downsamplers.0.conv.")
+    if ".up." in k:
+        parts = k.split(".")
+        i = parts.index("up")
+        parts[i], parts[i + 1] = "up_blocks", str(num_levels - 1 - int(parts[i + 1]))
+        k = ".".join(parts).replace(".block.", ".resnets.")
+        k = k.replace(".upsample.conv.", ".upsamplers.0.conv.")
+    return k
+
+
+def write_depthlab_dir(torch, DL, V, root, cfg, gen, dev):
+    """A seeded DepthLab checkpoint directory as load_depthlab_dir reads it:
+    denoising_unet.pth, reference_unet.pth, mapping_layer.pth (the Linear
+    inside `proj`) and vae/diffusion_pytorch_model.bin (diffusers names).
+    Returns (the bytes written, each module's parameter sums in float64,
+    which the load must give back)."""
+    import shutil
+
+    with torch.device("meta"):
+        model, vae = DL.DepthLab(cfg), V.AutoencoderKL(cfg.vae)
+    need = 4 * sum(p.numel() for m in (model, vae) for p in m.parameters())
+    free = shutil.disk_usage(root).free
+    if free < 2 * need:
+        raise AssertionError(f"phase 18 needs {2 * need / 1e9:.1f} GB of disk, "
+                             f"{free / 1e9:.1f} GB are free")
+    for m in (model, vae):
+        m.to_empty(device=dev)
+        randomize_(torch, m, gen)
+
+    def host(sd, prefix=""):
+        return {prefix + k: v.detach().cpu() for k, v in sd.items()}
+
+    os.makedirs(os.path.join(root, "vae"), exist_ok=True)
+    for name in ("denoising_unet", "reference_unet"):
+        torch.save(host(getattr(model, name).state_dict()), os.path.join(root, f"{name}.pth"))
+    torch.save(host(model.mapping_layer.state_dict(), "proj."),
+               os.path.join(root, "mapping_layer.pth"))
+    levels = len(cfg.vae.ch_mult)
+    diff = {}
+    for k, v in host(vae.state_dict()).items():
+        new = _diffusers_vae_key(k, levels)
+        if ".attentions.0.to_" in new and new.endswith("weight") and v.ndim == 4:
+            v = v.reshape(v.shape[:2])   # diffusers' attention projections are Linear
+        diff[new] = v
+    torch.save(diff, os.path.join(root, "vae", "diffusion_pytorch_model.bin"))
+    sums = {n: [p.double().sum().item() for p in m.parameters()]
+            for n, m in (("model", model), ("vae", vae))}
+    del model, vae
+    return need, sums
+
+
+@contextlib.contextmanager
+def in_memory_media(media, images):
+    """media.imread answers from `images` (path -> BGR uint8, the card's
+    machine has no OpenCV) and media.save_image keeps what it is given;
+    yields that dict of saved images (path -> RGB uint8)."""
+    saved = {}
+    imread, save = media.imread, media.save_image
+    media.imread = lambda path: images[os.path.abspath(path)]
+    media.save_image = lambda path, img: saved.__setitem__(os.path.abspath(path), img.copy())
+    try:
+        yield saved
+    finally:
+        media.imread, media.save_image = imread, save
+
+
+@contextlib.contextmanager
+def patched(mod, name, value):
+    """mod.name set to `value` inside the block (unless value is None)."""
+    orig = getattr(mod, name)
+    if value is not None:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def offline_scene(root, hw, frames, gen_np):
+    """A scene directory with `frames` FRONT frames: each image's path
+    exists (an empty file) and its seeded RGB is returned in memory (path ->
+    BGR, as OpenCV reads it); each frame's sparse lidar depth (DL_LIDAR of
+    the pixels, 2-80 m) is an .npy file. Returns the images."""
+    import numpy as np
+
+    cam = "camera_FRONT"
+    img_dir = os.path.join(root, "images", cam)
+    dep_dir = os.path.join(root, "six_frames_depth", cam)
+    os.makedirs(img_dir)
+    os.makedirs(dep_dir)
+    images = {}
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(frames):
+        path = os.path.join(img_dir, f"{i:08d}.jpg")
+        open(path, "wb").close()
+        # a smooth gradient and seeded noise, so that the classes differ over the frame
+        base = np.stack([xx / w, yy / h, (xx + yy) / (w + h)], -1) * 200
+        rgb = np.clip(base + gen_np.normal(0, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+        images[os.path.abspath(path)] = np.ascontiguousarray(rgb[:, :, ::-1])
+        depth = np.where(gen_np.uniform(size=hw) < DL_LIDAR, gen_np.uniform(2, 80, hw), 0.0)
+        np.save(os.path.join(dep_dir, f"{i:08d}.npy"), depth.astype(np.float32))
+    return images
+
+
+def phase_segment(torch, K, seg_app, SEG, S, media, root, images, gen, dev="cuda", cfg=None):
+    """Phase 18 (c): SegFormer (B3 unless `cfg`) with seeded weights saved
+    HF-named as pytorch_model.bin, run by the segment app on the scene's
+    frames (counts reset just before, read just after); each frame's fp32
+    logits against the same module in float64 (relative L2 <= SEG_TOL) and
+    the app's class ids equal float64's but where its top-2 margin is below
+    SEG_MARGIN x max|logit|. Returns (launches, report)."""
+    import numpy as np
+
+    with torch.device("meta"):
+        seg = S.SegFormer(cfg or S.SegFormerConfig())
+    seg.to_empty(device=dev)
+    randomize_(torch, seg, gen)
+    bn = seg.decode_head.batch_norm
+    d = bn.running_mean.shape[0]
+    bn.running_mean.copy_(0.1 * torch.randn(d, generator=gen, device=dev))
+    bn.running_var.copy_(1.0 + 0.1 * torch.randn(d, generator=gen, device=dev).abs())
+    bn.num_batches_tracked.zero_()
+    ckpt = os.path.join(root, "segformer")
+    os.makedirs(ckpt)
+    torch.save({k: v.cpu() for k, v in seg.state_dict().items()},
+               os.path.join(ckpt, "pytorch_model.bin"))
+    del seg
+    scene = os.path.join(root, "scene")
+    small = None if cfg is None else functools.partial(SEG.load_segformer_predictor, cfg=cfg)
+    with in_memory_media(media, images) as saved, patched(SEG, "load_segformer_predictor", small):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        if seg_app.main(["--scene", scene, "--model_path", ckpt, "--device", dev]) != 0:
+            raise AssertionError("the segment app failed")
+        sync(torch, dev)
+        app_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    frames = sorted(images)
+    pfm_dir = os.path.join(scene, "semantic", "camera_FRONT", "seg")
+    ids = [SEG.read_pfm(os.path.join(pfm_dir, f"{i:08d}.pfm"))[0] for i in range(len(frames))]
+    palettes = [k for k in saved if "semantic_dense" in k]
+    pred = SEG.load_segformer_predictor(ckpt, device=dev, cfg=cfg)
+    if pred is None:
+        raise AssertionError(f"no SegFormer weights under {ckpt}")
+    m32 = pred.model
+    m64 = copy.deepcopy(m32).double()
+    errs, flips, frame_ms = [], [], []
+    for path, got in zip(frames, ids):
+        img = torch.as_tensor(images[path][:, :, ::-1].astype(np.float32) / 255.0, device=dev)
+        l32 = S.logits_full(m32, img)
+        l64 = S.logits_full(m64, img.double())
+        errs.append(((l32.double() - l64).norm() / l64.norm()).item())
+        top2 = l64.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) >= SEG_MARGIN * l64.abs().max()
+        ref_ids = l64.argmax(-1).cpu().numpy()
+        wrong = (got.astype(np.int64) != ref_ids) & clear.cpu().numpy()
+        flips.append(int((got.astype(np.int64) != ref_ids).sum()))
+        if wrong.any():
+            raise AssertionError(f"segment: {int(wrong.sum())} ids differ from float64's where "
+                                 f"its margin is clear")
+        if dev == "cuda":
+            frame_ms.append(cuda_ms(torch, lambda: pred(images[path][:, :, ::-1]), iters=3,
+                                    warmup=1))
+    if max(errs) > SEG_TOL:
+        raise AssertionError(f"segment: fp32 logits {max(errs):.3e} from float64 (> {SEG_TOL})")
+    check_launches("segment", counts, dict.fromkeys(counts, 0))
+    n = len(frames)
+    log(f"  (c) segment: {n} frames at {images[frames[0]].shape[1]}x"
+        f"{images[frames[0]].shape[0]}, app {app_s:.2f} s ({1e3 * app_s / n:.1f} ms/frame), "
+        f"predictor {frame_ms} ms/frame; fp32 logits vs float64 rel L2 max {max(errs):.3e} "
+        f"(bound {SEG_TOL}), ids off float64's at {flips} pixels (all at margins "
+        f"< {SEG_MARGIN} x max|logit|), {len(palettes)} palettes")
+    return counts, {"app_s": app_s, "ms_per_frame_app": 1e3 * app_s / n,
+                    "ms_per_frame": frame_ms, "rel_l2_f64": errs, "ids_off_f64": flips}
+
+
+class UNetTimer:
+    """CUDA events around every UNet2DConditionModel forward while active,
+    by pass (ref_mode "write" or "read")."""
+
+    def __init__(self, torch, U):
+        self.torch, self.U, self.events = torch, U, {"write": [], "read": []}
+
+    def __enter__(self):
+        torch, orig, events = self.torch, self.U.UNet2DConditionModel.forward, self.events
+        self.orig = orig
+
+        def forward(unet, *a, **k):
+            a0, b0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a0.record()
+            out = orig(unet, *a, **k)
+            b0.record()
+            events["write" if k.get("ref_mode") == "write" else "read"].append((a0, b0))
+            return out
+
+        self.U.UNet2DConditionModel.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.U.UNet2DConditionModel.forward = self.orig
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
+
+
+def dense_outputs(scene):
+    import numpy as np
+
+    out = {}
+    for sub in ("dense", "aligned", "processed"):
+        d = os.path.join(scene, f"six_frames_depth_{sub}", "camera_FRONT")
+        for f in sorted(os.listdir(d)):
+            out[f"{sub}/{f}"] = np.load(os.path.join(d, f))
+    return out
+
+
+def phase_densify(torch, K, dl_app, DL, U, V, SEG, media, root, images, gen, dev="cuda",
+                  cfg=None, steps=DL_STEPS):
+    """Phase 18 (b): a seeded DepthLab checkpoint directory
+    (write_depthlab_dir), then the densify app on the scene's first frame
+    with it (fp32, `steps` DDIM steps at strength 0.8; counts reset just
+    before, read just after: kernel 5 at DEPTHLAB_SITES' write sites), the
+    outputs finite and the sky (class 10 of the segment app's maps) at 100 m;
+    then `densify_scene` again with a predictor of the same directory, every
+    output bit for bit. Returns (the loaded DepthLab and VAE, launches,
+    report)."""
+    import numpy as np
+
+    small = None if cfg is None else functools.partial(DL.load_depthlab_dir, cfg=cfg)
+    cfg = cfg or DL.DepthLabConfig()
+    ckpt = os.path.join(root, "depthlab")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    nbytes, sums = write_depthlab_dir(torch, DL, V, ckpt, cfg, gen, dev)
+    write_s = time.perf_counter() - t0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    scene = os.path.join(root, "scene")
+    argv = ["--scene", scene, "--cameras", "camera_FRONT", "--depthlab_dir", ckpt,
+            "--steps", str(steps), "--strength", str(DL_STRENGTH), "--limit_frames", "1",
+            "--device", dev]
+    with in_memory_media(media, images), patched(DL, "load_depthlab_dir", small):
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        timer = UNetTimer(torch, U) if dev == "cuda" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with timer:
+            dl_app.main(argv)
+        sync(torch, dev)
+        app_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else None
+        first = dense_outputs(scene)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model, _, vae = DL.load_depthlab_dir(ckpt, cfg=cfg, device=dev)
+        load_s = time.perf_counter() - t0
+        loaded = {"model": [p.double().sum().item() for p in model.parameters()],
+                  "vae": [p.double().sum().item() for p in vae.parameters()]}
+        if loaded != sums:
+            raise AssertionError("load_depthlab_dir did not give back the written weights")
+        pred = DL.DepthLabPredictor(model, cfg, vae, steps=steps, strength=DL_STRENGTH)
+        dl_app.densify_scene(scene, cameras=("camera_FRONT",), predictor=pred, limit_frames=1)
+        again = dense_outputs(scene)
+    n_run = max(1, min(steps, int(round(steps * DL_STRENGTH))))
+    expect = {**dict.fromkeys(counts, 0), **DEPTHLAB_SITES["f32"]["write"]}
+    if dev == "cuda":
+        check_launches("densify", counts, expect)
+    if sorted(first) != ["aligned/00000000.npy", "dense/00000000.npy",
+                         "processed/00000000.npy"]:
+        raise AssertionError(f"densify wrote {sorted(first)}")
+    for k, v in first.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"densify: {k} is not finite")
+        if not np.array_equal(v, again[k]):
+            raise AssertionError(f"densify: the rerun's {k} differs: max|diff| "
+                                 f"{np.abs(v - again[k]).max():.3e}")
+    sem, _ = SEG.read_pfm(os.path.join(scene, "semantic", "camera_FRONT", "seg", "00000000.pfm"))
+    proc = first["processed/00000000.npy"]
+    sky = sem.astype(np.int32) == 10
+    if not ((proc[sky] == 100.0).all() and (proc >= 0).all() and (proc <= 100).all()):
+        raise AssertionError("densify: the processed map is not sky-filled and clamped")
+    ms = timer.ms() if dev == "cuda" else {"write": [], "read": []}
+    if dev == "cuda" and (len(ms["write"]), len(ms["read"])) != (1, n_run):
+        raise AssertionError(f"densify ran {len(ms['write'])} write and {len(ms['read'])} read "
+                             f"passes, not 1 and {n_run}")
+    write_ms = ms["write"][0] if ms["write"] else None
+    read_ms = float(np.median(ms["read"])) if ms["read"] else None
+    unet_s = (sum(ms["write"]) + sum(ms["read"])) / 1e3
+    log(f"  (b) densify: one {images[sorted(images)[0]].shape[1]}x"
+        f"{images[sorted(images)[0]].shape[0]} frame, {steps} steps at strength {DL_STRENGTH} "
+        f"({n_run} UNet calls): {app_s:.1f} s/frame with the load (UNets {unet_s:.1f} s: write "
+        f"pass {write_ms} ms, read pass median {read_ms} ms), peak {peak} GiB; checkpoint "
+        f"{nbytes / 1e9:.2f} GB written in {write_s:.1f} s, loaded in {load_s:.1f} s; kernel 5 "
+        f"x{counts.get('flash_attention')}; rerun bit for bit; sky pixels {int(sky.sum())}")
+    return model, vae, counts, {
+        "s_per_frame": app_s, "unet_s": unet_s, "write_pass_ms": write_ms,
+        "read_pass_ms": read_ms, "read_pass_ms_all": ms["read"], "peak_gib": peak,
+        "ckpt_gb": nbytes / 1e9, "ckpt_write_s": write_s, "ckpt_load_s": load_s,
+        "steps": steps, "unet_calls": n_run, "sky_pixels": int(sky.sum())}
+
+
+def phase_depthlab_forwards(torch, K, DL, model, gen, dev="cuda", latent=None):
+    """Phase 18 (a): the reference write pass and one read-pass denoising
+    forward (batch 1, t = 700) of `model` (fp32, TF32 off) on four paths:
+    kernels fp32 and plain fp32, then, cast to bf16, plain bf16 and kernels
+    bf16. The fp32 kernel path within F32_PATH_TOL relative L2 of the plain
+    one (the write pass's output and bank, the read pass's output), the bf16
+    kernel path within 1.5x the plain bf16 path's error against fp32 plus
+    5e-3; launches per pass at DEPTHLAB_SITES. Each pass of the checked call
+    timed by CUDA events (one call; the first bf16 one includes kernel 3's
+    first use when no earlier phase ran it). Returns the report."""
+    h, w = latent or (OFFLINE_HW[0] // 8, OFFLINE_HW[1] // 8)
+    f4 = torch.float32
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev, dtype=f4)
+
+    z_rgb, x = rnd(1, h, w, 4), rnd(1, h, w, 4)
+    z_dep = rnd(1, h, w, 4)
+    mask = (torch.rand(1, h, w, 1, generator=gen, device=dev) < 0.3).to(f4).expand(1, h, w, 4)
+    ctx = rnd(1, 1, model.cfg.unet.cross_attention_dim)
+    t0_, t = (torch.zeros(1, dtype=torch.int64, device=dev),
+              torch.full((1,), 700, dtype=torch.int64, device=dev))
+
+    def passes(impl, dtype):
+        """Both passes on one path: (write output + bank, read output,
+        launches and CUDA-event ms of each pass, None off the card)."""
+        counts, ms = {}, {}
+        bank = None
+        for mode in ("write", "read"):
+            K.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev == "cuda" else None
+            if ev:
+                ev[0].record()
+            if mode == "write":
+                out_w, bank = model.reference_unet(z_rgb.to(dtype), t0_, ctx.to(dtype),
+                                                   ref_mode="write", impl=impl)
+            else:
+                out_r = model.denoising_unet(torch.cat([x, z_dep, mask], -1).to(dtype), t,
+                                             ctx.to(dtype), ref_mode="read", ref_bank=bank,
+                                             impl=impl)
+            if ev:
+                ev[1].record()
+            sync(torch, dev)
+            ms[mode] = ev[0].elapsed_time(ev[1]) if ev else None
+            counts[mode] = {k: v for k, v in K.launch_counts().items() if v}
+        return [out_w, *bank], out_r, counts, ms
+
+    report, results = {}, {}
+    for impl in ("auto", "plain"):
+        w_out, r_out, report[f"launches_{impl}_f32"], report[f"ms_{impl}_f32"] = passes(impl, f4)
+        results[impl] = (w_out, r_out)
+    (kw, kr), (pw, pr) = results["auto"], results["plain"]
+    e32 = max(rel_l2(torch, zip(kw, pw)), rel_l2(torch, [(kr, pr)]))
+    del results["auto"], kw, kr
+    expect = {"auto": DEPTHLAB_SITES["f32"], "plain": {"write": {}, "read": {}}}
+    model.to(torch.bfloat16)
+    from mudg_tpu_torch.kernels import prepare_kernels
+
+    prepare_kernels(model)
+    errs = {}
+    for impl in ("plain", "auto"):
+        w_out, r_out, report[f"launches_{impl}_bf16"], report[f"ms_{impl}_bf16"] = passes(
+            impl, torch.bfloat16)
+        errs[impl] = max(rel_l2(torch, zip(w_out, pw)), rel_l2(torch, [(r_out, pr)]))
+        expect[f"{impl}_bf16"] = DEPTHLAB_SITES["bf16"] if impl == "auto" else {"write": {},
+                                                                                 "read": {}}
+        del w_out, r_out
+    bound = 1.5 * errs["plain"] + 5e-3
+    report.update({"rel_l2_kernels_f32": e32, "rel_l2_plain_bf16": errs["plain"],
+                   "rel_l2_kernels_bf16": errs["auto"], "bf16_bound": bound})
+    log(f"  (a) DepthLab UNets at a {h}x{w} latent: fp32 kernels vs plain rel L2 {e32:.3e} "
+        f"(bound {F32_PATH_TOL}); bf16 kernels {errs['auto']:.3e} vs fp32 (bound {bound:.3e}, "
+        f"plain bf16 {errs['plain']:.3e}); write/read ms: kernels fp32 {report['ms_auto_f32']}, "
+        f"plain fp32 {report['ms_plain_f32']}, kernels bf16 {report['ms_auto_bf16']}, plain bf16 "
+        f"{report['ms_plain_bf16']}")
+    if e32 > F32_PATH_TOL:
+        raise AssertionError(f"DepthLab fp32 kernel path {e32:.3e} from plain > {F32_PATH_TOL}")
+    if errs["auto"] > bound:
+        raise AssertionError(f"DepthLab bf16 kernel path {errs['auto']:.3e} > {bound:.3e}")
+    for key, want in (("launches_auto_f32", expect["auto"]),
+                      ("launches_plain_f32", expect["plain"]),
+                      ("launches_auto_bf16", expect["auto_bf16"]),
+                      ("launches_plain_bf16", expect["plain_bf16"])):
+        if dev == "cuda" and report[key] != want:
+            raise AssertionError(f"DepthLab {key}: {report[key]} != {want}")
+    return report
+
+
+def read_pass_attention(torch, nn_att, gen, dev="cuda"):
+    """The read pass's self-attentions alone (DL_READ_ATTN, random fp32 q
+    and k, v with twice the keys, TF32 off): per shape the plain path's and
+    fp32 SDPA's CUDA-event time (median of 3) and their sums over one read
+    pass's sites."""
+    out, total, total_sdpa = [], 0.0, 0.0
+    for lq, heads, sites in DL_READ_ATTN:
+        q = torch.randn((1, lq, heads, 64), generator=gen, device=dev)
+        k, v = torch.randn((2, 1, 2 * lq, heads, 64), generator=gen, device=dev).unbind(0)
+        ms = cuda_ms(torch, lambda: nn_att.plain_attend(q, k, v), iters=3, warmup=1)
+        sdpa = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), iters=3, warmup=1)
+        total, total_sdpa = total + sites * ms, total_sdpa + sites * sdpa
+        out.append({"lq": lq, "lk": 2 * lq, "heads": heads, "sites": sites, "plain_ms": ms,
+                    "sdpa_ms": sdpa})
+        del q, k, v
+    log(f"  read pass's self-attention alone (plain fp32): {total:.1f} ms a pass ({out}); "
+        f"fp32 SDPA on the same shapes {total_sdpa:.1f} ms")
+    return {"shapes": out, "plain_ms_per_pass": total, "sdpa_ms_per_pass": total_sdpa}
+
+
+def depthlab_flash_cases(torch, K, nn_att, dev="cuda"):
+    """Kernel 5 at the write pass's two lengths, fp32 and bf16 (flash_case:
+    phase 2's bounds, faults and SDPA yardstick), DL_FLASH_SITES sites each."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    for dtype in (torch.float32, torch.bfloat16):
+        for l, heads in DL_FLASH:
+            qkv = torch.randn((1, l, 3, heads, 64), generator=gen, device=dev).to(dtype)
+            yield flash_case(torch, K, nn_att, "depthlab" + ("-f32" if dtype == torch.float32
+                                                            else ""),
+                             "write", DL_FLASH_SITES, qkv)
+
+
+def lpips_state_dict(torch, gen):
+    """A seeded LPIPS state dict in the `lpips` package's layout
+    (net.sliceK.N.*, linK.model.1.weight)."""
+    from mudg_tpu_torch.utils import lpips as LP
+
+    sd, c_in = {}, 3
+    for i, ((c_out, k, _, _), idx) in enumerate(zip(LP._CONVS, LP._CONV_IDX)):
+        sd[f"net.slice{i + 1}.{idx}.weight"] = (
+            torch.randn((c_out, c_in, k, k), generator=gen) / math.sqrt(c_in * k * k))
+        sd[f"net.slice{i + 1}.{idx}.bias"] = 0.1 * torch.randn(c_out, generator=gen)
+        sd[f"lin{i}.model.1.weight"] = torch.rand((1, c_out, 1, 1), generator=gen)
+        c_in = c_out
+    return sd
+
+
+def phase_eval(torch, K, ev_app, media, root, gen_np, dev="cuda", hw=EVAL_HW, pairs=EVAL_PAIRS):
+    """Phase 18 (d): the eval app's three tasks over `pairs` seeded pairs at
+    `hw` (color with LPIPS from a seeded lpips-layout file, semantic
+    palettes, metric depth .npy), on `dev` and on the CPU: the PSNR, depth
+    and mIoU rows equal; each pair's SSIM and LPIPS on `dev` within EVAL_TOL
+    relative of a float64 run; ms per frame per task. Returns (launches,
+    report)."""
+    import numpy as np
+
+    from mudg_tpu_torch.gs import train as GT
+    from mudg_tpu_torch.utils import lpips as LP
+    from mudg_tpu_torch.utils import metrics as MET
+
+    lp_path = os.path.join(root, "lpips.pth")
+    torch.save(lpips_state_dict(torch, torch.Generator().manual_seed(SEED + 34)), lp_path)
+    d = {k: os.path.join(root, "eval", k) for k in ("color", "semantic", "depth", "gt_depth")}
+    for p in d.values():
+        os.makedirs(p)
+    images, pngs = {}, []
+    h, w = hw
+    for i in range(pairs):
+        gt = gen_np.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        re = np.clip(gt.astype(np.int64) + gen_np.integers(-40, 40, gt.shape), 0,
+                     255).astype(np.uint8)
+        ids_gt = np.repeat(np.repeat(gen_np.integers(0, 19, (h // 16, w // 16)), 16, 0), 16, 1)
+        ids_re = np.where(gen_np.uniform(size=(h, w)) < 0.2, gen_np.integers(0, 19, (h, w)),
+                          ids_gt)
+        for task, name, rgb in (("color", "gt", gt), ("color", "re", re),
+                                ("semantic", "gt", media.encode_semantic(ids_gt)),
+                                ("semantic", "re", media.encode_semantic(ids_re))):
+            path = os.path.abspath(os.path.join(d[task], f"{task}_{name}_{i}.png"))
+            open(path, "wb").close()
+            images[path] = np.ascontiguousarray(np.asarray(rgb, np.uint8)[:, :, ::-1])
+            pngs.append(path)
+        dep = np.where(gen_np.uniform(size=hw) < 0.8, gen_np.uniform(1, 80, hw), 0)
+        np.save(os.path.join(d["gt_depth"], f"{i:08d}.npy"), dep.astype(np.float32))
+        np.save(os.path.join(d["depth"], f"depth_re_{i}.npy"),
+                (dep * gen_np.uniform(0.7, 1.4, hw)).astype(np.float32))
+    argv = {"color": ["--dir", d["color"], "--lpips", lp_path],
+            "semantic": ["--dir", d["semantic"], "--task", "semantic"],
+            "depth": ["--dir", d["depth"], "--task", "depth", "--gt_depth", d["gt_depth"]]}
+    out, ms, counts = {}, {}, {}
+    with in_memory_media(media, images):
+        for task, args in argv.items():
+            for where in (dev, "cpu"):
+                extra = args if (where == dev or task != "color") else args[:2]
+                rows = os.path.join(root, f"{task}_{where}.jsonl")
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                summary = ev_app.main([*extra, "--out", rows, "--device", where])
+                sync(torch, dev)
+                if where == dev:
+                    ms[task] = 1e3 * (time.perf_counter() - t0) / pairs
+                    counts[task] = K.launch_counts()
+                with open(rows) as f:
+                    out[task, where] = (summary, [json.loads(line) for line in f])
+                if dev == "cpu":
+                    break
+    exact = {"color": ("psnr",), "semantic": ("miou", "pixel_acc", "n_classes_present"),
+             "depth": ("abs_rel", "rmse", "delta1", "n_valid")}
+    for task, keys in exact.items():
+        got, ref = out[task, dev], out[task, "cpu"]
+        for g, r in zip(got[1], ref[1]):
+            if any(g[k] != r[k] for k in keys):
+                raise AssertionError(f"eval {task}: {g} differs from the CPU's {r}")
+        if any(got[0][f"{k}_mean"] != ref[0][f"{k}_mean"] for k in keys if k != "n_valid"
+               and k != "n_classes_present"):
+            raise AssertionError(f"eval {task}: summary {got[0]} != the CPU's {ref[0]}")
+    lp = LP.load_lpips(lp_path, device=dev)
+    lp64 = copy.deepcopy(lp).double()
+    win64 = GT.gaussian_window(device=dev).double()
+    s_err, l_err = [], []
+    for i in range(pairs):
+        a, b = (images[os.path.abspath(os.path.join(d["color"], f"color_{n}_{i}.png"))]
+                .astype(np.float32) / 255.0 for n in ("re", "gt"))
+        a64, b64 = (torch.as_tensor(np.ascontiguousarray(x[:, :, ::-1]), device=dev).double()
+                    for x in (a, b))
+        s32 = MET.ssim(a[:, :, ::-1], b[:, :, ::-1], device=dev)
+        s64 = GT.ssim(a64, b64, window=win64).item()
+        s_err.append(abs(s32 - s64) / abs(s64))
+        l32 = LP.lpips(lp, (a64[None] * 2 - 1).float(), (b64[None] * 2 - 1).float())[0].item()
+        l64 = LP.lpips(lp64, a64[None] * 2 - 1, b64[None] * 2 - 1)[0].item()
+        l_err.append(abs(l32 - l64) / abs(l64))
+    summ = {task: out[task, dev][0] for task in argv}
+    log(f"  (d) eval: {pairs} pairs at {w}x{h}: ms/frame {ms}; summaries {summ}; PSNR, depth "
+        f"and mIoU rows equal the CPU's; SSIM and LPIPS vs float64 rel max {max(s_err):.3e}, "
+        f"{max(l_err):.3e} (bound {EVAL_TOL})")
+    if max(s_err) > EVAL_TOL or max(l_err) > EVAL_TOL:
+        raise AssertionError(f"eval: SSIM {max(s_err):.3e} / LPIPS {max(l_err):.3e} from float64")
+    for task, c in counts.items():
+        check_launches(f"eval {task}", c, dict.fromkeys(c, 0))
+    return counts, {"ms_per_frame": ms, "summaries": summ, "ssim_rel_f64": max(s_err),
+                    "lpips_rel_f64": max(l_err)}
+
+
+def phase_offline(torch, K, nn_att, card, dev="cuda", small=None):
+    """Phase 18: (c) segment, (b) densify, (a) the DepthLab UNet forwards and
+    kernel 5 at their lengths, (d) eval, in that order (densify reads
+    segment's sky, (a) reuses densify's model), TF32 off, in _phase18 in the
+    checkout (deleted after). `small` (dict: hw, depthlab, segformer,
+    steps, eval_hw, pairs) lets the CPU tests rehearse it. Returns
+    (launches, kernel rows, report)."""
+    import shutil
+
+    import numpy as np
+
+    from mudg_tpu_torch.apps import densify_depth as dl_app
+    from mudg_tpu_torch.apps import eval_nvs as ev_app
+    from mudg_tpu_torch.apps import segment as seg_app
+    from mudg_tpu_torch.data import segmentation as SEG
+    from mudg_tpu_torch.models import depthlab as DL
+    from mudg_tpu_torch.models import sd_unet2d as U
+    from mudg_tpu_torch.models import segformer as S
+    from mudg_tpu_torch.nn import vae as V
+    from mudg_tpu_torch.utils import media
+
+    t_start = time.perf_counter()
+    small = small or {}
+    hw = small.get("hw", OFFLINE_HW)
+    root = os.path.join(ROOT, "_phase18")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    gen_np = np.random.default_rng(SEED + 18)
+    report, launches, rows = {"card": card}, {}, {}
+    try:
+        with no_tf32(torch), torch.no_grad():
+            images = offline_scene(os.path.join(root, "scene"), hw, SEG_FRAMES, gen_np)
+            launches["segment"], report["segment"] = phase_segment(
+                torch, K, seg_app, SEG, S, media, root, images, gen, dev, small.get("segformer"))
+            model, vae, launches["densify"], report["densify"] = phase_densify(
+                torch, K, dl_app, DL, U, V, SEG, media, root, images, gen, dev,
+                small.get("depthlab"), small.get("steps", DL_STEPS))
+            del vae
+            report["unets"] = phase_depthlab_forwards(torch, K, DL, model, gen, dev,
+                                                      (hw[0] // 8, hw[1] // 8))
+            del model
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+                rows = run_cases(torch, depthlab_flash_cases(torch, K, nn_att), iters=3)
+                report["read_attention"] = read_pass_attention(torch, nn_att, gen)
+            launches["eval"], report["eval"] = phase_eval(
+                torch, K, ev_app, media, root, gen_np, dev, small.get("eval_hw", EVAL_HW),
+                small.get("pairs", EVAL_PAIRS))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["kernel5"] = rows.get("flash_attention", {}).get("shapes", [])
+    report["seconds"] = time.perf_counter() - t_start
+    return {"densify": launches["densify"], "segment": launches["segment"],
+            **{f"eval_{k}": v for k, v in launches["eval"].items()}}, rows, report
+
+
 def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
@@ -4627,7 +5321,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -4779,6 +5473,17 @@ def main(argv=None):
         launches.update(served)
         report["conditions"] = phase_conditions(torch, card)
         log(f"phase 17 (int8 serving, conditions): {time.perf_counter() - t17:.1f} s")
+    if 18 in phases:
+        torch.cuda.empty_cache()
+        phase18, rows18, report["offline"] = timed(18, "segment, densify, eval", phase_offline,
+                                                   torch, K, nn_att, card)
+        launches.update(phase18)
+        for name, r in rows18.items():   # DepthLab's kernel-5 shapes join phase 2's row
+            if name in rows:
+                rows[name]["shapes"] += r["shapes"]
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
+            else:
+                rows[name] = r
     if 9 in phases:
         rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr,
                           args.profile, args.out))

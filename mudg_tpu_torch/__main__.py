@@ -9,16 +9,18 @@ Mirrors `python -m mudg_tpu`. Ported commands:
                                                     (apps.precompute_latents)
   quantize     checkpoint -> int8 torch file for serving (apps.quantize_ckpt)
   conditions   offline sparse RGB/depth generation  (apps.make_conditions)
+  eval         PSNR/SSIM/LPIPS, depth and mIoU evaluation (apps.eval_nvs)
+  segment      SegFormer semantic maps per frame    (apps.segment)
+  densify      learned/classical depth densification (apps.densify_depth)
 `render-infer` is an alias of `render`, `train-mdm` of `train`,
-`make-conditions` of `conditions`. The JAX CLI's other commands (eval,
-preprocess, segment, densify, bench and their hyphenated aliases) exit with
-code 2 and "not ported yet".
+`make-conditions` of `conditions`, `eval-nvs` of `eval`. The JAX CLI's other
+commands (preprocess, bench) exit with code 2 and "not ported yet".
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("eval", "eval-nvs", "preprocess", "segment", "densify", "bench")
+NOT_PORTED = ("preprocess", "bench")
 
 
 def main(argv=None):
@@ -28,7 +30,7 @@ def main(argv=None):
         return 0
     cmd, rest = argv[0], argv[1:]
     cmd = {"render-infer": "render", "train-mdm": "train",
-           "make-conditions": "conditions"}.get(cmd, cmd)
+           "make-conditions": "conditions", "eval-nvs": "eval"}.get(cmd, cmd)
     if cmd == "render":
         from .apps.render_infer import main as run
     elif cmd == "serve":
@@ -43,6 +45,12 @@ def main(argv=None):
         from .apps.quantize_ckpt import main as run
     elif cmd == "conditions":
         from .apps.make_conditions import main as run
+    elif cmd == "eval":
+        from .apps.eval_nvs import main as run
+    elif cmd == "segment":
+        from .apps.segment import main as run
+    elif cmd == "densify":
+        from .apps.densify_depth import main as run
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported yet (see ROADMAP.md); run it with "
               f"python -m mudg_tpu {cmd}", file=sys.stderr)

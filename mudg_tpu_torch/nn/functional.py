@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import os
 
+import torch
 import torch.nn.functional as F
 
 from .. import quant as Q
@@ -75,20 +76,24 @@ def linear(m, x, tag: str = "mm_out"):
         return F.linear(x, _w(m, x.dtype).flatten(1), _b(m, x.dtype))
 
 
-def conv2d(m, x, stride: int = 1, padding="SAME"):
+def conv2d(m, x, stride: int = 1, padding="SAME", groups: int = 1):
     """x (N, H, W, C) -> (N, H', W', O). padding: "SAME" (k // 2 on every
-    side, the stride-1 SAME of the JAX package) or ((top, bottom), (left, right))."""
+    side, the stride-1 SAME of the JAX package), "VALID" or ((top, bottom),
+    (left, right)). groups > 1 is a grouped (depthwise) convolution, weight
+    (O, C / groups, kh, kw)."""
     if Q.is_w8a8(m):
-        return Q.conv_i8(m, x, stride=stride, padding=padding)
+        return Q.conv_i8(m, x, stride=stride, padding=padding, groups=groups)
     with R.site("conv_out"):
-        return _conv2d(m, x, stride, padding)
+        return _conv2d(m, x, stride, padding, groups)
 
 
-def _conv2d(m, x, stride, padding):
+def _conv2d(m, x, stride, padding, groups=1):
     kh, kw = Q.weight_shape(m)[-2:]
     xc = x.permute(0, 3, 1, 2)   # NCHW view with channels-last strides
     if padding == "SAME":
         pad = (kh // 2, kw // 2)
+    elif padding == "VALID":
+        pad = 0
     else:
         (t, b_), (l, r) = padding
         if t == b_ and l == r:
@@ -96,8 +101,17 @@ def _conv2d(m, x, stride, padding):
         else:
             xc = F.pad(xc, (l, r, t, b_))
             pad = 0
-    y = F.conv2d(xc, _w(m, x.dtype), _b(m, x.dtype), stride=stride, padding=pad)
+    y = F.conv2d(xc, _w(m, x.dtype), _b(m, x.dtype), stride=stride, padding=pad, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def batch_norm(m, x, eps: float = 1e-5):
+    """Inference-mode BatchNorm over channels-last input from the running
+    statistics, folded into one scale and shift in fp32
+    (nn/functional.py:91-97)."""
+    w = m.weight.float() * torch.rsqrt(m.running_var.float() + eps)
+    b = m.bias.float() - m.running_mean.float() * w
+    return (x.float() * w + b).to(x.dtype)
 
 
 def temporal_conv311(m, x):

@@ -1,7 +1,7 @@
-"""Media I/O and visualization: PNG and mp4 writers, the semantic palette,
-the Spectral depth colormap (a copy of `mudg_tpu/utils/media.py`). cv2 is
-imported by the writers only, so the rest runs where OpenCV is not
-installed."""
+"""Media I/O and visualization: the image reader, PNG and mp4 writers, the
+semantic palette, the Spectral depth colormap (a copy of
+`mudg_tpu/utils/media.py`). cv2 is imported by the reader and the writers
+only, so the rest runs where OpenCV is not installed."""
 from __future__ import annotations
 
 import os
@@ -55,10 +55,25 @@ def visualize_depth(depth: np.ndarray, vmin=None, vmax=None) -> np.ndarray:
 
 def decode_semantic(rgbish: np.ndarray, num_classes: int = 19):
     """Nearest-palette-color class decode of a 'semantic RGB' frame (H, W, 3)
-    in [0, 255]. Returns (clean RGB uint8, class ids (H, W))."""
-    pal = SEMANTIC_PALETTE[:num_classes].astype(np.float32)
-    dist = np.linalg.norm(rgbish.astype(np.float32)[:, :, None, :] - pal[None, None], axis=3)
-    ids = np.argmin(dist, axis=2)
+    in [0, 255]. Returns (clean RGB uint8, class ids (H, W)). The fp32
+    Euclidean distances are those of the JAX package's `np.linalg.norm` over
+    an (H, W, classes, 3) array, taken one class at a time (the lowest class
+    wins a tie, as argmin's first minimum), so the ids are equal without that
+    array."""
+    planes = [np.ascontiguousarray(rgbish[..., k], dtype=np.float32) for k in range(3)]
+    best = ids = None
+    for c, color in enumerate(SEMANTIC_PALETTE[:num_classes].astype(np.float32)):
+        dist = None
+        for plane, v in zip(planes, color):   # norm's sum over the 3 channels, in order
+            d = plane - v
+            dist = d * d if dist is None else dist + d * d
+        np.sqrt(dist, out=dist)
+        if best is None:
+            best, ids = dist, np.zeros(dist.shape, np.int64)
+        else:
+            closer = dist < best
+            np.minimum(best, dist, out=best)
+            ids[closer] = c
     return SEMANTIC_PALETTE[:num_classes][ids], ids
 
 
@@ -70,6 +85,16 @@ def encode_semantic(class_ids: np.ndarray) -> np.ndarray:
 def to_uint8(frames: np.ndarray) -> np.ndarray:
     """[-1,1] float -> uint8 RGB."""
     return np.clip((frames + 1) / 2 * 255, 0, 255).astype(np.uint8)
+
+
+def imread(path: str) -> np.ndarray:
+    """An image file as OpenCV reads it: (H, W, 3) uint8 in BGR order."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
 
 
 def save_image(path: str, img_uint8: np.ndarray):

@@ -728,3 +728,39 @@ def test_chip_smoke_conditions_phase_on_the_cpu(monkeypatch):
         moved[name][5, 5] += 1.0
         with pytest.raises(AssertionError, match="no rounding tie"):
             CS.compare_conditions(torch, SP, PC, scene, moved, maps)
+
+
+def test_chip_smoke_offline_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 18 whole at tiny sizes on the CPU (a 32x48 frame, DepthLab with
+    tests/test_depthlab.py's TINY UNets and VAE at 2 steps, SegFormer at B0
+    widths with one block a stage, 2 eval pairs): segment's ids against
+    float64's, densify's outputs and its rerun bit for bit, the four UNet
+    paths' gates, eval's card rows against the CPU's and SSIM / LPIPS
+    against float64; the work directory gone."""
+    import dataclasses
+
+    from mudg_tpu_torch.models import depthlab as DL
+    from mudg_tpu_torch.models import sd_unet2d as SU
+    from mudg_tpu_torch.models import segformer as S
+    from mudg_tpu_torch.nn import vae as V
+
+    checked = _stub_card(monkeypatch)
+    monkeypatch.setattr(CS, "ROOT", str(tmp_path))
+    tiny = dict(out_channels=4, block_out_channels=(16, 32), layers_per_block=1,
+                cross_attention_dim=24, head_dim=8, norm_num_groups=4)
+    dl = DL.DepthLabConfig(unet=SU.SDUNetConfig(in_channels=12, **tiny),
+                           ref_unet=SU.SDUNetConfig(in_channels=4, **tiny),
+                           vae=V.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1),
+                           image_embed_dim=20)
+    seg = dataclasses.replace(S.SegFormerConfig.b0(), depths=(1, 1, 1, 1))
+    small = dict(hw=(32, 48), depthlab=dl, segformer=seg, steps=2, eval_hw=(32, 48), pairs=2)
+    launches, rows, rep = CS.phase_offline(torch, K, nn_att, "cpu", dev="cpu", small=small)
+    assert not os.path.exists(tmp_path / "_phase18") and rows == {}
+    assert set(launches) == {"densify", "segment", "eval_color", "eval_semantic", "eval_depth"}
+    assert set(checked) == {"segment", "eval color", "eval semantic", "eval depth"}
+    assert rep["densify"]["unet_calls"] == 2 and rep["densify"]["steps"] == 2
+    assert max(rep["segment"]["rel_l2_f64"]) <= CS.SEG_TOL
+    unets = rep["unets"]
+    assert unets["rel_l2_kernels_f32"] == 0.0   # no kernel on the CPU: the same ops
+    assert rep["eval"]["lpips_rel_f64"] <= CS.EVAL_TOL
+    assert set(rep["eval"]["summaries"]) == {"color", "semantic", "depth"}

@@ -189,16 +189,18 @@ def test_conditions_app_matches_jax(scene, tmp_path, monkeypatch):
 
 
 def test_cli_runs_the_new_commands(capsys):
-    """`conditions`, its alias `make-conditions` and `quantize` no longer
-    exit 2 as "not ported"."""
+    """`conditions`, its alias `make-conditions`, `quantize`, `eval`, its
+    alias `eval-nvs`, `segment` and `densify` no longer exit 2 as "not
+    ported"; `preprocess` still does."""
     from mudg_tpu_torch.__main__ import main
 
-    for cmd in ("conditions", "make-conditions", "quantize"):
+    for cmd in ("conditions", "make-conditions", "quantize", "eval", "eval-nvs", "segment",
+                "densify"):
         with pytest.raises(SystemExit) as e:
             main([cmd, "--help"])
         assert e.value.code == 0, cmd
         assert "--device" in capsys.readouterr().out, cmd
-    assert main(["eval", "--help"]) == 2
+    assert main(["preprocess", "--help"]) == 2
 
 
 def test_conditions_entry_points_default_to_cuda():

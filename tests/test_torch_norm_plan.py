@@ -175,6 +175,10 @@ H100_PLANS = {
     (2, 147456, 320, 2, True): (0, 1152, 0),
     (2, 1024, 1024, 4, False): (0, 8, 0),
     (2, 1536, 1024, 2, False): (16, 96, 96),
+    (1, 600, 1280, 2, False): (16, 38, 38),
+    (1, 600, 2560, 2, False): (16, 38, 38),
+    (1, 2400, 640, 2, False): (16, 150, 150),
+    (1, 600, 1280, 4, False): (16, 38, 38),
 }
 
 

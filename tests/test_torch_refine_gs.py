@@ -233,10 +233,10 @@ def test_gaussians_from_arrays_dtypes():
 def test_cli_mirrors_the_jax_commands():
     from mudg_tpu_torch.__main__ import main
 
-    assert main(["eval", "--help"]) == 2
+    assert main(["preprocess", "--help"]) == 2
     assert main(["bench"]) == 2
     assert main(["nope"]) == 2
-    for cmd in ("refine-gs", "render-infer", "serve"):
+    for cmd in ("refine-gs", "render-infer", "serve", "eval", "eval-nvs", "segment", "densify"):
         r = subprocess.run([sys.executable, "-m", "mudg_tpu_torch", cmd, "--help"],
                            capture_output=True, text=True, timeout=120,
                            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
