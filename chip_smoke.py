@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (mudg_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18] [--out DIR] [--profile]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19] [--out DIR] [--profile]
     torchrun --nproc_per_node N chip_smoke.py --phases 16      (phase 16 over N cards)
 
 Phases:
@@ -154,7 +154,7 @@ Phases:
      one bf16 UNet forward per configuration with each set to "0" alone and
      one with all six, set in-process and restored after; launches at
      SWITCHES_OFF, the phase-3/5 gate against fp32; each of these forwards
-     timed (median of 3), beside the kernel path's;
+     timed (one call after the checked one), beside the kernel path's;
  14. the serving path (apps/serve.py, apps/render_infer.py) at UNet batch
      6, the 3-task batch with 2-point CFG: (a) phase 3 and phase 5's forward
      at batch 6, the same gate and sites, then one forward each under the
@@ -165,7 +165,7 @@ Phases:
      forward_keys; phase 2's tolerances and planted faults, each timed
      median of 3); (c) a warm server built as serve.main builds it
      (`presets.mdm512()`, init_mdm on the card from a generator seeded 0,
-     bf16, HashTokenizer, 10 DDIM steps with guidance 7.5, rescale 0.7, eta
+     bf16, HashTokenizer, 5 DDIM steps with guidance 7.5, rescale 0.7, eta
      1.0, uniform_trailing, fps 10) answering three requests through
      render_windows on seeded in-memory windows of 16 frames at 320x512:
      r1 2 windows (the carry), r2 another prompt and seed, r3 task_serial;
@@ -185,8 +185,8 @@ Phases:
      from a seed, HashTokenizer, batch 1, accumulation 2, remat dots_attn,
      EMA, over an in-memory BatchLoader (prefetch 2) of SeededClips, whose
      items have WaymoDataset.load_item's keys, shapes and dtypes: (a)
-     `train` for 4 steps with validation every 2 steps over 2 batches, a
-     10-step sample at step 4 (kept in memory) and SIGUSR1 sent at step 2:
+     `train` for 3 steps with validation every 2 steps over 2 batches, a
+     10-step sample at step 3 (kept in memory) and SIGUSR1 sent at step 2:
      finite records in metrics.jsonl, the trainable leaves moved, the EMA
      apart from them, the parameters bit for bit as they were after the
      sample, step_2, trainstate_2 and final written (disk space checked
@@ -195,15 +195,15 @@ Phases:
      sample's fp32 flash sites; s/step, peak memory, each artifact's size
      and write and read seconds; (b) --auto_resume from trainstate_2 alone:
      params, mu, nu, count and EMA bit for bit as kept in memory at step
-     2, then steps 3-4; (c) one micro-step (dropout off, the same draws)
+     2, then step 3; (c) one micro-step (dropout off, the same draws)
      under remat=False and each of the nine policies, each within 1e-3
      relative L2 of full recompute's gradients (bit-equality printed),
      launches at policy_launches (kernels 5 and 2's forwards not replayed
-     under dots_attn), ms (one micro-step after a warm-up) and peak memory
+     under dots_attn), ms (one micro-step, no warm-up) and peak memory
      per policy; (d) precompute's
      device part (`data/latents.encode_moments`) on 16 seeded frames at
      320x512 equal to encode_moments_video, the fp16 .npy round trip exact,
-     then 2 app steps in the moments form, s/step beside (a)'s. The work
+     then 1 app step in the moments form, s/step beside (a)'s. The work
      directory (_phase15 in the checkout) is deleted at the end;
  16. the multi-GPU paths (mudg_tpu_torch/parallel/, the sharded train step)
      over a real process group: NCCL, one rank on this card at
@@ -248,7 +248,7 @@ Phases:
      (median of 3) and peak memory above the weights, and a yardstick: one
      ds1 linear's product in `_int_mm` against bf16 `torch.matmul`, and its
      W8A8 layer against `F.linear` in bf16; (c) one 3-task
-     window at batch 6 (10 DDIM steps) from a server built as `serve`
+     window at batch 6 (5 DDIM steps) from a server built as `serve`
      builds it with --quantize int8-conv, then the same window from the
      `quantize` app's artifact, bit for bit (an fp16 MDM512 file and the
      artifact written under _phase17 in the checkout, deleted after); (d)
@@ -267,8 +267,8 @@ Phases:
      max|logit|; (b) the densify app (DepthLab, two full-width SD2 UNets and
      the SD VAE, from a 7 GB checkpoint directory in load_depthlab_dir's
      layout with the diffusers VAE names) on the first frame at its
-     defaults but for the steps (10 DDIM steps, not 50, at strength 0.8: one
-     write pass, 8 read passes),
+     defaults but for the steps (5 DDIM steps, not 50, at strength 0.8: one
+     write pass, 4 read passes),
      finite outputs, the sky of (c)'s maps at 100 m, launches at kernel 5's
      10 write-pass sites, then densify_scene again from the same directory
      bit for bit; s/frame, each pass's ms, peak GiB; (a) the write pass and
@@ -280,7 +280,36 @@ Phases:
      alone, plain and in SDPA; (d) the eval app's three tasks over 16 pairs
      at 576x1024 (LPIPS from a seeded lpips-layout file) on the card and on
      the CPU, the PSNR, depth and mIoU rows equal, each pair's SSIM and
-     LPIPS within 1e-5 relative of float64, ms per frame.
+     LPIPS within 1e-5 relative of float64, ms per frame;
+ 19. the host ETL and the options that no MuDG config sets (files under
+     _phase19 in the checkout, deleted after), from a seeded tfrecord that
+     this script's own protobuf encoder writes at Waymo's published sensor
+     sizes (five cameras, FRONT, FRONT_LEFT and FRONT_RIGHT at 1920x1280,
+     SIDE_LEFT and SIDE_RIGHT at 1920x886, each a real JPEG of a smooth
+     seeded image; the TOP lidar's 64x2650 range image with its per-pixel
+     pose image; four short lidars at 200x600; 30 labelled boxes, 10 of them
+     moving), 6 frames where a segment has about 198: (a) `preprocess` on
+     the card and on the CPU, scenario.pt arrays within 1e-12 relative,
+     every npz array within one fp32 ulp, the JPEGs byte for byte, seconds
+     split into reading and decoding, ray math, npz and JPEG writes; (b)
+     `build_clouds` with all five cameras on the card and on the CPU from
+     the card's scene, the background, object and per-frame clouds as
+     sorted rows within 1e-6 relative, except the rows that points at
+     pixel rounding ties or box faces may move (counted), seconds split
+     into npz reads, JPEG decodes, projection and colour, segmentation,
+     voxel downsampling and PLY writes; (c) `voxel_downsample` alone on a
+     seeded 198-frame background (about 20M points, a 200 m track, 75 m
+     range) at 0.1 m, the card's rows equal to the CPU's, ms on the card and
+     s on the CPU; (d) the UNet options at full UNetConfig() width in the
+     two UNets JAX takes them in (relative position, causal and joint task
+     attention at batch 3, one clip a task, at the MDM512 latent; the
+     cross-context temporal path at batch 2 at the MDM1024 latent, after it
+     raises JAX's ValueError at the MDM512 one), kernels bf16, plain bf16
+     and plain fp32 (TF32 off): phase 3's error rule, launches at
+     OPTION_SITES, ms a forward; (e) masked DDIM and DPM-Solver++, DDIM's
+     stochastic_encode and the full 1000-step ddpm_sample (v; eps and x0
+     with clip_denoised) at the MDM512 latent with a seeded closed-form
+     model_fn and the same draws, the card within 1e-5 relative of the CPU.
 It prints the kernel table as one JSON line: "ms", "ms_queued" (calls queued
 back to back, so the host's per-call cost hides behind the device's work),
 "plain_ms", "bound_ms", "library_ms", "library_ms_queued" (the library call
@@ -297,7 +326,8 @@ configurations (the packed kernel one call at each temporal shape);
 packed path of phase 11, phase 12's fp32 forwards, clip and micro-step,
 phase 13's forwards, phase 14's requests, phase 15's app runs and
 policy micro-steps, phase 16's data-parallel and FSDP steps, phase 17's
-served int8 windows and phase 18's segment, densify and eval runs). Then the
+served int8 windows, phase 18's segment, densify and eval runs and phase
+19's option UNet forwards). Then the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}. Any failed check raises and the
 exit code is not 0. Without CUDA it exits 2 and prints no result.
@@ -451,6 +481,24 @@ SWITCHES_OFF = {
                         "gn_silu_tconv": 0, "flash_attention": 15}},
 }
 F32_PATH_TOL = 1e-4   # the fp32 switch forward's relative L2 against the fp32 plain one
+# Phase 19 (d): the UNet options that no MuDG config sets, in as few UNets as
+# JAX takes them together (relative position beside the cross-context path
+# fails in JAX: its blocks pass no temporal_length), at full UNetConfig()
+# width. The joint task attention's UNet runs at one clip a task; the
+# cross-context one at the MDM1024 latent, as JAX refuses it at MDM512's
+# (its ds8 rows, 5 x 8 = 40, are not a multiple of T = 16). Their kernel
+# sites per bf16 forward, held against a trace of the JAX UNet by
+# tests/test_torch_options.py: kernel 2 at none (relative position and
+# the cross-context blocks keep it off); at batch 3 the middle block's two
+# FFs (rows 3 x 16 x 5 x 8 = 1920, not a multiple of 256) leave kernel 3.
+OPTION_UNETS = {"relpos_causal_joint": dict(use_relative_position=True,
+                                            use_causal_attention=True,
+                                            domain_cross_attention=True, num_tasks=3),
+                "context": dict(temporal_selfatt_only=False)}
+OPTION_BATCH = {"relpos_causal_joint": 3, "context": 2}
+OPTION_LATENT = {"relpos_causal_joint": "mdm512", "context": "mdm1024"}
+OPTION_SITES = {"relpos_causal_joint": {**SITES["mdm512"], "temporal_attn": 0, "geglu_ff": 31},
+                "context": {**SITES["mdm1024"], "temporal_attn": 0}}
 # Phase 17: the --quantize modes of render and serve, and the MDM512 kernel
 # sites of one bf16 UNet forward (batch 2) under each that differ from
 # SITES, held against a trace of the JAX UNet with its tree quantized by the
@@ -1796,7 +1844,9 @@ def run_cases(torch, cases, check=None, profile=False, iters=10):
             dev = device_ms_per_call(torch, fk)
         if norm:
             dev["host_ms"] = host_ms_per_call(torch, fk)
-        ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, **reps)
+        # the plain version (up to 1 s a call) is timed at most 3 times after one warm-up
+        ms, pms = cuda_ms(torch, fk, **reps), cuda_ms(torch, fp, iters=min(3, reps["iters"]),
+                                                      warmup=1)
         lms = cuda_ms(torch, flib, **reps) if flib is not None else None
         yms = {k: cuda_ms(torch, fn) for k, fn in case.yardsticks.items()}
         yms.update({k + "_queued": cuda_ms_queued(torch, fn) for k, fn in case.yardsticks.items()})
@@ -1991,16 +2041,16 @@ def phase_opt_out(torch, K, cfg, run, rel, err_bound):
     kernel opt-out switches set to "0" in-process, then with all six, each
     restored after: launches at SWITCHES_OFF (counts reset just before each
     forward, read just after), relative L2 error against fp32 within the
-    phase-3/5 gate; every forward timed (median of 3), so the kernel path
-    stands beside each path JAX falls back to. Returns the report and the
-    summed launches."""
+    phase-3/5 gate; every forward timed (one call after the checked one;
+    the median of 3 until PR 19), so the kernel path stands beside each path
+    JAX falls back to. Returns the report and the summed launches."""
     report, total = {}, {}
     for name, env, expect in opt_out_cases(cfg):
         with environ(env), torch.no_grad():
             K.reset_launch_counts()
             out = run("auto")
             counts = K.launch_counts()
-            ms = cuda_ms(torch, lambda: run("auto"), iters=3, warmup=1)
+            ms = cuda_ms(torch, lambda: run("auto"), iters=1, warmup=0)
         expect = {**dict.fromkeys(counts, 0), **expect}
         err = rel(out)
         ok = bool(torch.isfinite(out).all().item()) and err <= err_bound and counts == expect
@@ -2592,20 +2642,21 @@ def phase_train_stage2(torch, K, mdm_mod, step_mod, mdm):
 
 # Phase 15 runs `apps/train_mdm.train` at stage 1 (MDMConfig(base_scale=0.7),
 # 320x512, 16 frames), batch 1, accumulation 2, over an in-memory BatchLoader
-# of SeededClips (the card has no OpenCV to read frames with): (a) 4 steps
-# with validation every 2 steps over 2 batches, a sample at step 4 and
-# SIGUSR1 at step 2; (b) --auto_resume from trainstate_2 alone to step 4;
+# of SeededClips: (a) APP_STEPS steps with validation every 2 steps over 2
+# batches, a sample at the last step and SIGUSR1 at step 2; (b)
+# --auto_resume from trainstate_2 alone to the last step;
 # (c) one micro-step under remat=False and each policy; (d) precompute's
-# device part and 2 steps in the moments form.
+# device part and LATENT_STEPS steps in the moments form.
 APP_CLIP = (16, 320, 512)   # frames, height, width
-APP_STEPS = 4
-APP_ITEMS = 8               # one epoch of 4 steps at batch 1 x accumulation 2
+APP_STEPS = 3               # 4 until PR 19; cut to fit the time limit
+APP_ITEMS = 8               # more than an epoch of 3 steps at batch 1 x accumulation 2
 APP_VAL = 2                 # validation batches
 APP_POLICY = "dots_attn"
 SAMPLE_STEPS = 10           # the app's logged sample (the JAX ImageLogger's)
 REMAT_POLICIES = (False, *REPLAYED)   # remat=False and the nine policies
 POLICY_REL = 1e-3           # each policy's gradients against full recompute's, relative L2
 LATENT_BATCH = 16           # frames a precompute call encodes
+LATENT_STEPS = 1            # (d)'s app steps in the moments form (2 until PR 19)
 APP_FLAGS = ("--stage", "1", "--batch_size", "1", "--accum", "2", "--remat", APP_POLICY,
              "--use_ema", "--log_every", "1", "--ckpt_every", "100000", "--full_ckpt_every",
              "0")
@@ -2703,14 +2754,14 @@ def artifact_bytes(torch, mdm_mod, cfg, use_ema):
     return 4 * n_all, 4 * n_train * (4 if use_ema else 3)
 
 
-POLICY_RUNS = 2   # a warm-up and one timed micro-step per policy
+POLICY_RUNS = 1   # one timed micro-step per policy, the first (2, with a warm-up, until PR 19)
 
 
 def policy_micro_step(torch, K, mdm_mod, mdm, mb, draws, null_emb, policy):
     """One micro-step's trainable gradients (dropout off) under `policy`,
     run POLICY_RUNS times: (the last run's flat gradients, its launches, the
-    median ms of the runs after the first, peak GiB of all above what was
-    allocated before them)."""
+    median ms of the runs after the first, or of the one run, peak GiB of all
+    above what was allocated before them)."""
     params = [p for k in ("unet", "image_proj") for p in getattr(mdm, k).parameters()]
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2731,7 +2782,8 @@ def policy_micro_step(torch, K, mdm_mod, mdm, mb, draws, null_emb, policy):
     g = torch.cat([p.grad.reshape(-1) for p in params])
     for p in params:
         p.grad = None
-    ms = sorted(times[1:])[len(times[1:]) // 2]
+    timed = times[1:] or times
+    ms = sorted(timed)[len(timed) // 2]
     return g, counts, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
@@ -2818,7 +2870,7 @@ def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=N
         steps = [r for r in recs if "loss" in r]
         vals = [r for r in recs if "val_loss" in r]
         if ([r["step"] for r in steps] != list(range(1, APP_STEPS + 1))
-                or [r["step"] for r in vals] != [2, 4]):
+                or [r["step"] for r in vals] != list(range(2, APP_STEPS + 1, 2))):
             raise AssertionError(f"(a) metrics.jsonl records: {recs}")
         bad = [r for r in recs if not all(math.isfinite(v) for v in r.values())]
         if bad:
@@ -2888,10 +2940,10 @@ def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=N
         check_launches("(b) resume", counts, app_launches(APP_POLICY, APP_STEPS - 2))
         launches["train_app_resume"] = counts
         recs_b = [json.loads(line) for line in open(os.path.join(out_b, "metrics.jsonl"))]
-        if [r["step"] for r in recs_b] != [3, 4]:
+        if [r["step"] for r in recs_b] != list(range(3, APP_STEPS + 1)):
             raise AssertionError(f"(b) records {recs_b}")
         log(f"  (b) --auto_resume: trainstate_2 restored bit for bit (params, mu, nu, count, "
-            f"EMA) in {resumed['t']:.1f} s with the model's set-up, then steps 3-4, "
+            f"EMA) in {resumed['t']:.1f} s with the model's set-up, then steps 3-{APP_STEPS}, "
             f"s/step {[r['sec_per_step'] for r in recs_b]}")
         report["b"] = {"restore_s": resumed["t"], "records": recs_b}
         mdm = res["mdm"]
@@ -2916,8 +2968,9 @@ def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=N
             rel = ((g - ref).norm() / ref_norm).item()
             equal = bool(torch.equal(g, ref))
             replay = {k: counts[k] - v for k, v in TRAIN_SITES["mdm512"].items()}
-            log(f"  (c) remat={policy!s:10} {ms:8.1f} ms/micro-step (median of "
-                f"{POLICY_RUNS - 1} after a warm-up), peak {peak:5.1f} GiB above the model's, "
+            log(f"  (c) remat={policy!s:10} {ms:8.1f} ms/micro-step ("
+                + (f"median of {POLICY_RUNS - 1} after a warm-up" if POLICY_RUNS > 1 else
+                   "one, no warm-up") + f"), peak {peak:5.1f} GiB above the model's, "
                 f"rel L2 vs full {rel:.2e} (bit-equal {equal}), forwards replayed {replay}")
             if not rel <= POLICY_REL:
                 raise AssertionError(f"(c) {policy}: gradients {rel:.3e} from full recompute's")
@@ -2954,14 +3007,15 @@ def phase_train_app(torch, K, mdm_mod, card, dev="cuda", clip=APP_CLIP, preset=N
         del vae
         torch.cuda.empty_cache()
         out_d = os.path.join(work, "d")
-        args_d = app_args(app, out_d, size, "--max_steps", "2", "--seed", str(SEED + 19),
+        args_d = app_args(app, out_d, size, "--max_steps", str(LATENT_STEPS), "--seed",
+                          str(SEED + 19),
                           "--latents")
         clips = SeededClips(APP_ITEMS, clip, moments=host[:t], frames=px.cpu().numpy())
         loader = W.BatchLoader(clips, 1, accum_steps=2, tokenizer=tok, seed=SEED, prefetch=2)
         K.reset_launch_counts()
         res = app.train(args_d, loader, tokenizer=tok)
         counts = K.launch_counts()
-        check_launches("(d) moments form", counts, app_launches(APP_POLICY, 2))
+        check_launches("(d) moments form", counts, app_launches(APP_POLICY, LATENT_STEPS))
         launches["train_app_latents"] = counts
         recs_d = [json.loads(line) for line in open(os.path.join(out_d, "metrics.jsonl"))]
         if not all(math.isfinite(r["loss"]) for r in recs_d):
@@ -3426,7 +3480,7 @@ SERVE_BATCH = 6
 # 3 tasks x 3 CFG variants (--multiple_cond_cfg): phase 14 (a) also runs the
 # MDM1024 forward at this batch, the largest a served request makes
 MULTI_COND_BATCH = 9
-SERVE_STEPS = 10   # the app defaults to 50; cut to fit the time limit
+SERVE_STEPS = 5    # the app defaults to 50; cut to fit the time limit (25, then 10 in PR 18)
 SERVE_FLAGS = ("--preset", "mdm512", "--steps", str(SERVE_STEPS), "--cfg_scale", "7.5",
                "--guidance_rescale", "0.7", "--eta", "1.0", "--timestep_spacing",
                "uniform_trailing", "--fps", "10", "--dtype", "bf16")
@@ -4663,8 +4717,8 @@ def phase_conditions(torch, card, dev="cuda", **scene_kw):
 
 OFFLINE_HW = (1280, 1920)    # the Waymo FRONT camera, height x width
 # densify's defaults are 50 steps at strength 0.8 (40 denoising UNet calls);
-# (b) runs 10 steps (8 calls, each pass the same shapes) to fit the time limit
-DL_STEPS, DL_STRENGTH = 10, 0.8
+# (b) runs 5 steps (4 calls, each pass the same shapes) to fit the time limit
+DL_STEPS, DL_STRENGTH = 5, 0.8   # 10 in PR 18
 DL_LIDAR = 0.05              # share of the frame's pixels with a lidar depth
 SEG_FRAMES = 3
 SEG_TOL = 1e-4               # fp32 logits against float64, relative L2
@@ -5295,6 +5349,715 @@ def phase_offline(torch, K, nn_att, card, dev="cuda", small=None):
             **{f"eval_{k}": v for k, v in launches["eval"].items()}}, rows, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the host ETL (preprocess, build_clouds, voxel downsampling) and
+# the UNet and sampler options that no MuDG config sets
+# ---------------------------------------------------------------------------
+
+# A Waymo segment has about 198 frames; phase 19 runs ETL_FRAMES of them (a cut
+# in depth, to fit the time limit), at the published sensor sizes.
+ETL_FRAMES = 6
+# (CameraName, name, width, height, yaw of its optical axis in the vehicle)
+WAYMO_CAMS = ((1, "FRONT", 1920, 1280, 0.0), (2, "FRONT_LEFT", 1920, 1280, 0.8),
+              (3, "FRONT_RIGHT", 1920, 1280, -0.8), (4, "SIDE_LEFT", 1920, 886, 1.6),
+              (5, "SIDE_RIGHT", 1920, 886, -1.6))
+TOP_HW = (64, 2650)          # the TOP lidar's range image
+SHORT_HW = (200, 600)        # each of the four short lidars'
+# (LaserName, x, y, z, yaw) of the short lidars on the vehicle
+SHORT_LIDARS = ((2, 4.0, 0.0, 0.6, 0.0), (3, 2.0, 1.0, 0.9, 1.57),
+                (4, 2.0, -1.0, 0.9, -1.57), (5, -1.0, 0.0, 0.9, 3.14))
+ETL_BOXES = (30, 10)         # labelled boxes, of which moving
+ETL_REL = 1e-12              # scenario.pt arrays, card against CPU, relative
+CLOUD_REL = 1e-6             # build_clouds' rows, card against CPU, relative
+VOXEL_FRAMES, VOXEL_PER_FRAME = 198, 101_000   # (c): a segment's background, ~20M points
+VOXEL_TRACK, VOXEL_RANGE, VOXEL_SIZE = 200.0, 75.0, 0.1
+SAMPLER_REL = 1e-5           # (e): the card against the CPU, relative
+SAMPLER_STEPS = 25
+TIE_REL = 1e-9               # a projected coordinate this close to an integer is a tie
+FACE_ABS = 1e-5              # a box coordinate this close to a face (m) is at the face
+
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    v &= (1 << 64) - 1
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if not v:
+            out.append(b)
+            return bytes(out)
+        out.append(b | 0x80)
+
+
+def _pb_key(field, wire):
+    return _pb_varint(field << 3 | wire)
+
+
+def _pb_int(field, v):
+    return _pb_key(field, 0) + _pb_varint(int(v))
+
+
+def _pb_double(field, v):
+    import struct
+
+    return _pb_key(field, 1) + struct.pack("<d", float(v))
+
+
+def _pb_bytes(field, b: bytes):
+    return _pb_key(field, 2) + _pb_varint(len(b)) + b
+
+
+def _pb_doubles(field, vals):
+    import numpy as np
+
+    return _pb_bytes(field, np.asarray(vals, "<f8").tobytes())
+
+
+def _pb_matrix(arr) -> bytes:
+    """A MatrixFloat: data=1 (packed float), shape=2 {dims=1 (packed int32)}."""
+    import numpy as np
+
+    dims = b"".join(_pb_varint(d) for d in arr.shape)
+    return (_pb_bytes(1, np.ascontiguousarray(arr, "<f4").tobytes())
+            + _pb_bytes(2, _pb_bytes(1, dims)))
+
+
+def _pose4(x, y, z, yaw, roll=0.0, pitch=0.0):
+    import numpy as np
+
+    cr, sr, cp, sp, cy, sy = (np.cos(roll), np.sin(roll), np.cos(pitch), np.sin(pitch),
+                              np.cos(yaw), np.sin(yaw))
+    m = np.eye(4)
+    m[:3, :3] = [[cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                 [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                 [-sp, cp * sr, cp * cr]]
+    m[:3, 3] = x, y, z
+    return m
+
+
+def _smooth_image(rng, h, w):
+    """A smooth seeded RGB image (a few low-frequency waves a channel)."""
+    import numpy as np
+
+    y = np.linspace(0, 2 * np.pi, h)[:, None]
+    x = np.linspace(0, 2 * np.pi, w)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):   # 127 + 70 sin(a x + b y + p) + 40 cos(q x - a y), as a rank-4 product
+        a, b, p, q = rng.uniform(0.5, 4.0, 4)
+        rows = np.concatenate([70 * np.cos(b * y), 70 * np.sin(b * y), 40 * np.cos(a * y),
+                               40 * np.sin(a * y)], 1).astype(np.float32)
+        cols = np.concatenate([np.sin(a * x + p), np.cos(a * x + p), np.cos(q * x),
+                               np.sin(q * x)], 0).astype(np.float32)
+        img[..., c] = 127 + rows @ cols
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _lidar_rays(h, w, incl, yaw):
+    """(H, W, 3) sensor-frame unit directions as the Waymo range image lays
+    them out (column 0 at azimuth pi less the yaw)."""
+    import numpy as np
+
+    az = ((np.arange(w)[::-1] + 0.5) / w * 2 - 1) * np.pi - yaw
+    return np.stack([np.cos(az)[None] * np.cos(incl)[:, None],
+                     np.sin(az)[None] * np.cos(incl)[:, None],
+                     np.broadcast_to(np.sin(incl)[:, None], (h, w))], -1)
+
+
+def _ground_ranges(rng, dirs, height, wall):
+    """Ranges of rays from a sensor `height` m above flat ground; rays that
+    meet no ground within 80 m end on a wall `wall` m (+ noise) away; 3% no
+    return (-1)."""
+    import numpy as np
+
+    down = -dirs[..., 2]
+    with np.errstate(divide="ignore"):
+        r = np.where(down > 0.02, height / np.maximum(down, 1e-9), np.inf)
+    r = np.where(r < 80.0, r, wall + 5.0 * np.sin(3 * np.arctan2(dirs[..., 1], dirs[..., 0])))
+    r = r + rng.normal(0, 0.02, r.shape)
+    r[rng.random(r.shape) < 0.03] = -1.0
+    return r.astype(np.float32)
+
+
+def waymo_segment(path, frames=ETL_FRAMES, seed=SEED + 19, cams=WAYMO_CAMS, top=TOP_HW,
+                  short=SHORT_HW, boxes=ETL_BOXES):
+    """A tfrecord of `frames` Waymo Frames, valid on the wire, at the given
+    sensor sizes: the cameras (a real JPEG of a smooth seeded image each),
+    the TOP lidar (explicit beam inclinations, a per-pixel pose image for
+    the rolling shutter, 2% of its pixels without a pose), the four short
+    lidars (min/max inclinations) and `boxes` = (labelled, moving) boxes on
+    the ground around an ego vehicle driving at 10 m/s. Written by this
+    script's own protobuf encoder. Returns the record sizes."""
+    import struct
+
+    import cv2
+    import numpy as np
+    import zlib
+
+    rng = np.random.default_rng(seed)
+    origin = np.array([1200.5, -3400.25, 12.0])
+    yaw0 = 0.3
+    n_box, n_moving = boxes
+    kinds = [(1, 4.5, 2.0, 1.6)] * 22 + [(2, 0.8, 0.8, 1.8)] * 6 + [(3, 0.3, 0.3, 2.5)] * 2
+    box_start, box_heading, box_speed = [], [], []
+    for k in range(n_box):
+        fwd = 8.0 + 2.5 * k if k < n_moving else rng.uniform(-30, 40)
+        side = (-1) ** k * (3.5 + 3.5 * (k % 3)) if k < n_moving else rng.uniform(-25, 25)
+        d = np.array([np.cos(yaw0), np.sin(yaw0)])
+        n_ = np.array([-np.sin(yaw0), np.cos(yaw0)])
+        box_start.append(origin[:2] + fwd * d + side * n_)
+        box_heading.append(yaw0 + (0.0 if k < n_moving else rng.uniform(-np.pi, np.pi)))
+        box_speed.append(6.0 + 0.4 * k if k < n_moving else 0.0)
+    top_incl = np.linspace(-0.307, 0.042, top[0])
+    top_ext = _pose4(1.43, 0.0, 2.18, 0.0148)
+    records = []
+    for i in range(frames):
+        yaw = yaw0 + 0.002 * i
+        pos = origin + np.array([np.cos(yaw0), np.sin(yaw0), 0.0]) * 1.0 * i
+        v2w = _pose4(*pos, yaw)
+        ts = 1_600_000_000_000_000 + i * 100_000
+        ctx = _pb_bytes(1, b"segment-phase19-synthetic")
+        images = b""
+        for name, _, w, h, cyaw in cams:
+            f = 2055.0 * w / 1920
+            ext = _pose4(1.5 * np.cos(cyaw), 1.5 * np.sin(cyaw), 2.0, cyaw)
+            ctx += _pb_bytes(2, _pb_int(1, name)
+                             + _pb_doubles(2, [f, f, w / 2, h / 2, 0, 0, 0, 0, 0])
+                             + _pb_bytes(3, _pb_doubles(1, ext.reshape(-1)))
+                             + _pb_int(4, w) + _pb_int(5, h) + _pb_int(6, 2))
+            ok, jpg = cv2.imencode(".jpg", _smooth_image(rng, h, w)[..., ::-1],
+                                   [cv2.IMWRITE_JPEG_QUALITY, 95])
+            if not ok:
+                raise AssertionError("cv2 did not encode a JPEG")
+            cam_pose = _pose4(*(pos + 0.02 * np.array([np.cos(yaw), np.sin(yaw), 0])), yaw)
+            images += _pb_bytes(4, _pb_int(1, name) + _pb_bytes(2, jpg.tobytes())
+                                + _pb_bytes(3, _pb_doubles(1, cam_pose.reshape(-1)))
+                                + _pb_double(5, ts / 1e6 + 0.02) + _pb_double(6, 0.005)
+                                + _pb_double(7, ts / 1e6 + 0.015) + _pb_double(8, ts / 1e6 + 0.025))
+        ctx += _pb_bytes(3, _pb_int(1, 1) + _pb_doubles(2, top_incl)
+                         + _pb_bytes(5, _pb_doubles(1, top_ext.reshape(-1))))
+        hh, ww = top
+        ri = np.zeros((hh, ww, 4), np.float32)
+        ri[..., 0] = _ground_ranges(rng, _lidar_rays(hh, ww, top_incl[::-1], 0.0148), 2.18, 45.0)
+        ri[..., 1] = rng.random((hh, ww))
+        dt = ((np.arange(ww) + 0.5) / ww - 0.5) * 0.1
+        pose = np.empty((hh, ww, 6), np.float32)
+        pose[..., 0], pose[..., 1] = 0.001, 0.002
+        pose[..., 2] = yaw + 0.02 * dt
+        for a in range(2):
+            pose[..., 3 + a] = pos[a] + 10.0 * dt * (np.cos(yaw) if a == 0 else np.sin(yaw))
+        pose[..., 5] = pos[2]
+        pose[rng.random((hh, ww)) < 0.02] = 0.0
+        top_ri = (_pb_bytes(2, zlib.compress(_pb_matrix(ri), 1))
+                  + _pb_bytes(4, zlib.compress(_pb_matrix(pose), 1)))
+        lasers = _pb_bytes(5, _pb_int(1, 1) + _pb_bytes(2, top_ri))
+        for name, x, y, z, lyaw in SHORT_LIDARS:
+            ext = _pose4(x, y, z, lyaw)
+            ctx += _pb_bytes(3, _pb_int(1, name) + _pb_double(3, -1.2) + _pb_double(4, 0.5)
+                             + _pb_bytes(5, _pb_doubles(1, ext.reshape(-1))))
+            sh, sw = short
+            incl = np.linspace(0.5, -1.2, sh)
+            rs = np.zeros((sh, sw, 4), np.float32)
+            rs[..., 0] = _ground_ranges(rng, _lidar_rays(sh, sw, incl, lyaw), z, 12.0)
+            lasers += _pb_bytes(5, _pb_int(1, name)
+                                + _pb_bytes(2, _pb_bytes(2, zlib.compress(_pb_matrix(rs), 1))))
+        labels = b""
+        w2v = np.linalg.inv(v2w)
+        for k in range(n_box):
+            typ, length, width, height = kinds[k % len(kinds)]
+            head = box_heading[k]
+            c = np.append(box_start[k] + 0.1 * i * box_speed[k] * np.array([np.cos(head),
+                                                                             np.sin(head)]),
+                          origin[2] + height / 2 - 0.1)   # 10 cm into the ground
+            cv = w2v @ np.append(c, 1.0)
+            vs = w2v[:3, :3] @ (box_speed[k] * np.array([np.cos(head), np.sin(head), 0.0]))
+            box = (_pb_double(1, cv[0]) + _pb_double(2, cv[1]) + _pb_double(3, cv[2])
+                   + _pb_double(4, width) + _pb_double(5, length) + _pb_double(6, height)
+                   + _pb_double(7, head - yaw))
+            labels += _pb_bytes(6, _pb_bytes(1, box) + _pb_bytes(2, _pb_double(1, vs[0])
+                                                                  + _pb_double(2, vs[1]))
+                                + _pb_int(3, typ) + _pb_bytes(4, f"obj-{k:02d}".encode()))
+        records.append(_pb_bytes(1, ctx) + _pb_int(2, ts)
+                       + _pb_bytes(3, _pb_doubles(1, v2w.reshape(-1))) + images + lasers + labels)
+    with open(path, "wb") as fh:
+        for rec in records:
+            fh.write(struct.pack("<Q", len(rec)) + b"\0" * 4 + rec + b"\0" * 4)
+    return [len(r) for r in records]
+
+
+def _walk_equal(a, b, path, rel=ETL_REL):
+    """scenario.pt trees equal: keys, types, shapes and dtypes; floats within
+    `rel` of the array's max."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys differ: {set(a) ^ set(b)}")
+        for k in a:
+            _walk_equal(a[k], b[k], f"{path}/{k}", rel)
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (u, v) in enumerate(zip(a, b)):
+            _walk_equal(u, v, f"{path}[{i}]", rel)
+    elif isinstance(a, np.ndarray):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{path}: {a.shape} {a.dtype} != {b.shape} {b.dtype}")
+        if a.dtype.kind == "f":
+            if np.abs(a - b).max(initial=0) > rel * max(np.abs(a).max(initial=0), 1e-300):
+                raise AssertionError(f"{path}: differs beyond {rel} relative")
+        elif not (a == b).all():
+            raise AssertionError(f"{path}: differs")
+    elif isinstance(a, float):
+        if abs(a - b) > rel * abs(a):
+            raise AssertionError(f"{path}: {a} != {b}")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+
+
+def compare_etl_outputs(card, cpu):
+    """(a): the card's processed scene against the CPU's: scenario.pt within
+    ETL_REL, every npz array within one fp32 ulp, every JPEG byte for byte,
+    the same files. Returns (files, largest npz difference in ulps)."""
+    import pickle
+
+    import numpy as np
+
+    files = sorted(os.path.relpath(os.path.join(d, f), card)
+                   for d, _, fs in os.walk(card) for f in fs)
+    other = sorted(os.path.relpath(os.path.join(d, f), cpu)
+                   for d, _, fs in os.walk(cpu) for f in fs)
+    if files != other:
+        raise AssertionError("the card's and the CPU's preprocess wrote other files")
+    ulps = 0.0
+    for rel in files:
+        p, q = os.path.join(card, rel), os.path.join(cpu, rel)
+        if rel.endswith(".pt"):
+            with open(p, "rb") as f, open(q, "rb") as g:
+                _walk_equal(pickle.load(f), pickle.load(g), rel)
+        elif rel.endswith(".npz"):
+            with np.load(p) as a, np.load(q) as b:
+                if a.files != b.files:
+                    raise AssertionError(f"{rel}: arrays differ")
+                for k in a.files:
+                    u, v = a[k], b[k]
+                    if u.shape != v.shape or u.dtype != v.dtype:
+                        raise AssertionError(f"{rel}/{k}: shape or dtype differs")
+                    d = np.abs(u.astype(np.float64) - v) / np.spacing(np.abs(u)).astype(np.float64)
+                    ulps = max(ulps, float(d.max(initial=0)))
+        else:
+            with open(p, "rb") as f, open(q, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"{rel}: bytes differ")
+    if ulps > 1.0:
+        raise AssertionError(f"npz arrays differ by {ulps} fp32 ulps")
+    return len(files), ulps
+
+
+def cloud_outputs(scene):
+    """build_clouds' clouds: {name: (N, 6) float64 rows of xyz | rgb}; the
+    objects' from objects_info.pkl, the rest from their PLYs."""
+    import pickle
+
+    import numpy as np
+
+    from mudg_tpu_torch.render import pointcloud as PC
+
+    out = {}
+    with open(os.path.join(scene, "objects_info.pkl"), "rb") as f:
+        for o in pickle.load(f):
+            pc = o["point_cloud"]
+            out["object " + o["id"]] = np.concatenate([pc["points"], pc["colors"]], 1)
+    for d in ("objects", "lidar_clouds"):
+        for fname in sorted(os.listdir(os.path.join(scene, d))):
+            xyz, rgb, _ = PC.fetch_ply(os.path.join(scene, d, fname))
+            out[f"{d}/{fname}"] = np.concatenate([xyz, rgb], 1)
+    return {k: np.asarray(v, np.float64) for k, v in out.items()}
+
+
+def _sorted_rows(a):
+    import numpy as np
+
+    return a[np.lexsort(a.T[::-1])]
+
+
+def compare_clouds(card, cpu, allowed):
+    """Each cloud's rows, sorted, within CLOUD_REL of the CPU's; the rows
+    that are not are counted, and more than `allowed` (the points at
+    rounding ties or box faces, each of which may move one row or two voxel
+    centroids) fails. Returns (clouds, points, differing rows)."""
+    import numpy as np
+
+    if sorted(card) != sorted(cpu):
+        raise AssertionError("the card's and the CPU's build_clouds wrote other clouds")
+    n_diff = n_points = 0
+    for k in card:
+        a, b = _sorted_rows(card[k]), _sorted_rows(cpu[k])
+        n_points += len(a)
+        if a.shape != b.shape:
+            n_diff += abs(len(a) - len(b)) + min(len(a), len(b))
+            continue
+        scale = max(np.abs(b).max(initial=0), 1e-30)
+        n_diff += int((np.abs(a - b) > CLOUD_REL * scale).any(1).sum())
+    if n_diff > allowed:
+        raise AssertionError(f"build_clouds: {n_diff} rows differ, {allowed} allowed by the "
+                             "points at rounding ties or box faces")
+    return len(card), n_points, n_diff
+
+
+def tie_and_face_points(torch, scene, cameras):
+    """Points of the TOP lidar clouds whose projection into a camera lies
+    within TIE_REL of an integer pixel coordinate or of the frame's edge,
+    or whose box coordinate lies within FACE_ABS of a moving box's face:
+    where the card and the CPU may round apart. Counted on the CPU in
+    float64, over every frame."""
+    import pickle
+
+    import numpy as np
+
+    from mudg_tpu_torch.apps import build_clouds as BC
+    from mudg_tpu_torch.data.waymo_etl import lidar_frame_to_world
+    from mudg_tpu_torch.render import lidar as L
+
+    with open(os.path.join(scene, "scenario.pt"), "rb") as f:
+        sc = pickle.load(f)
+    obs = sc["observers"]
+    lidar = obs["lidar_TOP"]
+    objs = [o for o in BC.flatten_objects(sc) if L.is_object_moving(
+        o["transform_obj"][o["visibility"] > 0][:, :3, 3])]
+    n = 0
+    for i in range(lidar["n_frames"]):
+        with np.load(os.path.join(scene, "lidars", "lidar_TOP", f"{i:08d}.npz")) as z:
+            o, d = lidar_frame_to_world(torch.as_tensor(z["rays_o"].reshape(-1, 3)),
+                                        torch.as_tensor(z["rays_d"].reshape(-1, 3)),
+                                        lidar["data"]["l2w"][i])
+            xyz, _ = L.rays_to_points(o, d, torch.as_tensor(z["ranges"].reshape(-1)))
+        x = xyz.double().numpy()
+        near = np.zeros(len(x), bool)
+        for name in cameras:
+            cam = obs[name]["data"]
+            K = cam["intr"][i]
+            w2c = np.linalg.inv(cam["c2w"][i])
+            p = x @ w2c[:3, :3].T + w2c[:3, 3]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                for uv, lim in ((K[0, 0] * p[:, 0] / p[:, 2] + K[0, 2], cam["hw"][i][1]),
+                                (K[1, 1] * p[:, 1] / p[:, 2] + K[1, 2], cam["hw"][i][0])):
+                    frac = np.abs(uv - np.round(uv))
+                    near |= (frac <= TIE_REL * np.maximum(np.abs(uv), 1)) | (
+                        np.abs(uv - lim) <= TIE_REL * lim)
+            near |= np.abs(p[:, 2] - 0.1) <= TIE_REL
+        for ob in objs:
+            if not ob["visibility"][i]:
+                continue
+            w2b = np.linalg.inv(ob["transform_obj"][i])
+            b = x @ w2b[:3, :3].T + w2b[:3, 3]
+            near |= (np.abs(np.abs(b) - ob["bbox"][i] / 2) <= FACE_ABS).any(1) & (
+                np.abs(b) <= ob["bbox"][i] / 2 + FACE_ABS).all(1)
+        n += int(near.sum())
+    return n
+
+
+def voxel_cloud(torch, seed, frames=VOXEL_FRAMES, per_frame=VOXEL_PER_FRAME):
+    """A seeded segment's background on the CPU: `frames` scans along a
+    VOXEL_TRACK m straight track, each `per_frame` points within
+    VOXEL_RANGE m, denser near the sensor (r = 2 + 73 u^2), 80% on the
+    ground and 20% on walls up to 8 m; RGB in [0, 1]."""
+    gen = torch.Generator().manual_seed(seed)
+    n = frames * per_frame
+    cx = (torch.arange(frames, dtype=torch.float32) * (VOXEL_TRACK / frames)).repeat_interleave(
+        per_frame)
+    th = torch.rand(n, generator=gen) * (2 * math.pi)
+    r = 2.0 + (VOXEL_RANGE - 2.0) * torch.rand(n, generator=gen) ** 2
+    z = torch.randn(n, generator=gen) * 0.05
+    wall = torch.rand(n, generator=gen) < 0.2
+    z = torch.where(wall, torch.rand(n, generator=gen) * 8.0, z)
+    xyz = torch.stack([cx + r * torch.cos(th), r * torch.sin(th), z], 1)
+    return xyz, torch.rand(n, 3, generator=gen)
+
+
+class SeededDraws:
+    """draws[i]: the i-th of a sequence of standard normal tensors, the
+    same on every device: one seeded normal tensor drawn on the CPU, its
+    flattened values rolled by 7919 i (each step's draw another
+    arrangement of it; no draw made anew per step)."""
+
+    def __init__(self, torch, shape, seed):
+        self.shape = shape
+        self.base = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).reshape(-1)
+
+    def __getitem__(self, i):
+        return self.base.roll(7919 * i).reshape(self.shape)
+
+
+def closed_form_model(torch, shape, seed):
+    """A seeded denoiser with only exactly rounded operations (products,
+    sums, a division), so that the card and the CPU agree bit for bit:
+    out = a x / (1 + |x|) + b t / 1000."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(shape[1:], generator=gen) * 0.5
+    b = float(torch.randn((), generator=gen))
+    cache = {}
+
+    def fn(x, t):
+        aa = cache.setdefault(x.device, a.to(x.device))
+        return aa * x / (1.0 + x.abs()) + b * t.float().reshape(-1, *(1,) * (x.ndim - 1)) / 1000.0
+
+    return fn
+
+
+def run_samplers(torch, dev, shape, steps=SAMPLER_STEPS, seed=SEED + 19):
+    """(e) on `dev`: masked DDIM (eta 1) and DPM-Solver++ at `steps`,
+    stochastic_encode at every DDIM index and the full ancestral
+    ddpm_sample in v (no clipping), eps and x0 (clip_denoised), each from
+    the same seeded inputs and draws. Returns ({name: output on the
+    CPU}, {name: seconds})."""
+    from mudg_tpu_torch.core import schedules as TS
+    from mudg_tpu_torch.diffusion import ddim as TDDIM
+    from mudg_tpu_torch.diffusion import dpm as TDPM
+
+    gen = torch.Generator().manual_seed(seed)
+    mask = (torch.rand(shape, generator=gen) > 0.5).float().to(dev)
+    x0 = torch.randn(shape, generator=gen).to(dev)
+    x_T = torch.randn(shape, generator=gen).to(dev)
+    fn = closed_form_model(torch, shape, seed + 1)
+    sched = TS.DiffusionSchedule.create()
+    out, secs = {}, {}
+
+    def timed(name, f):
+        t0 = time.perf_counter()
+        r = f()
+        out[name] = r.cpu()
+        secs[name] = time.perf_counter() - t0
+
+    dc = TDDIM.make_ddim_constants(sched, steps, device=dev)
+    timed("ddim_masked", lambda: TDDIM.ddim_sample(
+        fn, None, shape, dc, x_T=x_T, mask=mask, x0=x0, sched=sched, device=dev,
+        draws={"noise": SeededDraws(torch, shape, seed + 2),
+               "noise_q": SeededDraws(torch, shape, seed + 3)}))
+    timed("dpm_masked", lambda: TDPM.dpmpp_sample(
+        fn, None, shape, TDPM.make_dpmpp_constants(sched, steps, device=dev), x_T=x_T,
+        mask=mask, x0=x0, sched=sched, device=dev,
+        draws={"noise_q": SeededDraws(torch, shape, seed + 4)}))
+    timed("stochastic_encode", lambda: torch.stack([
+        TDDIM.stochastic_encode(x0, i, dc, x_T) for i in range(steps)]))
+    for k, (param, clip) in enumerate((("v", False), ("eps", True), ("x0", True))):
+        s = TS.DiffusionSchedule.create(parameterization="v" if param == "x0" else param)
+        timed(f"ddpm_{param}", lambda: TDDIM.ddpm_sample(
+            fn, None, shape, s, parameterization=param, clip_denoised=clip, device=dev,
+            x_T=x_T, draws={"noise": SeededDraws(torch, shape, seed + 5 + k)}))
+    return out, secs
+
+
+def option_unet(torch, K, U, name, gen, cfg_kw=None):
+    """phase 19 (d)'s UNet `name` at full UNetConfig() width (or `cfg_kw`),
+    fp32, every parameter re-randomized."""
+    cfg = U.UNetConfig(**{**(cfg_kw or {}), **OPTION_UNETS[name]})
+    with torch.device("meta"):
+        unet = U.UNet3D(cfg)
+    unet.to_empty(device=gen.device)
+    return randomize_(torch, unet, gen).eval(), cfg
+
+
+def phase_option_forwards(torch, K, U, card, dev="cuda", cfg_kw=None, latents=None, frames=16):
+    """(d): each option UNet at its batch and latent, fp32 plain (TF32 off),
+    bf16 plain and bf16 on the kernels; the kernel path within 1.5x the
+    plain bf16 path's relative L2 against fp32 + 5e-3, its launches at
+    OPTION_SITES (counts reset just before, read just after); each bf16
+    forward timed (kernels median of 3; plain the checked call). The
+    cross-context UNet must first raise JAX's ValueError at the MDM512
+    latent. Returns (launches by path, report)."""
+    launches, report = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    for name in OPTION_UNETS:
+        unet, cfg = option_unet(torch, K, U, name, gen, cfg_kw)
+        b = OPTION_BATCH[name]
+        h, w = (latents or LATENT)[OPTION_LATENT[name]]
+        x = torch.randn(b, frames, h, w, cfg.in_channels, generator=gen, device=dev)
+        ctx = torch.randn(b, 77 + frames * 16, cfg.context_dim, generator=gen, device=dev)
+        t = torch.tensor([700, 300, 50][:b], device=dev)
+        lab = torch.tensor([0, 500, 1000][:b], device=dev)
+        with torch.no_grad():
+            if name == "context":
+                h5, w5 = (latents or LATENT)["mdm512"]
+                try:
+                    unet(torch.randn(b, frames, h5, w5, cfg.in_channels, generator=gen,
+                                     device=dev), t, ctx, c_label=lab)
+                except ValueError as e:
+                    if "reference repeat semantics" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("the cross-context UNet ran at the MDM512 latent")
+            with no_tf32(torch):
+                ref = unet(x, t, ctx, c_label=lab, impl="plain")
+            unet.to(torch.bfloat16)
+            K.prepare_kernels(unet)
+            xb, cb = x.bfloat16(), ctx.bfloat16()
+            t0 = time.perf_counter()
+            plain = unet(xb, t, cb, c_label=lab, impl="plain")
+            sync(torch, dev)
+            ms_plain = 1e3 * (time.perf_counter() - t0)
+            K.reset_launch_counts()
+            kern = unet(xb, t, cb, c_label=lab)
+            counts = K.launch_counts()
+            ms_k = (cuda_ms(torch, lambda: unet(xb, t, cb, c_label=lab), iters=3, warmup=0)
+                    if dev == "cuda" else None)
+        e_p = rel_l2(torch, [(plain, ref)])
+        e_k = rel_l2(torch, [(kern, ref)])
+        bound_ = 1.5 * e_p + 5e-3
+        log(f"  {name} (batch {b}, {h}x{w}): rel L2 vs fp32 kernels {e_k:.4e} (bound "
+            f"{bound_:.4e}), plain bf16 {e_p:.4e}; forward bf16 kernels "
+            f"{'-' if ms_k is None else f'{ms_k:.1f}'} ms, plain {ms_plain:.1f} ms ({card}); "
+            f"launches {counts}")
+        if not bool(torch.isfinite(kern).all()) or e_k > bound_:
+            raise AssertionError(f"{name}: kernel-path error {e_k:.4e} exceeds {bound_:.4e}")
+        check_launches(f"options {name}", counts, {**dict.fromkeys(counts, 0),
+                                                   **OPTION_SITES[name]})
+        launches[f"options_{name}"] = counts
+        report[name] = {"batch": b, "latent": [h, w], "rel_l2_kernels": e_k,
+                        "rel_l2_plain_bf16": e_p, "ms_kernels": ms_k, "ms_plain": ms_plain}
+        del unet, ref, plain, kern, x, ctx, xb, cb
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return launches, report
+
+
+def phase_etl(torch, K, U, card, dev="cuda", small=None):
+    """Phase 19 in the checkout's _phase19 (deleted after): (a) preprocess
+    on `dev` and on the CPU from a seeded tfrecord of ETL_FRAMES frames at
+    Waymo's sensor sizes (`waymo_segment`), compared by compare_etl_outputs;
+    (b) build_clouds with all five cameras on `dev` and on the CPU from the
+    card's processed scene, compared by compare_clouds; (c) voxel_downsample
+    alone on a seeded 198-frame background (`voxel_cloud`, about 20M
+    points, voxel 0.1) on `dev` and on the CPU, equal rows; (d)
+    phase_option_forwards; (e) run_samplers at the MDM512 latent on `dev`
+    and on the CPU, within SAMPLER_REL. Each app's seconds split into its
+    stages. `small` (dict: frames, cams, top, short, boxes, voxel, unet,
+    latents, frames_unet, shape) lets the CPU tests rehearse it. Returns
+    (launches, report)."""
+    import functools
+    import shutil
+
+    import numpy as np
+
+    from mudg_tpu_torch.apps import build_clouds as BC
+    from mudg_tpu_torch.apps import preprocess as PP
+    from mudg_tpu_torch.data import waymo_etl as ETL
+    from mudg_tpu_torch.utils import native as NT
+
+    small = small or {}
+    t_start = time.perf_counter()
+    root = os.path.join(ROOT, "_phase19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "records"))
+    cams = small.get("cams", WAYMO_CAMS)
+    report = {"card": card, "frames": small.get("frames", ETL_FRAMES)}
+    try:
+        t0 = time.perf_counter()
+        sizes = waymo_segment(os.path.join(root, "records", "seg.tfrecord"),
+                              report["frames"], cams=cams, top=small.get("top", TOP_HW),
+                              short=small.get("short", SHORT_HW),
+                              boxes=small.get("boxes", ETL_BOXES))
+        report["records_mb"] = sum(sizes) / 2**20
+        report["records_s"] = time.perf_counter() - t0
+        # (a) preprocess, through its app, on the card and on the CPU
+        runs = (("card", dev), ("cpu", "cpu"))
+        split = {}
+        for label, where in runs:
+            tm = split[label] = {}
+            t0 = time.perf_counter()
+            with patched(ETL, "process_sequence",
+                         functools.partial(ETL.process_sequence, timings=tm)):
+                if PP.main(["--root", os.path.join(root, "records"), "--out_root",
+                            os.path.join(root, f"out_{label}"), "-j", "1",
+                            "--device", where]) != 0:
+                    raise AssertionError(f"preprocess on {where} failed")
+            tm["total"] = time.perf_counter() - t0
+        n_files, ulps = compare_etl_outputs(os.path.join(root, "out_card", "seg"),
+                                            os.path.join(root, "out_cpu", "seg"))
+        report["preprocess"] = {"s": split, "files": n_files, "npz_ulps": ulps}
+        log(f"  (a) preprocess, {report['frames']} frames ({report['records_mb']:.1f} MB of "
+            f"records): {dev} {split['card']['total']:.2f} s ({_fmt_split(split['card'])}), "
+            f"CPU {split['cpu']['total']:.2f} s ({_fmt_split(split['cpu'])}); {n_files} files "
+            f"equal, npz within {ulps:.0f} fp32 ulp ({card})")
+        # (b) build_clouds on the card's processed scene, card then CPU
+        scene = os.path.join(root, "out_card", "seg")
+        cam_names = tuple("camera_" + c[1] for c in cams)
+        clouds, bsplit = {}, {}
+        for label, where in runs:
+            tm = bsplit[label] = {}
+            t0 = time.perf_counter()
+            with patched(BC, "build_scene_clouds",
+                         functools.partial(BC.build_scene_clouds, timings=tm)):
+                BC.main(["--scene", scene, "--cameras", *cam_names, "--device", where])
+            tm["total"] = time.perf_counter() - t0
+            clouds[label] = cloud_outputs(scene)
+            for d in ("objects", "lidar_clouds"):
+                shutil.rmtree(os.path.join(scene, d))
+            os.remove(os.path.join(scene, "objects_info.pkl"))
+        allowed = 0
+        if sorted(clouds["card"]) != sorted(clouds["cpu"]) or any(
+                not np.array_equal(_sorted_rows(a), _sorted_rows(clouds["cpu"][k]))
+                for k, a in clouds["card"].items()):
+            allowed = 2 * tie_and_face_points(torch, scene, cam_names)
+        n_clouds, n_points, n_diff = compare_clouds(clouds["card"], clouds["cpu"], allowed)
+        report["build_clouds"] = {
+            "s": bsplit, "clouds": n_clouds, "points": n_points, "rows_differing": n_diff,
+            "allowed": allowed, "background_points": len(clouds["card"]["objects/background.ply"]),
+            "moving_objects": sum(k.startswith("object ") for k in clouds["card"])}
+        log(f"  (b) build_clouds ({len(cams)} cameras): {dev} {bsplit['card']['total']:.2f} s "
+            f"({_fmt_split(bsplit['card'])}), CPU {bsplit['cpu']['total']:.2f} s "
+            f"({_fmt_split(bsplit['cpu'])}); {n_clouds} clouds, {n_points:,} rows, {n_diff} "
+            f"differing ({allowed} allowed by ties and faces); background "
+            f"{report['build_clouds']['background_points']:,} points, "
+            f"{report['build_clouds']['moving_objects']} moving objects ({card})")
+        # (c) voxel downsampling alone at a segment's size
+        vf, vp = small.get("voxel", (VOXEL_FRAMES, VOXEL_PER_FRAME))
+        xyz, rgb = voxel_cloud(torch, SEED + 19, vf, vp)
+        xd, rd = xyz.to(dev), rgb.to(dev)
+        ms = (cuda_ms(torch, lambda: NT.voxel_downsample(xd, rd, VOXEL_SIZE), iters=3, warmup=1)
+              if dev == "cuda" else None)
+        a_xyz, a_rgb = NT.voxel_downsample(xd, rd, VOXEL_SIZE)
+        del xd, rd
+        t0 = time.perf_counter()
+        c_xyz, c_rgb = NT.voxel_downsample(xyz, rgb, VOXEL_SIZE)
+        cpu_s = time.perf_counter() - t0
+        if not (torch.equal(a_xyz.cpu(), c_xyz) and torch.equal(a_rgb.cpu(), c_rgb)):
+            raise AssertionError("voxel_downsample: the card's rows differ from the CPU's")
+        report["voxel"] = {"points": len(xyz), "voxels": len(c_xyz), "ms": ms, "cpu_s": cpu_s}
+        log(f"  (c) voxel_downsample of {len(xyz):,} points at {VOXEL_SIZE} m: {len(c_xyz):,} "
+            f"voxels, equal rows; {'-' if ms is None else f'{ms:.1f}'} ms on {dev}, "
+            f"{cpu_s:.2f} s on the CPU ({card})")
+        del xyz, rgb, a_xyz, a_rgb, c_xyz, c_rgb
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (d) the option UNets
+    launches, report["options"] = phase_option_forwards(
+        torch, K, U, card, dev, small.get("unet"), small.get("latents"),
+        small.get("frames_unet", 16))
+    # (e) the samplers, the card against the CPU
+    h, w = LATENT["mdm512"]
+    shape = small.get("shape", (2, 16, h, w, 4))
+    got, secs = run_samplers(torch, dev, shape)
+    ref, secs_cpu = run_samplers(torch, "cpu", shape)
+    errs = {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+            for k in ref}
+    bad = {k: e for k, e in errs.items() if not (e <= SAMPLER_REL) or
+           not bool(torch.isfinite(got[k]).all())}
+    report["samplers"] = {"shape": list(shape), "rel_err": errs, "s": secs, "s_cpu": secs_cpu}
+    log(f"  (e) samplers at {tuple(shape)}: max relative difference card vs CPU "
+        f"{max(errs.values()):.2e} (bound {SAMPLER_REL}); s on {dev} "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + "; on the CPU "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs_cpu.items()))
+    if bad:
+        raise AssertionError(f"samplers: the card differs from the CPU beyond {SAMPLER_REL}: {bad}")
+    report["seconds"] = time.perf_counter() - t_start
+    return launches, report
+
+
+def _fmt_split(tm):
+    return ", ".join(f"{k} {v:.2f}" for k, v in tm.items() if k != "total")
+
+
+
 def kernel_line(kernels, rows, launches):
     """The kernel table printed as one JSON line: per kernel its route, source,
     the TPU kernel it replaces, its launches on the main paths (`launches`:
@@ -5321,7 +6084,7 @@ def kernel_line(kernels, rows, launches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19")
     ap.add_argument("--out", default=None, help="directory for a JSON report")
     ap.add_argument("--profile", action="store_true",
                     help="after phases 3 and 5, profile one UNet forward per path; in "
@@ -5484,6 +6247,11 @@ def main(argv=None):
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], r["max_abs_err"])
             else:
                 rows[name] = r
+    if 19 in phases:
+        torch.cuda.empty_cache()
+        phase19, report["etl_options"] = timed(19, "host ETL, UNet and sampler options",
+                                               phase_etl, torch, K, U, card)
+        launches.update(phase19)
     if 9 in phases:
         rows.update(timed(9, "kernel 13 vs plain", phase_gs_kernels, torch, gs_k, gs_g, gs_tr,
                           args.profile, args.out))

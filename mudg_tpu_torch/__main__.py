@@ -12,15 +12,18 @@ Mirrors `python -m mudg_tpu`. Ported commands:
   eval         PSNR/SSIM/LPIPS, depth and mIoU evaluation (apps.eval_nvs)
   segment      SegFormer semantic maps per frame    (apps.segment)
   densify      learned/classical depth densification (apps.densify_depth)
+  preprocess   Waymo tfrecords -> processed scene directories (apps.preprocess)
 `render-infer` is an alias of `render`, `train-mdm` of `train`,
-`make-conditions` of `conditions`, `eval-nvs` of `eval`. The JAX CLI's other
-commands (preprocess, bench) exit with code 2 and "not ported yet".
+`make-conditions` of `conditions`, `eval-nvs` of `eval`. The JAX CLI's
+`bench` (the benchmark from before the port) exits with code 2 and "not
+ported yet". `build_clouds` runs as `python -m mudg_tpu_torch.apps.build_clouds`,
+as the JAX package's does.
 """
 from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("preprocess", "bench")
+NOT_PORTED = ("bench",)
 
 
 def main(argv=None):
@@ -51,6 +54,8 @@ def main(argv=None):
         from .apps.segment import main as run
     elif cmd == "densify":
         from .apps.densify_depth import main as run
+    elif cmd == "preprocess":
+        from .apps.preprocess import main as run
     elif cmd in NOT_PORTED:
         print(f"{cmd!r} is not ported yet (see ROADMAP.md); run it with "
               f"python -m mudg_tpu {cmd}", file=sys.stderr)

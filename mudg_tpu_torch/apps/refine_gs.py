@@ -99,6 +99,23 @@ def _device_view(v: dict, device):
     return out
 
 
+def initial_cloud(scene: str, capacity: int, voxel: float, device):
+    """The background cloud refine-gs starts from (numpy): objects/
+    background.ply, voxel downsampled on `device` where it holds more than
+    capacity // 2 points (the cells as JAX's native library picks them,
+    rows sorted by cell), cut to `capacity`."""
+    import torch
+
+    from ..render import pointcloud as PC
+
+    xyz, rgb, _ = PC.fetch_ply(os.path.join(scene, "objects", "background.ply"))
+    if len(xyz) > capacity // 2:
+        xyz, rgb = (a.cpu().numpy() for a in PC.voxel_downsample(
+            torch.as_tensor(xyz, device=device), torch.as_tensor(rgb, device=device), voxel))
+    n0 = min(len(xyz), capacity)
+    return xyz[:n0], rgb[:n0]
+
+
 def refine(g, train_views: list[dict], hold_views: list[dict], cfg, *, width: int,
            height: int, steps: int, render_views=None, shift: float = 2.0,
            on_step=None) -> dict:
@@ -220,15 +237,11 @@ def main(argv=None):
     from ..gs import gaussians as G
     from ..gs import train as GT
     from ..gs.io import load_gaussians_ply, save_gaussians_ply
-    from ..render import pointcloud as PC
     from ..utils import media
 
     dev = torch.device(args.device)
-    xyz, rgb, _ = PC.fetch_ply(os.path.join(args.scene, "objects", "background.ply"))
-    if len(xyz) > args.capacity // 2:
-        xyz, rgb = PC.voxel_downsample(xyz, rgb, args.voxel)
-    n0 = min(len(xyz), args.capacity)
-    xyz, rgb = xyz[:n0], rgb[:n0]
+    xyz, rgb = initial_cloud(args.scene, args.capacity, args.voxel, dev)
+    n0 = len(xyz)
     grp = obj_info = None
     if args.dynamic:
         with open(os.path.join(args.scene, "objects_info.pkl"), "rb") as f:

@@ -12,8 +12,8 @@ so the first update is x = sigma_t * x_T + alpha_t * x0_pred. The second-
 order weight g1 is 0 on the first step, wherever the log-SNR interval is not
 finite, and on the last step (lower_order_final). With the schedule's
 dynamic rescale, x0 carries the same scale_prev / scale ratio as the DDIM
-step. The JAX sampler's latent mask blending is not on `sample`'s path and
-is not ported.
+step. With a latent mask, each step first blends x against x0 q-sampled
+to its timestep, as the DDIM loop does (dpm.py:122-137).
 """
 from __future__ import annotations
 
@@ -76,19 +76,35 @@ def make_dpmpp_constants(sched: S.DiffusionSchedule, num_steps: int, *,
 
 
 def dpmpp_sample(model_fn: Callable, generator: torch.Generator, shape,
-                 consts: DPMPPConstants, *, x_T=None, dtype=torch.float32, device=None):
+                 consts: DPMPPConstants, *, x_T=None, mask=None, x0=None,
+                 sched: S.DiffusionSchedule | None = None, dtype=torch.float32, device=None,
+                 draws=None):
     """DPM-Solver++(2M) loop (dpm.py:99-154), deterministic after the start
     noise: x_T, or drawn from `generator`. model_fn(x, t) -> v with guidance
-    applied, t (B,). The algebra runs in fp32; x and the previous x0 are kept
-    in `dtype` between steps. Returns the final x."""
+    applied, t (B,). With `mask` (and x0, sched), each step's x is first
+    blended against x0 q-sampled to its timestep (`ddim.masked_blend`), its
+    noise drawn from `generator` before the model call, or taken from
+    draws={"noise_q": (S, *shape)} (the parity tests pass JAX's). The
+    algebra runs in fp32; x and the previous x0 are kept in `dtype` between
+    steps. Returns the final x."""
+    from .ddim import masked_blend, sched_tables
+
     device = device if device is not None else consts.alpha_s.device
     b = shape[0]
     x = (torch.randn(shape, generator=generator, device=device, dtype=dtype)
          if x_T is None else x_T.to(device=device, dtype=dtype))
+    if mask is not None:
+        if x0 is None or sched is None:
+            raise ValueError("a mask needs x0 and sched")
+        sa, soma = sched_tables(sched, device)
     m_prev = torch.zeros(shape, device=device, dtype=dtype)
     nd = (1,) * (len(shape) - 1)
     for i in range(consts.ts.shape[0]):
         c = DPMPPConstants(*(a[i].to(device) for a in consts))
+        if mask is not None:
+            noise_q = (draws["noise_q"][i].to(device=device, dtype=dtype) if draws is not None
+                       else torch.randn(shape, generator=generator, device=device, dtype=dtype))
+            x = masked_blend(x, mask, x0, (sa[c.ts], soma[c.ts]), noise_q).to(dtype)
         v = model_fn(x, c.ts.expand(b))
         xf, vf = x.float(), v.float()
         r = lambda a: a.reshape(1, *nd)   # noqa: E731

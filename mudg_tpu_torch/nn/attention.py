@@ -16,7 +16,14 @@ read where it reads them, default "1": MUDG_FUSED_SPATIAL, MUDG_STREAM_SPATIAL
 and MUDG_FLASHBLOCK (kernel 1's sites, by the tier JAX puts them on),
 MUDG_FUSED_FF (kernel 3) and MUDG_FUSED_TEMPORAL (kernel 2); "0" sends their
 sites down the JAX fallback chain (MUDG_FUSED_TCONV is read in `unet3d.py`).
-Relative-position and joint task attention are not ported yet. A
+The options that no MuDG config sets run on the plain path wherever JAX
+keeps them off its kernels (attention.py:372-375, :527-540):
+relative-position attention (additive terms on the logits and the values)
+and the causal mask keep a temporal block off kernel 2 (and any block off
+kernel 1); joint task attention (Lk = num_tasks * L) meets no kernel at
+MuDG's shapes; the cross-context temporal blocks (only_self_att=False) run
+their self-attention over T = 16 rows, which kernel 1 does not take, and
+their FFs on kernel 3. A
 transformer block's three residual outputs are the tag sites blk_attn1,
 blk_attn2 and blk_ff of the remat policies (attention.py:419-438, :559-560).
 A layer that `quant.quantize_module` made int8 keeps its site off the fused
@@ -142,11 +149,31 @@ def _merge_heads(x):
     return x.reshape(b, l, h * d)
 
 
+class RelativePosition(nn.Module):
+    """A clipped relative-position embedding table (attention.py:20-39),
+    (2 * max_rel + 1, dim_head)."""
+
+    def __init__(self, max_rel, dim_head):
+        super().__init__()
+        self.embeddings_table = nn.Parameter(torch.zeros(2 * max_rel + 1, dim_head))
+
+
+def relative_position_bias(table, length_q, length_k, max_rel):
+    """The table's rows at the clipped offsets k - q, (length_q, length_k,
+    d) (attention.py:163-171)."""
+    rq = torch.arange(length_q, device=table.device)[:, None]
+    rk = torch.arange(length_k, device=table.device)[None, :]
+    return table[(rk - rq).clamp(-max_rel, max_rel) + max_rel]
+
+
 class CrossAttention(nn.Module):
-    """CrossAttention parameters (attention.py:81-209)."""
+    """CrossAttention parameters (attention.py:81-209); with
+    `relative_position`, the key and value tables relative_position_k/v
+    over `temporal_length` (attention.py:597-606)."""
 
     def __init__(self, query_dim, context_dim=None, heads=8, dim_head=64,
-                 image_cross=False, alpha_learnable=False):
+                 image_cross=False, alpha_learnable=False, relative_position=False,
+                 temporal_length=None):
         super().__init__()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
@@ -160,14 +187,41 @@ class CrossAttention(nn.Module):
             self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
             if alpha_learnable:
                 self.alpha = nn.Parameter(torch.zeros(()))
+        if relative_position:
+            if temporal_length is None:
+                raise ValueError("relative-position attention needs temporal_length")
+            self.relative_position_k = RelativePosition(temporal_length, dim_head)
+            self.relative_position_v = RelativePosition(temporal_length, dim_head)
+
+
+def _relative_attention(m, q, k, v, max_rel, causal):
+    """Attention with additive relative-position terms on the logits and
+    the values and an optional causal mask (attention.py:220-245): fp32
+    logits and softmax, probabilities in v's dtype."""
+    scale = q.shape[-1] ** -0.5
+    lq, lk = q.shape[1], k.shape[1]
+    k2 = relative_position_bias(m.relative_position_k.embeddings_table, lq, lk, max_rel)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits + torch.einsum("bqhd,qkd->bhqk", q.float(), k2.float())
+    logits = logits * scale
+    if causal:
+        mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    v2 = relative_position_bias(m.relative_position_v.embeddings_table, lq, lq, max_rel)
+    return out + torch.einsum("bhqk,qkd->bqhd", probs, v2.to(probs.dtype))
 
 
 def cross_attention(m, x, context=None, *, heads, image_cross=False, ip_scale=1.0,
-                    text_len=77, impl="auto"):
+                    text_len=77, causal=False, temporal_length=None, impl="auto"):
     """CrossAttention forward (attention.py:174-252). x (B, Lq, C); context
     None is self-attention. With `image_cross` the context's tokens past
     `text_len` go through the decoupled image-KV path, added with ip_scale
-    (times tanh(alpha) + 1 when alpha is learnable)."""
+    (times tanh(alpha) + 1 when alpha is learnable). A module with
+    relative-position tables takes the relative branch (over
+    `temporal_length`, with the causal mask when `causal`); `causal`
+    otherwise masks the plain attention."""
     self_attn = context is None
     ctx = x if self_attn else context
     out_ip = None
@@ -184,8 +238,12 @@ def cross_attention(m, x, context=None, *, heads, image_cross=False, ip_scale=1.
     else:
         if not self_attn:
             ctx = ctx[:, :text_len]
-        out = attend(q, _split_heads(F.linear(m.to_k, ctx), heads),
-                     _split_heads(F.linear(m.to_v, ctx), heads), impl=impl)
+        k = _split_heads(F.linear(m.to_k, ctx), heads)
+        v = _split_heads(F.linear(m.to_v, ctx), heads)
+        if hasattr(m, "relative_position_k"):
+            out = _relative_attention(m, q, k, v, temporal_length, causal)
+        else:
+            out = attend(q, k, v, causal=causal, impl=impl)
     out = _merge_heads(out)
     if out_ip is not None:
         out_ip = _merge_heads(out_ip)
@@ -194,6 +252,26 @@ def cross_attention(m, x, context=None, *, heads, image_cross=False, ip_scale=1.
         else:
             out = out + ip_scale * out_ip
     return F.linear(m.to_out["0"], out)
+
+
+def joint_cross_attention(m, x, *, heads, num_tasks, impl="auto"):
+    """JointCrossAttention (attention.py:255-276): x (B, L, C) with B =
+    num_tasks * per-task batch in task-major chunks; each sample attends to
+    the keys and values of every task's sample at its index within the
+    chunk, concatenated (Lk = num_tasks * L)."""
+    b, l, _ = x.shape
+    if b % num_tasks:
+        raise ValueError(f"batch {b} not divisible by num_tasks {num_tasks}")
+    per = b // num_tasks
+
+    def shared(t):   # (M*per, L, C) -> (per, M*L, C), tiled over the tasks
+        c = t.shape[-1]
+        t = t.reshape(num_tasks, per, l, c).transpose(0, 1).reshape(per, num_tasks * l, c)
+        return _split_heads(t.repeat(num_tasks, 1, 1), heads)
+
+    q = _split_heads(F.linear(m.to_q, x), heads)
+    out = attend(q, shared(F.linear(m.to_k, x)), shared(F.linear(m.to_v, x)), impl=impl)
+    return F.linear(m.to_out["0"], _merge_heads(out))
 
 
 class GEGLUProj(nn.Module):
@@ -253,30 +331,39 @@ def feed_forward_block(ff, norm, x, impl="auto", packed=None):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> FF with pre-LN residuals (attention.py:359-438).
-    `temporal`: a block of a TemporalTransformer, whose two self-attentions
-    kernel 2 takes (packed in its head order) instead of kernel 1."""
+    """self-attn -> (joint task attn) -> cross-attn -> FF with pre-LN
+    residuals (attention.py:359-438). `temporal`: a block of a
+    TemporalTransformer, whose two self-attentions kernel 2 takes (packed in
+    its head order) instead of kernel 1. `relative_position` gives both
+    attentions relative-position tables over `temporal_length`;
+    `domain_cross` adds the joint task attention attn_joint and its
+    norm_joint (attention.py:642)."""
 
     def __init__(self, dim, *, heads, dim_head, context_dim=None, image_cross=False,
-                 alpha_learnable=False, temporal=False):
+                 alpha_learnable=False, temporal=False, relative_position=False,
+                 temporal_length=None, domain_cross=False):
         super().__init__()
         self.heads = heads
         self.temporal = temporal
-        self.attn1 = CrossAttention(dim, heads=heads, dim_head=dim_head)
+        rel = dict(relative_position=relative_position, temporal_length=temporal_length)
+        self.attn1 = CrossAttention(dim, heads=heads, dim_head=dim_head, **rel)
         self.attn2 = CrossAttention(dim, context_dim, heads=heads, dim_head=dim_head,
                                     image_cross=image_cross,
-                                    alpha_learnable=alpha_learnable)
+                                    alpha_learnable=alpha_learnable, **rel)
         self.ff = FeedForward(dim)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.norm3 = nn.LayerNorm(dim)
+        if domain_cross:
+            self.attn_joint = CrossAttention(dim, heads=heads, dim_head=dim_head)
+            self.norm_joint = nn.LayerNorm(dim)
         self.kernel_packs = {}
 
     def _self_attn_square(self, attn):
         c = self.norm1.weight.shape[0]
         return (all(Q.is_float(m) for m in (attn.to_q, attn.to_k, attn.to_v, attn.to_out["0"]))
                 and attn.to_q.weight.shape == (c, c) and attn.to_k.weight.shape == (c, c)
-                and not attn.image_cross)
+                and not attn.image_cross and not hasattr(attn, "relative_position_k"))
 
     def pack_kernel_weights(self):
         """Kernel-side weights of this block's float sites, packed once."""
@@ -292,33 +379,39 @@ class BasicTransformerBlock(nn.Module):
                     packs[name] = pack_stage(norm, attn, self.heads)
         self.kernel_packs = packs
 
-    def _spatial_kernel_site(self, x, impl):
+    def _spatial_kernel_site(self, x, impl, causal=False):
         """The JAX spatial dispatch (attention.py:371-405): kernel 1 wherever
-        the CUDA kernel takes the shape (it serves JAX's three tiers).
-        MUDG_FUSED_SPATIAL=0 sends every site, and MUDG_STREAM_SPATIAL=0 /
-        MUDG_FLASHBLOCK=0 the sites JAX puts on their tier (`SP.tier` names
-        it from copies of the JAX predicates), to `cross_attention` (kernel
-        5 at L >= 512), as in JAX."""
+        the CUDA kernel takes the shape (it serves JAX's three tiers), but
+        never causal or with relative-position tables. MUDG_FUSED_SPATIAL=0
+        sends every site, and MUDG_STREAM_SPATIAL=0 / MUDG_FLASHBLOCK=0 the
+        sites JAX puts on their tier (`SP.tier` names it from copies of the
+        JAX predicates), to `cross_attention` (kernel 5 at L >= 512), as in
+        JAX."""
         c = x.shape[-1]
-        return (impl == "auto" and self._self_attn_square(self.attn1)
+        return (impl == "auto" and not causal and self._self_attn_square(self.attn1)
                 and os.environ.get("MUDG_FUSED_SPATIAL", "1") == "1"
                 and SP.eligible(x.shape, x.dtype, c, self.heads)
                 and not SP.switched_off(x.shape, x.dtype, c, self.heads))
 
     def forward(self, x, context=None, *, image_cross=False, ip_scale=1.0,
-                text_len=77, impl="auto"):
-        if self._spatial_kernel_site(x, impl):
+                text_len=77, causal=False, temporal_length=None, num_tasks=1, impl="auto"):
+        if self._spatial_kernel_site(x, impl, causal):
             R.tag("blk_attn1")
             x = SP.fused_self_attention(x.contiguous(), self.norm1, self.attn1, self.heads,
                                         self.kernel_packs.get("attn1"))
         else:
             a = cross_attention(self.attn1, F.layer_norm(self.norm1, x), None,
-                                heads=self.heads, impl=impl)
+                                heads=self.heads, causal=causal,
+                                temporal_length=temporal_length, impl=impl)
             with R.site("blk_attn1"):
                 x = a + x
+        if hasattr(self, "attn_joint"):
+            x = joint_cross_attention(self.attn_joint, F.layer_norm(self.norm_joint, x),
+                                      heads=self.heads, num_tasks=num_tasks, impl=impl) + x
         a = cross_attention(self.attn2, F.layer_norm(self.norm2, x), context,
                             heads=self.heads, image_cross=image_cross,
-                            ip_scale=ip_scale, text_len=text_len, impl=impl)
+                            ip_scale=ip_scale, text_len=text_len,
+                            temporal_length=temporal_length, impl=impl)
         with R.site("blk_attn2"):
             x = a + x
         return feed_forward_block(self.ff, self.norm3, x, impl=impl,
@@ -339,7 +432,8 @@ class SpatialTransformer(nn.Module):
     """SpatialTransformer (attention.py:452-471). x (N, H, W, C)."""
 
     def __init__(self, in_channels, *, heads, dim_head, depth=1, context_dim=None,
-                 use_linear=True, image_cross=False, alpha_learnable=False):
+                 use_linear=True, image_cross=False, alpha_learnable=False,
+                 domain_cross=False):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
@@ -349,68 +443,94 @@ class SpatialTransformer(nn.Module):
             str(d): BasicTransformerBlock(inner, heads=heads, dim_head=dim_head,
                                           context_dim=context_dim,
                                           image_cross=image_cross,
-                                          alpha_learnable=alpha_learnable)
+                                          alpha_learnable=alpha_learnable,
+                                          domain_cross=domain_cross)
             for d in range(depth)})
         self.proj_out = _make_proj(inner, in_channels, use_linear)
 
     def forward(self, x, context=None, *, image_cross=False, ip_scale=1.0,
-                text_len=77, impl="auto"):
+                text_len=77, num_tasks=1, impl="auto"):
         n, h, w, c = x.shape
         x_in = x
         x = F.group_norm(self.norm, x, eps=1e-6).reshape(n, h * w, c)
         x = _proj(self.proj_in, x)
         for block in self.transformer_blocks.values():
             x = block(x, context, image_cross=image_cross, ip_scale=ip_scale,
-                      text_len=text_len, impl=impl)
+                      text_len=text_len, num_tasks=num_tasks, impl=impl)
         x = _proj(self.proj_out, x)
         return x.reshape(n, h, w, c) + x_in
 
 
 class TemporalTransformer(nn.Module):
-    """TemporalTransformer with self-attention only (attention.py:474-571,
-    the only_self_att=True path of every MuDG config). x (B, T, H, W, C);
+    """TemporalTransformer (attention.py:474-571). x (B, T, H, W, C);
     attention runs over T on (B*H*W, T, C) tokens. Kernel 2 takes both
-    self-attentions of a block where eligible; under impl="train" only where
-    the JAX backward predicate `bwd_eligible` holds too (attention.py:546-551),
-    with kernel 9 as its backward."""
+    self-attentions of a block where eligible and neither causal nor
+    relative-position; under impl="train" only where the JAX backward
+    predicate `bwd_eligible` holds too (attention.py:546-551), with kernel 9
+    as its backward. `context_dim` sizes the blocks' attn2 keys and values
+    for the cross-context path (only_self_att=False), which a call with a
+    context takes (attention.py:487-508)."""
 
-    def __init__(self, in_channels, *, heads, dim_head, depth=1, use_linear=True):
+    def __init__(self, in_channels, *, heads, dim_head, depth=1, use_linear=True,
+                 relative_position=False, temporal_length=None, context_dim=None):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.norm = nn.GroupNorm(32, in_channels)
         self.proj_in = _make_proj(in_channels, inner, use_linear)
         self.transformer_blocks = nn.ModuleDict({
-            str(d): BasicTransformerBlock(inner, heads=heads, dim_head=dim_head, temporal=True)
+            str(d): BasicTransformerBlock(inner, heads=heads, dim_head=dim_head, temporal=True,
+                                          context_dim=context_dim,
+                                          relative_position=relative_position,
+                                          temporal_length=temporal_length)
             for d in range(depth)})
         self.proj_out = _make_proj(inner, in_channels, use_linear)
 
-    def forward(self, x, *, impl="auto", sp=None):
-        """sp: a sequence-parallel sharding whose ranks each hold a block of
-        W; the norm's statistics are then summed over them."""
+    def forward(self, x, context=None, *, causal=False, temporal_length=None, impl="auto",
+                sp=None):
+        """context: None (self-attention only), or per-frame rows (B*T, L, D)
+        for the cross-context path: frame j's rows repeated (h*w)//t times
+        so that token row i attends to frame i // ((h*w)//t), as the
+        reference's repeat does (a ValueError where t does not divide h*w),
+        its blocks run without the causal mask or relative terms. sp: a
+        sequence-parallel sharding whose ranks each hold a block of W; the
+        norm's statistics are then summed over them."""
         b, t, h, w, c = x.shape
         x_in = x
         x = F.group_norm(self.norm, x, eps=1e-6, **SP_.kw(sp))
         x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         x = _proj(self.proj_in, x)
         n, t, c = x.shape
-        site = (impl in ("auto", "train") and os.environ.get("MUDG_FUSED_TEMPORAL", "1") == "1"
-                and TA.eligible(x.shape, x.dtype, c, self.heads)
-                and (impl == "auto" or TA.bwd_eligible(n * t, c)))
-        for blk in self.transformer_blocks.values():
-            if not (site and Q.is_float(blk.attn1.to_q) and Q.is_float(blk.attn2.to_q)):
-                x = blk(x, None, impl=impl)
-                continue
-            packs = blk.kernel_packs
-            stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
-            R.tag("blk_attn2")   # kernel 2's output
-            if impl == "train":
-                x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
-            else:
-                packed = None
-                if "attn1" in packs and "attn2" in packs:
-                    packed = (packs["attn1"], packs["attn2"])
-                x = TA.fused_double_self_attn(x.contiguous(), *stages, self.heads, packed)
-            x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl, packed=packs.get("ff"))
+        if context is not None:
+            hw = h * w
+            if hw % t:
+                raise ValueError(f"cross temporal transformer requires (h*w) % t == 0 "
+                                 f"(reference repeat semantics), got {hw} % {t}")
+            l, dc = context.shape[-2:]
+            ctx = context.reshape(b, t, l, dc).repeat_interleave(hw // t, dim=1)
+            ctx = ctx.reshape(b * hw, l, dc)
+            for blk in self.transformer_blocks.values():
+                x = blk(x, ctx, impl=impl)
+        else:
+            site = (impl in ("auto", "train") and not causal
+                    and os.environ.get("MUDG_FUSED_TEMPORAL", "1") == "1"
+                    and TA.eligible(x.shape, x.dtype, c, self.heads)
+                    and (impl == "auto" or TA.bwd_eligible(n * t, c)))
+            for blk in self.transformer_blocks.values():
+                if not (site and Q.is_float(blk.attn1.to_q) and Q.is_float(blk.attn2.to_q)
+                        and not hasattr(blk.attn1, "relative_position_k")):
+                    x = blk(x, None, causal=causal, temporal_length=temporal_length, impl=impl)
+                    continue
+                packs = blk.kernel_packs
+                stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
+                R.tag("blk_attn2")   # kernel 2's output
+                if impl == "train":
+                    x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
+                else:
+                    packed = None
+                    if "attn1" in packs and "attn2" in packs:
+                        packed = (packs["attn1"], packs["attn2"])
+                    x = TA.fused_double_self_attn(x.contiguous(), *stages, self.heads, packed)
+                x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl, packed=packs.get("ff"))
         x = _proj(self.proj_out, x)
         return x.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4) + x_in

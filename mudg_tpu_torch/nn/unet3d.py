@@ -23,9 +23,13 @@ the temporal GroupNorms' statistics summed over the ranks, the output
 all-gathered. Under dropout each rank draws its own masks: the block seeds
 drawn from the generator are offset by `dropout_rank` (set per rank by
 `train/step.py`), so ranks that hold different samples or positions draw
-different masks. The options that the MDM configs leave off (relative
-position, causal or cross temporal attention, joint task attention) are
-not ported yet and raise.
+different masks. The options that the MDM configs leave off run as the
+JAX UNet runs them (unet3d.py:466-525): relative-position tables in every
+temporal transformer (init_attn's too) and the causal mask in the block
+ones (init_attn is never causal), the cross-context temporal path
+(temporal_selfatt_only=False; init_attn's too), and the joint task
+attention in the input blocks' spatial transformers (num_tasks task-major
+chunks of the batch); none of these runs sequence-parallel.
 """
 from __future__ import annotations
 
@@ -259,12 +263,6 @@ class UNet3D(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        for flag in ("use_relative_position", "use_causal_attention",
-                     "domain_cross_attention"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"UNetConfig.{flag} is not ported")
-        if not cfg.temporal_selfatt_only:
-            raise NotImplementedError("cross-context temporal attention is not ported")
         self.cfg = cfg
         mc = cfg.model_channels
         tdim = 4 * mc
@@ -276,7 +274,7 @@ class UNet3D(nn.Module):
         if cfg.addition_attention:
             self.init_attn = nn.ModuleDict({"0": A.TemporalTransformer(
                 mc, heads=8, dim_head=cfg.num_head_channels,
-                depth=cfg.transformer_depth, use_linear=False)})
+                depth=cfg.transformer_depth, use_linear=False, **self._temporal_options())})
         inp_plan, mid_plan, out_plan = block_plan(cfg)
         self.input_blocks = nn.ModuleDict({
             str(i): self._make_block(plan) for i, plan in enumerate(inp_plan)})
@@ -285,6 +283,12 @@ class UNet3D(nn.Module):
             str(i): self._make_block(plan) for i, plan in enumerate(out_plan)})
         self.out = nn.ModuleDict({"0": nn.GroupNorm(32, mc),
                                   "2": nn.Conv2d(mc, cfg.out_channels, 3)})
+
+    def _temporal_options(self):
+        cfg = self.cfg
+        return dict(relative_position=cfg.use_relative_position,
+                    temporal_length=cfg.temporal_length,
+                    context_dim=None if cfg.temporal_selfatt_only else cfg.context_dim)
 
     def _make_layer(self, ltype, args):
         cfg = self.cfg
@@ -297,11 +301,13 @@ class UNet3D(nn.Module):
                 args["ch"], heads=args["heads"], dim_head=cfg.num_head_channels,
                 depth=cfg.transformer_depth, context_dim=cfg.context_dim,
                 use_linear=cfg.use_linear, image_cross=cfg.image_cross_attention,
-                alpha_learnable=cfg.image_cross_attention_scale_learnable)
+                alpha_learnable=cfg.image_cross_attention_scale_learnable,
+                domain_cross=args.get("domain", False))
         if ltype == "temporal":
             return A.TemporalTransformer(
                 args["ch"], heads=args["heads"], dim_head=cfg.num_head_channels,
-                depth=cfg.transformer_depth, use_linear=cfg.use_linear)
+                depth=cfg.transformer_depth, use_linear=cfg.use_linear,
+                **self._temporal_options())
         if ltype == "down":
             return Downsample(args["ch"])
         if ltype == "up":
@@ -328,10 +334,16 @@ class UNet3D(nn.Module):
                 h = m(h, emb, batch_size, impl=impl, drop=drop, **SP.kw(sp))
             elif ltype == "spatial":
                 h = m(h, context, image_cross=cfg.image_cross_attention,
-                      text_len=cfg.text_context_len, impl=impl)
+                      text_len=cfg.text_context_len, num_tasks=cfg.num_tasks, impl=impl)
             elif ltype == "temporal":
+                # the context is per-frame rows (B*T, L, D), the layout the
+                # cross-context path takes (openaimodel3d.py:581-588)
                 ww = h.shape[2]
-                h = SP.to_rows(m(SP.to_video(h, batch_size, sp), impl=impl, **SP.kw(sp)), sp, ww)
+                h = SP.to_rows(m(SP.to_video(h, batch_size, sp),
+                                 None if cfg.temporal_selfatt_only else context,
+                                 causal=cfg.use_causal_attention,
+                                 temporal_length=cfg.temporal_length, impl=impl,
+                                 **SP.kw(sp)), sp, ww)
             else:
                 h = m(h)
         return h
@@ -352,6 +364,9 @@ class UNet3D(nn.Module):
             R.policy_names(remat)   # raises for an unknown policy
         if sp is not None and impl != "plain":
             raise ValueError(f"sequence parallelism requires impl='plain', got {impl!r}")
+        if sp is not None and (cfg.domain_cross_attention or not cfg.temporal_selfatt_only):
+            raise ValueError("joint task and cross-context temporal attention do not run "
+                             "sequence-parallel")
         b, t, hh, ww, _ = x.shape
         mc = cfg.model_channels
         dtype = x.dtype
@@ -409,8 +424,9 @@ class UNet3D(nn.Module):
             h = run(self.input_blocks[str(i)], plan, h)
             if i == 0 and cfg.addition_attention:
                 w_ = h.shape[2]
-                h = SP.to_rows(self.init_attn["0"](SP.to_video(h, b, sp), impl=impl,
-                                                   **SP.kw(sp)), sp, w_)
+                h = SP.to_rows(self.init_attn["0"](
+                    SP.to_video(h, b, sp), None if cfg.temporal_selfatt_only else context,
+                    temporal_length=cfg.temporal_length, impl=impl, **SP.kw(sp)), sp, w_)
             hs.append(h)
         h = run(self.middle_block, mid_plan, h)
         for i, plan in enumerate(out_plan):

@@ -1,35 +1,16 @@
-"""Point-cloud host utilities: voxel downsampling, hidden-point removal,
-PLY I/O and dynamic-object assembly (numpy and scipy, on the host).
+"""Point-cloud utilities: voxel downsampling, hidden-point removal, PLY
+I/O, dynamic-object assembly, the COLMAP reader and the SfM + LiDAR merge.
 
-Copy of what the port needs from `mudg_tpu/render/pointcloud.py`; the
-numpy `voxel_downsample` also stands in for the JAX package's native
-(C++) one, which computes the same centroids in another order.
+Port of `mudg_tpu/render/pointcloud.py`; host numpy and scipy but for
+`voxel_downsample`, which is `utils/native.voxel_downsample` (the cells as
+the JAX package's native library picks them; torch ops on the input's
+device).
 """
 from __future__ import annotations
 
 import numpy as np
 
-
-def voxel_downsample(xyz: np.ndarray, rgb: np.ndarray | None, voxel: float):
-    """Average points (and colors) per voxel cell: the centroid of each
-    occupied voxel (Open3D voxel_down_sample semantics)."""
-    if len(xyz) == 0:
-        return xyz, rgb
-    keys = np.floor(xyz / voxel).astype(np.int64)
-    keys = keys - keys.min(axis=0)
-    dims = keys.max(axis=0) + 1
-    flat = (keys[:, 0] * dims[1] + keys[:, 1]) * dims[2] + keys[:, 2]
-    uniq, inv, counts = np.unique(flat, return_inverse=True, return_counts=True)
-    out_xyz = np.zeros((len(uniq), 3), np.float64)
-    np.add.at(out_xyz, inv, xyz)
-    out_xyz /= counts[:, None]
-    out_rgb = None
-    if rgb is not None:
-        out_rgb = np.zeros((len(uniq), rgb.shape[1]), np.float64)
-        np.add.at(out_rgb, inv, rgb)
-        out_rgb /= counts[:, None]
-        out_rgb = out_rgb.astype(rgb.dtype)
-    return out_xyz.astype(xyz.dtype), out_rgb
+from ..utils.native import voxel_downsample  # noqa: F401  (this module's API, as in JAX)
 
 
 def hidden_point_removal(xyz: np.ndarray, camera: np.ndarray, radius: float = 1e5):
@@ -116,3 +97,40 @@ def fetch_ply(path: str):
     if "nx" in table:
         normals = np.stack([table["nx"], table["ny"], table["nz"]], axis=1).astype(np.float32)
     return xyz, rgb, normals
+
+
+def read_colmap_points3d_bin(path: str):
+    """COLMAP points3D.bin reader (tools/merge_points.py:48-76; colmap
+    Reconstruction::ReadPoints3DBinary: u64 count, then per point [u64 id,
+    3x f64 xyz, 3x u8 rgb, f64 error, u64 track_len, track_len x (i32
+    image_id, i32 point2D_idx)]). Returns (xyz (N, 3) f64, rgb (N, 3) u8,
+    error (N,) f64)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    (n,) = struct.unpack_from("<Q", data, 0)
+    off = 8
+    xyz = np.empty((n, 3))
+    rgb = np.empty((n, 3), np.uint8)
+    err = np.empty(n)
+    head = struct.Struct("<QdddBBBdQ")
+    for i in range(n):
+        vals = head.unpack_from(data, off)
+        off += head.size
+        xyz[i] = vals[1:4]
+        rgb[i] = vals[4:7]
+        err[i] = vals[7]
+        off += 8 * vals[8]   # the (image_id, point2D_idx) track
+    return xyz, rgb, err
+
+
+def merge_sfm_lidar(out_path: str, colmap_bin: str, lidar_ply: str):
+    """COLMAP SfM points appended to the LiDAR cloud, written to out_path
+    (tools/merge_points.py:79-93). Returns the merged (xyz, rgb in [0, 1])."""
+    sfm_xyz, sfm_rgb, _ = read_colmap_points3d_bin(colmap_bin)
+    lidar_xyz, lidar_rgb01, _ = fetch_ply(lidar_ply)
+    xyz = np.concatenate([lidar_xyz.astype(np.float64), sfm_xyz], axis=0)
+    rgb01 = np.concatenate([lidar_rgb01, sfm_rgb.astype(np.float32) / 255.0], axis=0)
+    store_ply(out_path, xyz.astype(np.float32), (rgb01 * 255).astype(np.uint8))
+    return xyz, rgb01

@@ -4,7 +4,8 @@ Port of `mudg_tpu/utils/profiling.py`:
   * `device_memory_stats`: per-GPU memory in use, its peak and the card's
     total, from `torch.cuda.memory_stats` (an empty list without CUDA),
   * `StepTimer`: rolling step-time statistics (a copy),
-  * `trace`: a `torch.profiler` scope that writes a Chrome trace.
+  * `trace`: a `torch.profiler` scope that writes a Chrome trace,
+  * `stage_clock`: a stage's seconds added to a dict of timings.
 """
 from __future__ import annotations
 
@@ -74,3 +75,20 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def stage_clock(timings: dict | None, stage: str, device=None):
+    """Add the seconds the block takes to timings[stage] (host clock; a
+    CUDA `device` synchronized at the block's end); nothing when timings
+    is None."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if timings is not None:
+            import torch
+
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            timings[stage] = timings.get(stage, 0.0) + time.perf_counter() - t0

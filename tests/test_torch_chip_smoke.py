@@ -559,12 +559,14 @@ def test_chip_smoke_train_app_phase_on_the_cpu(monkeypatch):
     assert not os.path.exists(os.path.join(CS.ROOT, "_phase15"))
     assert set(launches) == {"train_app", "train_app_resume", "remat_policies",
                              "train_app_latents"}
-    assert checked["(a) the app loop"] == CS.app_launches("dots_attn", 4, val_forwards=4,
-                                                          sample_forwards=10)
-    assert checked["(b) resume"] == CS.app_launches("dots_attn", 2)
+    steps = CS.APP_STEPS
+    assert checked["(a) the app loop"] == CS.app_launches(
+        "dots_attn", steps, val_forwards=(steps // 2) * CS.APP_VAL, sample_forwards=10)
+    assert checked["(b) resume"] == CS.app_launches("dots_attn", steps - 2)
+    assert checked["(d) moments form"] == CS.app_launches("dots_attn", CS.LATENT_STEPS)
     assert checked["(c) dots_attn"] == CS.policy_launches("mdm512", "dots_attn")
     assert len([k for k in checked if k.startswith("(c)")]) == len(CS.REMAT_POLICIES)
-    assert [r["step"] for r in report["b"]["records"]] == [3, 4]
+    assert [r["step"] for r in report["b"]["records"]] == list(range(3, steps + 1))
     assert all(r["bit_equal"] for r in report["c"].values())
     assert sorted(report["a"]["artifacts"]) == ["final", "step_2", "trainstate_2"]
 
@@ -764,3 +766,89 @@ def test_chip_smoke_offline_phase_on_the_cpu(monkeypatch, tmp_path):
     assert unets["rel_l2_kernels_f32"] == 0.0   # no kernel on the CPU: the same ops
     assert rep["eval"]["lpips_rel_f64"] <= CS.EVAL_TOL
     assert set(rep["eval"]["summaries"]) == {"color", "semantic", "depth"}
+
+
+PHASE19_SMALL = dict(
+    frames=3, cams=tuple((c[0], c[1], 96, 64 if c[3] == 1280 else 44, c[4])
+                         for c in CS.WAYMO_CAMS),
+    top=(16, 200), short=(8, 30), boxes=(8, 3), voxel=(20, 2000),
+    unet=dict(in_channels=12, out_channels=4, model_channels=32, num_res_blocks=1,
+              attention_resolutions=(1,), channel_mult=(1, 2), num_head_channels=16,
+              context_dim=16, temporal_length=4, dropout=0.0),
+    latents={"mdm512": (6, 6), "mdm1024": (8, 8)}, frames_unet=4, shape=(2, 4, 5, 6, 4))
+
+
+def test_chip_smoke_etl_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 19 whole at small sizes on the CPU (3 frames of five 96-wide
+    cameras, a 16x200 TOP lidar, 8 boxes; 40k voxel points; the tiny option
+    UNets, the cross-context one refused at a latent whose ds2 rows T does
+    not divide; the samplers at (2, 4, 5, 6, 4)): every comparison of (a),
+    (b), (c) and (e) holds, each option forward's launch check called with
+    OPTION_SITES; the work directory gone."""
+    checked = _stub_card(monkeypatch)
+    monkeypatch.setattr(CS, "ROOT", str(tmp_path))
+    launches, rep = CS.phase_etl(torch, K, U, "cpu", dev="cpu", small=PHASE19_SMALL)
+    assert not os.path.exists(tmp_path / "_phase19")
+    assert set(launches) == {f"options_{n}" for n in CS.OPTION_UNETS}
+    for n in CS.OPTION_UNETS:
+        assert {k: v for k, v in checked[f"options {n}"].items() if v} == {
+            k: v for k, v in CS.OPTION_SITES[n].items() if v}
+    assert rep["preprocess"]["files"] == 1 + 3 * 5 + 3 * 5 and rep["preprocess"]["npz_ulps"] == 0
+    from mudg_tpu_torch.data import waymo_etl as ETL
+
+    assert set(rep["preprocess"]["s"]["card"]) == {*ETL.ETL_STAGES, "total"}
+    bc = rep["build_clouds"]
+    assert bc["rows_differing"] == 0 and bc["moving_objects"] == 3 and bc["background_points"] > 100
+    assert rep["voxel"]["points"] == 40_000 and rep["voxel"]["voxels"] > 1000
+    assert max(rep["samplers"]["rel_err"].values()) == 0.0   # the same ops on one device
+    assert set(rep["samplers"]["rel_err"]) == {"ddim_masked", "dpm_masked", "stochastic_encode",
+                                              "ddpm_v", "ddpm_eps", "ddpm_x0"}
+
+
+def test_chip_smoke_etl_checks_see_planted_faults(tmp_path):
+    """Phase 19's comparisons refuse a cloud row moved by 1e-5 relative where
+    no tie or face point allows it (and take it where two do), an npz value
+    two fp32 ulps off, a JPEG byte changed and a scenario float off by
+    1e-11 relative."""
+    import shutil
+
+    a = {"objects/background.ply": np.array([[1.0, 2.0, 3.0, 0.1, 0.2, 0.3],
+                                             [4.0, 5.0, 6.0, 0.4, 0.5, 0.6]])}
+    b = {k: v.copy() for k, v in a.items()}
+    assert CS.compare_clouds(a, b, 0)[2] == 0
+    b["objects/background.ply"][1, 0] *= 1 + 1e-5
+    with pytest.raises(AssertionError, match="rows differ"):
+        CS.compare_clouds(a, b, 0)
+    assert CS.compare_clouds(a, b, 2)[2] == 1
+    from mudg_tpu_torch.data import waymo_etl as ETL
+
+    rec = str(tmp_path / "seg.tfrecord")
+    CS.waymo_segment(rec, 2, cams=PHASE19_SMALL["cams"][:2], top=(8, 50), short=(4, 10),
+                     boxes=(4, 2))
+    ETL.process_sequence(rec, str(tmp_path / "x"), device="cpu")
+    assert CS.compare_etl_outputs(str(tmp_path / "x"), str(tmp_path / "x"))[1] == 0
+    for fault in ("npz", "jpg", "scenario"):
+        shutil.rmtree(tmp_path / "y", ignore_errors=True)
+        shutil.copytree(tmp_path / "x", tmp_path / "y")
+        if fault == "npz":
+            p = tmp_path / "y" / "lidars" / "lidar_TOP" / "00000001.npz"
+            z = dict(np.load(p))
+            z["rays_d"].reshape(-1)[7] = np.nextafter(np.nextafter(
+                z["rays_d"].reshape(-1)[7], np.float32(9)), np.float32(9))
+            np.savez_compressed(p, **z)
+            match = "fp32 ulps"
+        elif fault == "jpg":
+            p = tmp_path / "y" / "images" / "camera_FRONT" / "00000000.jpg"
+            data = bytearray(p.read_bytes())
+            data[-10] ^= 1
+            p.write_bytes(bytes(data))
+            match = "bytes differ"
+        else:
+            import pickle
+
+            sc = pickle.load(open(tmp_path / "y" / "scenario.pt", "rb"))
+            sc["observers"]["camera_FRONT"]["data"]["c2w"][1, 0, 3] *= 1 + 1e-11
+            pickle.dump(sc, open(tmp_path / "y" / "scenario.pt", "wb"))
+            match = "relative"
+        with pytest.raises(AssertionError, match=match):
+            CS.compare_etl_outputs(str(tmp_path / "x"), str(tmp_path / "y"))

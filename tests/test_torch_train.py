@@ -402,11 +402,12 @@ def test_train_dispatch_sites_match_jax_predicates(monkeypatch, config):
         # an ineligible block falls back to feed_forward, judged there
         return x.shape[-1] < 640 and jax_ff(x, ff.net["2"].in_features)
 
-    def jax_temporal(self, x, context=None, impl="auto"):
+    def jax_temporal(self, x, context=None, *, causal=False, temporal_length=None,
+                     impl="auto", sp=None):
         b, tt, hh, ww, _ = x.shape
         c = self.proj_in.weight.shape[0]     # the tokens' width after proj_in
         tokens = S((b * hh * ww, tt, c), bf)
-        return (JTA.eligible(tokens, c, self.heads, tt)
+        return (context is None and not causal and JTA.eligible(tokens, c, self.heads, tt)
                 and JTA.bwd_eligible(b * hh * ww * tt, c))
 
     record(TAT, "attend", ("flash", jax_flash))

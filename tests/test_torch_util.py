@@ -204,6 +204,66 @@ def jax_draws(cfg, rng, batch) -> dict:
             for k, v in draws.items()}
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's native library and the ETL's outputs
+# ---------------------------------------------------------------------------
+
+def jax_native(tmp_dir):
+    """The JAX package's `utils/native` with its C++ library built afresh
+    into `tmp_dir` (native/build.sh's flags) and loaded, so that a test
+    reads no library another process may be writing. Returns the module;
+    its _LIB is the library (never the numpy fallback)."""
+    import os
+    import subprocess
+
+    from mudg_tpu.utils import native as N
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lib = os.path.join(str(tmp_dir), "libmudg_native.so")
+    subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+                    "-std=c++17", os.path.join(repo, "native", "mudg_native.cpp"), "-o", lib],
+                   check=True, capture_output=True)
+    saved = N._lib_path
+    N._LIB, N._TRIED = None, False
+    N._lib_path = lambda: lib
+    try:
+        assert N.load_library(build=False) is not None
+    finally:
+        N._lib_path = saved
+    return N
+
+
+def tree_equal(ours, ref, path="", rel=0.0):
+    """Two trees of dicts, lists, dataclasses, numpy arrays and scalars
+    equal: the same keys, shapes and dtypes, floats within `rel` of each
+    array's max (0: bit for bit)."""
+    if dataclasses.is_dataclass(ref):
+        assert type(ours).__name__ == type(ref).__name__, path
+        for f in dataclasses.fields(ref):
+            tree_equal(getattr(ours, f.name), getattr(ref, f.name), f"{path}.{f.name}", rel)
+    elif isinstance(ref, dict):
+        assert set(ours) == set(ref), (path, set(ours) ^ set(ref))
+        for k in ref:
+            tree_equal(ours[k], ref[k], f"{path}/{k}", rel)
+    elif isinstance(ref, (list, tuple)):
+        assert len(ours) == len(ref), path
+        for i, (a, b) in enumerate(zip(ours, ref)):
+            tree_equal(a, b, f"{path}[{i}]", rel)
+    elif isinstance(ref, np.ndarray):
+        assert isinstance(ours, np.ndarray), path
+        assert ours.shape == ref.shape and ours.dtype == ref.dtype, (path, ours.shape,
+                                                                     ref.shape, ours.dtype)
+        if ref.dtype.kind == "f" and rel:
+            scale = max(float(np.abs(ref).max(initial=0)), 1e-300)
+            assert float(np.abs(ours - ref).max(initial=0)) <= rel * scale, path
+        else:
+            np.testing.assert_array_equal(ours, ref, err_msg=path)
+    elif isinstance(ref, float):
+        assert abs(ours - ref) <= rel * abs(ref), (path, ours, ref)
+    else:
+        assert ours == ref, (path, ours, ref)
+
+
 def test_random_tree_covers_every_leaf():
     shapes = {"a": {"weight": jax.ShapeDtypeStruct((4, 8), jnp.float32),
                     "bias": jax.ShapeDtypeStruct((8,), jnp.float32)},
