@@ -8,8 +8,9 @@ Phases:
   1. device and build: the card's name and power limit, torch and CUDA
      versions, and the nvcc build of every kernel from csrc/, with ptxas's
      register and spill report (it fails if kernels 2, 9 or 10's wgmma
-     kernels, fp32 kernels 5, 6 and 12's tf32 wgmma kernels, kernel 13's
-     forward and backward or kernel 11's five kernels spill, NO_SPILL);
+     kernels, fp32 kernels 5 and 6's tf32 wgmma kernels, kernel 12's five,
+     kernel 13's forward and backward or kernel 11's five kernels spill,
+     NO_SPILL);
   2. each kernel against its plain PyTorch version at every shape of an
      MDM512 and an MDM1024 UNet forward, plus one long flash-attention shape
      (random bf16 inputs, kernels 1-2's logits ~N(0, 9); max|diff| <= 3e-2 *
@@ -114,7 +115,11 @@ Phases:
      2), in an MDM512 training micro-step (batch 1), in the MDM1024 clip's
      resampler and in the VAE at a training encode chunk, and the packed
      kernel at the temporal attention's (B*H*W, 16, heads, 64), all bf16,
-     plus GN, LN and short-KV in fp32 (max|diff| <= 3e-2 * max|ref| in
+     plus GN, LN and short-KV in fp32; beyond every MuDG site, short-KV's
+     "stream" shapes (Lk 256 and 1024 at head dim 64, Lk 77 at 128; K and
+     V in chunks past 128 keys) in both dtypes and the packed kernel at
+     PACKED_EXTRA (T = 1, 8, 64, head dim 128), checked and timed but not
+     summed (max|diff| <= 3e-2 * max|ref| in
      bf16, 1e-5 * max|ref| in fp32; fp32 short-KV also against "1xTF32",
      with its bound from three TF32 products per product and the FMA bound
      beside it, and rerun SKV_RERUNS times bit for bit), GN in fp32 at a DC
@@ -130,7 +135,8 @@ Phases:
      shape also its launch plan (the GN's cluster size and rows per CTA or
      its two passes; the LN's kernel, row or tile, and its lanes, tile and
      grid), its device time per call and per launch under torch.profiler
-     and the wrapper's host time per call, and per configuration their sums
+     and the wrapper's host time per call (kernel 12's cases too, with
+     their launch plans), and per configuration their sums
      over one UNet forward's sites; the LN's two kernels side by side at
      every LN shape (each within the tolerance, device time per launch from
      CUDA graphs, beside the plan's pick) and the card's answers to the GN
@@ -379,7 +385,8 @@ PEAK_BYTES = 3.35e12  # HBM3
 # (<WG_GEGLU_BWD, ..>) and the weight-gradient GEMM (kernels 9 and 10),
 # kernel 9's attention-backward tile (<WG_TATTN_BWD, ..>) and fp32-output
 # GEMM (<WG_F32, ..>), fp32 kernels 5 and 6's three tf32 wgmma kernels,
-# fp32 kernel 12's, kernel 13's forward and backward at every payload
+# kernel 12's (bf16 whole and streamed, fp32 whole and chunked, packed),
+# kernel 13's forward and backward at every payload
 # width, and kernel 11's five kernels (the GroupNorm's cluster kernel and
 # two passes, the latter by their thread-count parameter, and the
 # LayerNorm's row and tile kernels) at every instantiation; each is a
@@ -387,7 +394,8 @@ PEAK_BYTES = 3.35e12  # HBM3
 NO_SPILL = ("wgmma_gemm_kernelILi3E", "wgmma_gemm_kernelILi4E", "wgmma_gemm_kernelILi5E",
             "wgmma_gemm_kernelILi6E", "wgmma_wgrad_kernel", "flash_fwd_tf32_kernel",
             "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel", "short_kv_tf32_kernel",
-            "composite_fwd", "composite_bwd", "gn_cluster_kernel",
+            "short_kv_tf32_chunk_kernel", "short_kv_tma_kernel", "short_kv_stream_kernel",
+            "packed_kernel", "composite_fwd", "composite_bwd", "gn_cluster_kernel",
             r"gn_(stats|apply)_kernelI\w*?Li(256|512)E", "ln_row_kernel", "ln_tile_kernel")
 # Kernel sites of one UNet forward (batch 2, 16 frames) per configuration;
 # inference launches no backward kernel and no 3DGS kernel, and kernels 11
@@ -588,9 +596,20 @@ SKV_SHAPES = {
     # DepthLab's cross-attention to its one context token
     "depthlab": {((1, 38400, 5, 64), (1, 1, 5, 64)): 0},
     "depthlab-f32": {((1, 38400, 5, 64), (1, 1, 5, 64)): 0},
+    # no MuDG site: the rest of what the predicate admits, K/V past 128 keys
+    # (streamed in 64-key chunks) and head dim 128, at the MDM512 ds1 queries
+    "stream": {((32, 2560, 5, 64), (32, 256, 5, 64)): 0,
+               ((32, 2560, 5, 64), (32, 1024, 5, 64)): 0,
+               ((32, 2560, 5, 128), (32, 77, 5, 128)): 0},
+    "stream-f32": {((32, 2560, 5, 64), (32, 256, 5, 64)): 0,
+                   ((32, 2560, 5, 64), (32, 1024, 5, 64)): 0,
+                   ((32, 2560, 5, 128), (32, 77, 5, 128)): 0},
 }
 # the temporal attention's (B*H*W, 16, heads, 64) at C = 320, 640, 1280 of MDM512
 PACKED_SHAPES = ((5120, 16, 5, 64), (1280, 16, 10, 64), (320, 16, 20, 64))
+# the rest packed_short_attention_eligible admits, checked and timed but not
+# summed: T = 1 and 8 (several sequences a 16-row tile), T = 64, head dim 128
+PACKED_EXTRA = ((16384, 1, 8, 64), (2048, 8, 8, 64), (256, 64, 8, 64), (1024, 16, 5, 128))
 F32_TOL = 1e-5   # fp32 forward: max|diff| <= 1e-5 * max|ref|
 SKV_RERUNS = 30  # fp32 short-KV's reruns, each compared bit for bit with the first call
 DC_OFFSET = 1e3
@@ -1415,12 +1434,13 @@ def op_grads(torch, fn, inputs, dy):
 
 
 def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packed=None,
-                     offset_shape=(32, 20, 32, 640)):
+                     offset_shape=(32, 20, 32, 640), packed_extra=None):
     """Yield a Case for kernel 11 (GroupNorm, LayerNorm) and kernel 12
     (short-KV, packed) at every site shape of the switch path (GN_SHAPES,
     LN_SHAPES, SKV_SHAPES: config -> {shape: sites per UNet forward}), in
     bf16, or in fp32 for a config named "<cfg>-f32" (within F32_TOL), and
-    the packed kernel at PACKED_SHAPES; GN in fp32 at a DC offset of 1e3 at
+    the packed kernel at PACKED_SHAPES (one site each) and PACKED_EXTRA
+    (none); GN in fp32 at a DC offset of 1e3 at
     `offset_shape` against the plain version run in float64; then each
     autograd op's gradients against autograd of its plain math at its first
     shape. Norm inputs carry per-channel means and scales (a group's
@@ -1428,6 +1448,7 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
     (a LayerNorm that skips the mean shows)."""
     gn, ln = gn or GN_SHAPES, ln or LN_SHAPES
     skv, packed = skv or SKV_SHAPES, packed or PACKED_SHAPES
+    packed_extra = PACKED_EXTRA if packed_extra is None else packed_extra
     bf, f4 = torch.bfloat16, torch.float32
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
@@ -1498,8 +1519,10 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
         q, k, v = skv_inputs(qs, ks, dtype)
         lk = ks[1]
         pad = (0, 0, 0, 0, 0, -lk % 64)
-        faults = {"padded keys unmasked": lambda: SA.plain_short_attention(
-                      q, F.pad(k, pad), F.pad(v, pad))}
+        faults = {}
+        if lk % 64:   # the zero keys that fill the last 64-key box
+            faults["padded keys unmasked"] = lambda: SA.plain_short_attention(
+                q, F.pad(k, pad), F.pad(v, pad))
         if lk > 1:
             faults["half the keys"] = lambda: SA.plain_short_attention(
                 q, k[:, :lk // 2], v[:, :lk // 2])
@@ -1515,7 +1538,7 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
                     lambda: SA.short_kv_attention(q, k, v),
                     lambda: SA.plain_short_attention(q, k, v), lambda: sdpa(q, k, v), None,
                     faults, tol=checks(dtype)["tol"], peak=PEAK_TF32 if f32 else PEAK_FLOPS,
-                    reruns=SKV_RERUNS if f32 else 0)
+                    reruns=SKV_RERUNS if f32 else 0, note=SA.plan_text(q, k))
 
     def packed_inputs(shape):
         b, t, h, d = shape
@@ -1531,17 +1554,18 @@ def norm_short_cases(torch, N, SA, dev="cuda", gn=None, ln=None, skv=None, packe
     for cfg, shapes in skv.items():
         for (qs, ks), sites in shapes.items():
             yield skv_case(cfg, qs, ks, sites, dtype_of(cfg))
-    for shape in packed:
+    for shape, sites in [*((s, 1) for s in packed), *((s, 0) for s in packed_extra)]:
         q, k, v = packed_inputs(shape)
         b, t, h, d = shape
         flat = [z.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous() for z in (q, k, v)]
-        yield Case("packed_short_attention", "temporal", "x".join(map(str, shape)), 1,
+        yield Case("packed_short_attention", "temporal" if sites else "extra",
+                   "x".join(map(str, shape)), sites,
                    work_short(b, t, t, h, d),
                    lambda: SA.packed_short_attention(q, k, v),
                    lambda: SA.plain_short_attention(q, k, v),
                    lambda: F.scaled_dot_product_attention(*flat), None,
                    {"another sequence's keys": lambda: SA.plain_short_attention(
-                       q, k.roll(1, 0), v.roll(1, 0))})
+                       q, k.roll(1, 0), v.roll(1, 0))}, note=SA.plan_text(q))
 
     # gradients through each autograd op (backward: the plain math), bf16, at
     # the first shape of each table
@@ -1828,9 +1852,9 @@ def run_cases(torch, cases, check=None, profile=False, iters=10):
     returns the kernel table's rows, each shape's sites-weighted times
     summed per kernel. With `profile`, the kernels of NORM_PROFILED also
     get their device time per call under the profiler, all of it and
-    kernel 11's part ("device_ms", "norm_device_ms"); kernel 11's forward
-    cases always get the host time of the Python wrapper alone
-    ("host_ms"). Raises if any case failed."""
+    kernel 11's part ("device_ms", "norm_device_ms"); kernel 11 and 12's
+    forward cases always get both and the host time of the Python wrapper
+    alone ("host_ms"). Raises if any case failed."""
     rows = {}
     for case in cases:
         chk = compare(torch, case)
@@ -1839,7 +1863,7 @@ def run_cases(torch, cases, check=None, profile=False, iters=10):
         fk, fp, flib = case.kernel, case.plain, case.library
         reps = dict(iters=3, warmup=1) if case.grads else dict(iters=iters, warmup=min(2, iters))
         dev = {}
-        norm = case.name in ("group_norm", "layer_norm") and not case.grads
+        norm = case.name in SWITCH_KERNELS and not case.grads
         if norm or (profile and case.name in NORM_PROFILED):
             dev = device_ms_per_call(torch, fk)
         if norm:

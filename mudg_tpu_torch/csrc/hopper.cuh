@@ -8,7 +8,7 @@
 // and the 3xTF32 product and fragment helpers), movmatrix's 8x8
 // transpose, setmaxnreg, the async-proxy fence, and the host-side encoding
 // of tensor maps (bf16 or fp32, any rank up to 5; a strided bf16 (B, L, H,
-// 64) operand and a row-major bf16 (rows, cols) matrix by name).
+// D) operand and a row-major bf16 (rows, cols) matrix by name).
 //
 // Shared-memory tiles that TMA fills and wgmma reads are rows of 64 bf16
 // (128 bytes: one swizzle row), 8-row groups 1024 bytes apart, every tile
@@ -482,6 +482,26 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[0..31] (+)= A(64x16, registers) * B(16x64, smem), B K-major (no transpose)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d[0..31] (+)= A(64x16, smem) * B(16x64, smem), both MN-major (transposed):
 // A stored as 16 K rows of the 64 M values, B as 16 K rows of the 64 N
 // values, each one 128-byte swizzle row per K row (advance MNMAJOR_K16 per
@@ -816,6 +836,22 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[NR],
   a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
+// ldmatrix: four 8x8 bf16 matrices from shared memory, lanes 8 m .. 8 m + 7
+// giving the row addresses of matrix m; this thread receives row lane / 4,
+// columns 2 (lane % 4) and + 1 of each (the mma fragment layout), or with
+// .trans the same positions of each matrix's transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // First byte of a 1024-byte-aligned region of dynamic shared memory.
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
@@ -884,15 +920,24 @@ static inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
   return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
-// A tensor map over a (batch, seq, heads, 64) bf16 tensor with element
-// strides sb, sl, sh (head dim contiguous), as dims (64, heads, seq, batch)
-// with boxes of 64 sequence rows of one head; rows past seq read as zeros.
-static inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int batch, int seq,
-                                        int heads, long long sb, long long sl, long long sh) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
+// A tensor map over a (batch, seq, heads, d) bf16 tensor with element
+// strides sb, sl, sh (head dim contiguous), as dims (d, heads, seq, batch)
+// with boxes of 64 head dims by 64 sequence rows of one head; rows past seq
+// read as zeros.
+static inline cudaError_t bf16_heads_map(CUtensorMap* map, const void* base, int batch, int seq,
+                                         int heads, int d, long long sb, long long sl,
+                                         long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   return bf16_map(map, base, 4, dims, strides, box);
+}
+
+// bf16_heads_map at head dim 64.
+static inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int batch, int seq,
+                                        int heads, long long sb, long long sl, long long sh) {
+  return bf16_heads_map(map, base, batch, seq, heads, 64, sb, sl, sh);
 }
 
 // A tensor map over a row-major (rows, cols) bf16 matrix with a row pitch

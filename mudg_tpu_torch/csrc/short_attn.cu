@@ -1,287 +1,125 @@
-// Kernel 12: attention over short sequences, non-causal, no bias, fp32
-// softmax, P rounded to bf16 for the P @ V product, head dim D = 64 or 128:
-//   short-KV: o = softmax(q k^T / sqrt(D)) v, q (B, Lq, H, D) over a small
-//             K/V (B, Lk, H, D), Lk <= 1024 (the UNet's text and image
-//             cross-attention: Lk = 77 and 16);
-//   packed:   the same self-attention over each (b, h) sequence of q, k, v
-//             (B, T, H, D) on its own, T <= 64 and 128 % T == 0 (the
-//             temporal-attention shape, T = 16).
+// Kernel 12, packed form: self-attention over each (b, h) sequence of q, k,
+// v (B, T, H, D) bf16 on its own, non-causal, T in {1, 2, 4, .., 64}, head
+// dim D = 64 or 128:
+//   o = softmax(q k^T / sqrt(D)) v   per sequence,
+// fp32 logits scaled after the product, an fp32 softmax, P normalised and
+// then rounded to bf16 for P V (short_attention.py:_packed_kernel, :60-71).
 //
-// Replaces: mudg_tpu/kernels/short_attention.py:_short_kv_kernel
-// (short_kv_attention, pallas_call at :214) and _packed_kernel
-// (packed_short_attention, :81).
+// Replaces: mudg_tpu/kernels/short_attention.py:_packed_kernel
+// (packed_short_attention, pallas_call at :81).
 //
-// Bound on this card: bytes at MuDG's shapes. A short-KV call at MDM512 ds1
-// (32 x 2560 queries, 5 heads, Lk = 77) does 4 * 409,600 * 77 * 64 = 8.1
-// GFLOP (8 us at 989 TFLOP/s) against 105 MB of q and o (31 us at 3.35
-// TB/s); the packed call at T = 16 does 16 x fewer operations per byte.
+// Bound on this card: bytes. At T = 16 a sequence's logits are 16 x 16 x
+// D: 2 x 16 x 16 x 64 x 2 = 65.5 kFLOP against 8 KB of q, k, v and o, about
+// 8 operations a byte where the tensor cores need ~295 to be the limit.
+// The three temporal shapes of MDM512 move 367 MB (0.110 ms at 3.35 TB/s).
 //
-// Design. The TPU folds q/k/v to (B*H, L, D) and pads K/V to 128 lanes
-// (short-KV), or packs 128 // T sequences into one 128-row block-diagonal
-// product (packed); both exist to feed a 128 x 128 MXU and cost copies and a
-// G-fold overcompute. Neither is done here. Both kernels read q, k and v in
-// place through their (batch, sequence, head) strides, stage tiles of 64
-// rows in shared memory and multiply with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), 4 warps of 16 query rows per block:
-//   short-KV: (bf16 at head dim 64 and Lk <= 128, every MuDG site, runs on
-//             short_kv.cu's TMA + wgmma kernel instead; this one takes the
-//             rest the predicate admits: Lk up to 1024, head dim 128)
-//             one block per (64 queries, head, batch); K/V stream through
-//             shared memory in 64-key chunks (V transposed) with an online
-//             softmax across chunks, so every Lk <= 1024 and D = 128 fit in
-//             36 KB; keys past Lk are zero-filled and their logits masked to
-//             -inf (the TPU kernel's padded columns, :171-173);
-//   packed:   one block per 64 consecutive rows of the (B*H, T) sequence
-//             order, i.e. 64 / T whole sequences; each warp attends its 16
-//             rows to their own sequence's keys only (T >= 16), or to the
-//             16 rows of its tile with the other sequences' keys masked
-//             (T < 16, the least an m16n8k16 tile can take), and normalises
-//             P before rounding it, as _packed_kernel does.
-// fp32 short-KV: FMA products, below, for head dim 128 or Lk > 128 (every
-// MuDG fp32 site, head dim 64 and Lk <= 128, runs on short_kv_f32.cu).
-// Not yet: cp.async double-buffering of the K/V chunks, wgmma.
-#include "common.cuh"
+// Design: for the copy engine, not the math. The TPU packs 128 // T
+// sequences into one 128-row block-diagonal product to fill its MXU; none
+// of that is done here (no packing copies, no G-fold overcompute).
+// - Work items: in (B, T, H, D) the T x H x D slab of one batch row is
+//   contiguous, so an item is a box of (D, hg heads, T rows, bg batch rows)
+//   of each of q, k and v (kernels/short_attention.packed_plan picks hg
+//   and bg: whole sequences, at most 16 KB a tensor, a multiple of 16 rows),
+//   read through a 4-D tensor map (D, H, T, B) with the tensors' own strides
+//   (q, k and v may be strided views of one q|k|v projection).
+// - One persistent block per SM walks the items (item blockIdx.x + i *
+//   gridDim.x). Warp 8 is the producer: one thread keeps a ring of
+//   `stages` items in flight by TMA (one full and one done mbarrier per
+//   stage), so the next items' loads overlap this item's products.
+// - Warps 0-7 take the item's 16-row tiles round robin across items (tile
+//   j of item i goes to warp (i * tiles + j) % 8). A tile is 16 query rows
+//   of one sequence (T >= 16), or 16 / T whole sequences (T < 16, the
+//   other sequences' keys masked: the least an m16n8k16 tile takes). Its q
+//   rows and its keys are gathered by ldmatrix from the swizzled box, where
+//   one sequence's rows lie hg rows apart (V through ldmatrix.trans: no
+//   thread transposes anything); S = Q K^T and O = P V run on mma.sync
+//   m16n8k16 (bf16 in, fp32 accumulate). wgmma takes 64 rows, and one
+//   sequence's 16 x 16 logits would be a sixteenth of its tile.
+// - Each warp writes its tile's o rows (bf16) over its own q rows in the
+//   stage (read into registers before), behind an async-proxy fence, and
+//   arrives on the stage's done barrier; the producer then stores the item's
+//   o box by TMA, waits for the store to read the stage and loads the next
+//   item into it.
+#include "hopper.cuh"
 
 namespace mudg {
 
-constexpr int SA_ROWS = 64;           // rows of a staged tile
-constexpr int SA_LDT = SA_ROWS + 8;   // padded row of the transposed V tile
+constexpr int PK_CONSUMERS = 8;                      // consumer warps
+constexpr int PK_THREADS = 32 * (PK_CONSUMERS + 1);  // + the producer warp
 
-struct StridedRows {  // row r at base + r * stride
-  const bf16* base;
-  long long stride;
-  __device__ const bf16* operator()(int r) const { return base + r * stride; }
+struct PackedArgs {
+  int items;      // (head group, batch group) items in all
+  int hgroups;    // head groups per batch row: item = bgroup * hgroups + hgroup
+  int hg, bg;     // heads and batch rows per item
+  int rows;       // rows per item: bg * T * hg, a multiple of 16
+  int stages;     // items in flight per block
+  float scale;    // d^-0.5 * log2(e): logits in base 2, scaled in fp32
 };
 
-// Row r of a block's 64 consecutive rows of the (B*H, T) sequence order of a
-// (B, T, H, D) tensor.
+// Shared address of 16-byte chunk c (8 columns) of row r of a tensor's box
+// in a stage: D / 64 column boxes of `rows` swizzled 128-byte rows.
+__device__ __forceinline__ uint32_t pk_chunk(uint32_t base, int r, int c, int rows) {
+  return base + (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// The box row of row `vr` of an item in sequence order (sequence vr / T,
+// position vr % T), with the box laid out (batch row, position, head).
 template <int T>
-struct PackedRows {
-  const bf16* base;
-  long long sb, sl, sh;
-  int heads, r0;
-  __device__ const bf16* operator()(int r) const {
-    const int s = (r0 + r) / T, t = (r0 + r) % T;
-    return base + (s / heads) * sb + t * sl + (s % heads) * sh;
-  }
-};
-
-// Copy rows 0 .. nvalid-1 of a 64 x D tile (zeros below) into shared memory,
-// row-major (row stride D + 8) or transposed (row stride SA_LDT).
-template <int D, bool TRANSPOSE, class Rows>
-__device__ __forceinline__ void load_rows(bf16* dst, const Rows& rows, int nvalid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < SA_ROWS * CPR; i += blockDim.x) {
-    const int r = i / CPR, col = (i % CPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) v = *reinterpret_cast<const uint4*>(rows(r) + col);
-    if (TRANSPOSE) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(col + j) * SA_LDT + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + col) = v;
-    }
-  }
+__device__ __forceinline__ int pk_row(int vr, int hg) {
+  const int seq = vr / T, t = vr % T;
+  return ((seq / hg) * T + t) * hg + seq % hg;
 }
 
-// A fragments of this warp's 16 rows over the D columns of a row-major tile.
-template <int D>
-__device__ __forceinline__ void q_frags(uint32_t qf[D / 16][4], const bf16* qs, int warp,
-                                        int g, int q) {
-  const int r = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const bf16* p = qs + ks * 16 + 2 * q;
-    qf[ks][0] = lds32(p + r * (D + 8));
-    qf[ks][1] = lds32(p + (r + 8) * (D + 8));
-    qf[ks][2] = lds32(p + r * (D + 8) + 8);
-    qf[ks][3] = lds32(p + (r + 8) * (D + 8) + 8);
-  }
-}
+// One 16-row tile j of the item in the stage at q, k, v (shared addresses):
+// o over the tile's own q rows.
+template <int D, int T>
+__device__ __forceinline__ void pk_tile(uint32_t q, uint32_t k, uint32_t v, int j,
+                                        const PackedArgs& p, int lane) {
+  constexpr int NK = T >= 16 ? T : 16;  // keys a tile attends (one tile at least)
+  const int g = lane >> 2, qd = lane & 3, m = lane >> 3;
+  const int key0 = T >= 16 ? (16 * j / T) * T : 16 * j;
 
-// s[nj] = Q(16 x D) @ K^T over the key rows key0 + 8 nj .. of a row-major tile.
-template <int D, int NF>
-__device__ __forceinline__ void logits(float s[NF][4], const uint32_t qf[D / 16][4],
-                                       const bf16* ks, int key0, int g, int q) {
+  // Q fragments: matrix m holds rows 8 (m & 1) .., columns 8 (m >> 1) .. of a k16 step
+  uint32_t qf[D / 16][4];
+  {
+    const int r = pk_row<T>(16 * j + (lane & 7) + 8 * (m & 1), p.hg);
 #pragma unroll
-  for (int nj = 0; nj < NF; ++nj)
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], pk_chunk(q, r, 2 * kk + (m >> 1), p.rows));
+  }
+  // S = Q K^T: a pair of n8 tiles (16 keys) per ldmatrix, matrix m holding
+  // keys 8 (m >> 1) .., columns 8 (m & 1) .. of the k16 step
+  float s[NK / 8][4];
+#pragma unroll
+  for (int nj = 0; nj < NK / 8; ++nj)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nj][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int np = 0; np < NK / 16; ++np) {
+    const int r = pk_row<T>(key0 + 16 * np + 8 * (m >> 1) + (lane & 7), p.hg);
 #pragma unroll
-    for (int nj = 0; nj < NF; ++nj) {
-      const bf16* kr = ks + (key0 + nj * 8 + g) * (D + 8) + kk * 16 + 2 * q;
-      const uint32_t b[2] = {lds32(kr), lds32(kr + 8)};
-      mma_16816(s[nj], qf[kk], b);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, pk_chunk(k, r, 2 * kk + (m & 1), p.rows));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_16816(s[2 * np], qf[kk], b0);
+      mma_16816(s[2 * np + 1], qf[kk], b1);
     }
   }
-}
-
-// o[dj] += P(16 x 16 KK) @ V over keys key0 .. of the transposed V tile; P
-// comes from the logits' accumulator fragments, rounded to bf16.
-template <int D, int KK>
-__device__ __forceinline__ void pv(float o[D / 8][4], const float s[2 * KK][4],
-                                   const bf16* vt, int key0, int g, int q) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dj = 0; dj < D / 8; ++dj) {
-      const bf16* vr = vt + (dj * 8 + g) * SA_LDT + key0 + kk * 16 + 2 * q;
-      const uint32_t b[2] = {lds32(vr), lds32(vr + 8)};
-      mma_16816(o[dj], a, b);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max4(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum4(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Store this warp's 16 rows of o, each scaled by scale[row half], to the
-// rows of a (.., D) output given by `rows`.
-template <int D, class Rows>
-__device__ __forceinline__ void store_rows(const Rows& rows, int warp,
-                                           const float o[D / 8][4], const float scale[2],
-                                           int g, int q) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    bf16* orow = const_cast<bf16*>(rows(warp * 16 + g + 8 * hh));
-#pragma unroll
-    for (int dj = 0; dj < D / 8; ++dj)
-      *reinterpret_cast<uint32_t*>(orow + dj * 8 + 2 * q) =
-          pack_bf16x2(o[dj][2 * hh] * scale[hh], o[dj][2 * hh + 1] * scale[hh]);
-  }
-}
-
-template <class T>
-struct ShortArgsT {
-  const T* q;
-  const T* k;
-  const T* v;
-  T* o;
-  long long q_sb, q_sl, q_sh;  // element strides over batch, sequence, head
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
-  int lq, lk, heads;
-  float scale;  // d^-0.5 * log2(e): logits in base 2, scaled in fp32
-};
-typedef ShortArgsT<bf16> ShortArgs;
-
-template <int D>
-__global__ void __launch_bounds__(128) short_kv_kernel(const ShortArgs p) {
-  __shared__ __align__(16) bf16 ks[SA_ROWS * (D + 8)];  // the q tile, then each K chunk
-  __shared__ __align__(16) bf16 vt[D * SA_LDT];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int q0 = blockIdx.x * SA_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
-
-  load_rows<D, false>(ks, StridedRows{p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_sl, p.q_sl},
-                      SA_ROWS);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  q_frags<D>(qf, ks, warp, g, q);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int dj = 0; dj < D / 8; ++dj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dj][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < p.lk; k0 += SA_ROWS) {
-    const int nvalid = min(SA_ROWS, p.lk - k0);
-    __syncthreads();  // every warp is done with the previous tile
-    load_rows<D, false>(ks, StridedRows{kb + k0 * p.k_sl, p.k_sl}, nvalid);
-    load_rows<D, true>(vt, StridedRows{vb + k0 * p.v_sl, p.v_sl}, nvalid);
-    __syncthreads();
-    float s[8][4];
-    logits<D, 8>(s, qf, ks, 0, g, q);
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nj][e] = nj * 8 + 2 * q + (e & 1) < nvalid ? s[nj][e] * p.scale : -INFINITY;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-        mx = fmaxf(mx, fmaxf(s[nj][2 * hh], s[nj][2 * hh + 1]));
-      const float mnew = fmaxf(m[hh], quad_max4(mx));
-      const float alpha = exp2f(m[hh] - mnew);
-      m[hh] = mnew;
-      l[hh] *= alpha;
-#pragma unroll
-      for (int dj = 0; dj < D / 8; ++dj) {
-        o[dj][2 * hh] *= alpha;
-        o[dj][2 * hh + 1] *= alpha;
-      }
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj) {
-        s[nj][2 * hh] = exp2f(s[nj][2 * hh] - mnew);
-        s[nj][2 * hh + 1] = exp2f(s[nj][2 * hh + 1] - mnew);
-        l[hh] += s[nj][2 * hh] + s[nj][2 * hh + 1];
-      }
-    }
-    pv<D, 4>(o, s, vt, 0, g, q);
-  }
-  const float inv[2] = {1.f / quad_sum4(l[0]), 1.f / quad_sum4(l[1])};
-  const long long o_sl = (long long)p.heads * D;
-  store_rows<D>(StridedRows{p.o + ((size_t)b * p.lq + q0) * o_sl + h * D, o_sl}, warp, o, inv,
-                g, q);
-}
-
-template <int D, int T>
-__global__ void __launch_bounds__(128) packed_kernel(const ShortArgs p) {
-  __shared__ __align__(16) bf16 ks[SA_ROWS * (D + 8)];  // the q tile, then the K tile
-  __shared__ __align__(16) bf16 vt[D * SA_LDT];
-  constexpr int NK = T >= 16 ? T : 16;  // keys a warp's rows attend (one tile at least)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int r0 = blockIdx.x * SA_ROWS;
-
-  load_rows<D, false>(ks, PackedRows<T>{p.q, p.q_sb, p.q_sl, p.q_sh, p.heads, r0}, SA_ROWS);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  q_frags<D>(qf, ks, warp, g, q);
-  __syncthreads();
-  load_rows<D, false>(ks, PackedRows<T>{p.k, p.k_sb, p.k_sl, p.k_sh, p.heads, r0}, SA_ROWS);
-  load_rows<D, true>(vt, PackedRows<T>{p.v, p.v_sb, p.v_sl, p.v_sh, p.heads, r0}, SA_ROWS);
-  __syncthreads();
-
-  // first key row of this warp's sequence (T >= 16) or 16-row tile (T < 16)
-  const int key0 = T >= 16 ? (warp * 16 / T) * T : warp * 16;
-  float s[NK / 8][4];
-  logits<D, NK / 8>(s, qf, ks, key0, g, q);
+  // scale in fp32, mask other sequences' keys (T < 16), softmax over the
+  // NK keys of rows g and g + 8, P normalised before its bf16 rounding
 #pragma unroll
   for (int nj = 0; nj < NK / 8; ++nj)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), col = nj * 8 + 2 * q + (e & 1);
+      const int row = g + 8 * (e >> 1), col = 8 * nj + 2 * qd + (e & 1);
       s[nj][e] = (T >= 16 || row / T == col / T) ? s[nj][e] * p.scale : -INFINITY;
     }
-  float inv[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int nj = 0; nj < NK / 8; ++nj)
-      mx = fmaxf(mx, fmaxf(s[nj][2 * hh], s[nj][2 * hh + 1]));
-    mx = quad_max4(mx);
+    for (int nj = 0; nj < NK / 8; ++nj) mx = fmaxf(mx, fmaxf(s[nj][2 * hh], s[nj][2 * hh + 1]));
+    mx = quad_max(mx);
     float sum = 0.f;
 #pragma unroll
     for (int nj = 0; nj < NK / 8; ++nj) {
@@ -289,196 +127,209 @@ __global__ void __launch_bounds__(128) packed_kernel(const ShortArgs p) {
       s[nj][2 * hh + 1] = exp2f(s[nj][2 * hh + 1] - mx);
       sum += s[nj][2 * hh] + s[nj][2 * hh + 1];
     }
-    inv[hh] = 1.f / quad_sum4(sum);
+    const float inv = 1.f / quad_sum(sum);
 #pragma unroll
-    for (int nj = 0; nj < NK / 8; ++nj) {  // P normalised before its bf16 rounding
-      s[nj][2 * hh] *= inv[hh];
-      s[nj][2 * hh + 1] *= inv[hh];
+    for (int nj = 0; nj < NK / 8; ++nj) {
+      s[nj][2 * hh] *= inv;
+      s[nj][2 * hh + 1] *= inv;
     }
   }
+  // O = P V: V^T fragments by ldmatrix.trans, matrix m holding keys 8 (m &
+  // 1) .. of the k16 step, columns 8 (m >> 1) .. of a pair of n8 tiles
   float o[D / 8][4];
 #pragma unroll
   for (int dj = 0; dj < D / 8; ++dj)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dj][e] = 0.f;
-  pv<D, NK / 16>(o, s, vt, key0, g, q);
-  const float one[2] = {1.f, 1.f};
-  const long long o_sl = (long long)p.heads * D;
-  store_rows<D>(PackedRows<T>{p.o, T * o_sl, o_sl, D, p.heads, r0}, warp, o, one, g, q);
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                           pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const int r = pk_row<T>(key0 + 16 * kk + 8 * (m & 1) + (lane & 7), p.hg);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, pk_chunk(v, r, 2 * dp + (m >> 1), p.rows));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma_16816(o[2 * dp], a, b0);
+      mma_16816(o[2 * dp + 1], a, b1);
+    }
+  }
+  // o over this tile's q rows (no other warp reads them)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = pk_row<T>(16 * j + g + 8 * hh, p.hg);
+#pragma unroll
+    for (int dj = 0; dj < D / 8; ++dj) {
+      const uint32_t addr = pk_chunk(q, r, dj, p.rows) + 4 * qd;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                   "r"(pack_bf16x2(o[dj][2 * hh], o[dj][2 * hh + 1]))
+                   : "memory");
+    }
+  }
 }
 
-// fp32 short-KV beyond short_kv_f32.cu's shapes (head dim 128 or Lk > 128;
-// no MuDG site): the same function with fp32 operands on FMAs: four
-// threads per query row, 64 rows per block, each thread holding a quarter
-// of q and o as float4 runs (dims 16 i + 4 t .. +3 of thread t), the logit
-// of a key summed over the four by two shuffles; K/V stream through shared
-// memory in chunks of SF_KEYS keys with an online softmax, as above.
-constexpr int SF_KEYS = 32;
-
-__device__ __forceinline__ float4 f4_fma(float a, float4 x, float4 y) {
-  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z), fmaf(a, x.w, y.w));
+// The item's boxes of one tensor (D / 64 column boxes) into dst, or from
+// src to the output's map.
+template <int D>
+__device__ __forceinline__ void pk_load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int h0, int b0, int rows) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) tma_load_4d(dst + cb * rows * 128, map, bar, 64 * cb, h0, 0, b0);
 }
 
 template <int D>
-__global__ void __launch_bounds__(256) short_kv_f32_kernel(const ShortArgsT<float> p) {
-  __shared__ __align__(16) float ks[SF_KEYS * D];
-  __shared__ __align__(16) float vs[SF_KEYS * D];
-  constexpr int NV = D / 16;  // float4 runs per thread
-  const int t = threadIdx.x & 3, qi = blockIdx.x * SA_ROWS + (threadIdx.x >> 2);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* qr = p.q + b * p.q_sb + qi * p.q_sl + h * p.q_sh;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  float4 qv[NV], o[NV];
+__device__ __forceinline__ void pk_store(const CUtensorMap* map, const uint8_t* src, int h0,
+                                         int b0, int rows) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(qr + i * 16 + 4 * t);
-    qv[i] = make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
-    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < p.lk; k0 += SF_KEYS) {
-    const int nvalid = min(SF_KEYS, p.lk - k0);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < SF_KEYS * D / 4; i += blockDim.x) {
-      const int r = i / (D / 4), col = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (r < nvalid) {
-        kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * p.k_sl + col);
-        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * p.v_sl + col);
-      }
-      *reinterpret_cast<float4*>(ks + r * D + col) = kv;
-      *reinterpret_cast<float4*>(vs + r * D + col) = vv;
-    }
-    __syncthreads();
-    float s[SF_KEYS], mx = m;
-#pragma unroll
-    for (int j = 0; j < SF_KEYS; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 kk = *reinterpret_cast<const float4*>(ks + j * D + i * 16 + 4 * t);
-        a = fmaf(qv[i].x, kk.x, fmaf(qv[i].y, kk.y, fmaf(qv[i].z, kk.z, fmaf(qv[i].w, kk.w, a))));
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      s[j] = j < nvalid ? a : -INFINITY;  // keys past Lk masked
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = exp2f(m - mx);  // 0 on the first chunk
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      o[i] = make_float4(o[i].x * alpha, o[i].y * alpha, o[i].z * alpha, o[i].w * alpha);
-#pragma unroll
-    for (int j = 0; j < SF_KEYS; ++j) {
-      const float pj = exp2f(s[j] - m);
-      l += pj;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-        o[i] = f4_fma(pj, *reinterpret_cast<const float4*>(vs + j * D + i * 16 + 4 * t), o[i]);
-    }
-  }
-  const float inv = 1.f / l;
-  float* orow = p.o + (((size_t)b * p.lq + qi) * p.heads + h) * D;
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    *reinterpret_cast<float4*>(orow + i * 16 + 4 * t) =
-        make_float4(o[i].x * inv, o[i].y * inv, o[i].z * inv, o[i].w * inv);
+  for (int cb = 0; cb < D / 64; ++cb) tma_store_4d(map, src + cb * rows * 128, 64 * cb, h0, 0, b0);
 }
 
-template <class T>
-static ShortArgsT<T> short_args(const void* q, const void* k, const void* v, void* o, int heads,
-                                int d, const long long* st) {
-  ShortArgsT<T> p;
-  p.q = static_cast<const T*>(q);
-  p.k = static_cast<const T*>(k);
-  p.v = static_cast<const T*>(v);
-  p.o = static_cast<T*>(o);
-  p.q_sb = st[0]; p.q_sl = st[1]; p.q_sh = st[2];
-  p.k_sb = st[3]; p.k_sl = st[4]; p.k_sh = st[5];
-  p.v_sb = st[6]; p.v_sl = st[7]; p.v_sh = st[8];
-  p.heads = heads;
-  p.scale = 1.4426950408889634f / sqrtf((float)d);
-  return p;
+template <int D, int T>
+__global__ void __launch_bounds__(PK_THREADS, 1)
+    packed_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                  const PackedArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  const int tb = p.rows * D * 2;  // bytes of one tensor's box
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * 3 * tb);
+  uint64_t* done = full + p.stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = p.items > (int)blockIdx.x ? (p.items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&done[s], PK_CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == PK_CONSUMERS) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < n + p.stages; ++i) {
+        const int s = i % p.stages;
+        if (i >= p.stages) {  // the item that used this stage is done: store its o
+          const int it = blockIdx.x + (i - p.stages) * gridDim.x;
+          mbar_wait(&done[s], ((i / p.stages) - 1) & 1);
+          pk_store<D>(&to, ring + s * 3 * tb, (it % p.hgroups) * p.hg, (it / p.hgroups) * p.bg,
+                      p.rows);
+          bulk_commit();
+          if (i < n) bulk_wait_read<0>();  // the stage is read before it is loaded again
+        }
+        if (i < n) {
+          const int it = blockIdx.x + i * gridDim.x;
+          const int h0 = (it % p.hgroups) * p.hg, b0 = (it / p.hgroups) * p.bg;
+          uint8_t* st = ring + s * 3 * tb;
+          mbar_expect_tx(&full[s], 3 * tb);
+          pk_load<D>(st, &tq, &full[s], h0, b0, p.rows);
+          pk_load<D>(st + tb, &tk, &full[s], h0, b0, p.rows);
+          pk_load<D>(st + 2 * tb, &tv, &full[s], h0, b0, p.rows);
+        }
+      }
+      bulk_wait<0>();
+    }
+    return;
+  }
+
+  const int tiles = p.rows / 16;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % p.stages;
+    mbar_wait(&full[s], (i / p.stages) & 1);
+    // tiles <= 8 = PK_CONSUMERS: this warp takes at most one of the item's
+    const int j = (warp + PK_CONSUMERS - (i * tiles) % PK_CONSUMERS) % PK_CONSUMERS;
+    if (j < tiles) {
+      const uint32_t q = smem_addr(ring + s * 3 * tb);
+      pk_tile<D, T>(q, q + tb, q + 2 * tb, j, p, lane);
+      fence_proxy_async();  // o (generic writes) is read by the TMA store; the stage refilled
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&done[s]);
+  }
+}
+
+template <int D, int T>
+static cudaError_t launch_packed(const CUtensorMap* maps, const PackedArgs& p, int grid,
+                                 int smem, cudaStream_t s) {
+  thread_local int allowed = 0;  // the dynamic shared memory this kernel was allowed so far
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(packed_kernel<D, T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  packed_kernel<D, T><<<grid, PK_THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
 }
 
 template <int D>
-static cudaError_t launch_packed(const ShortArgs& p, int blocks, int t, cudaStream_t s) {
+static cudaError_t launch_packed_t(int t, const CUtensorMap* maps, const PackedArgs& p,
+                                   int grid, int smem, cudaStream_t s) {
   switch (t) {
-    case 1: packed_kernel<D, 1><<<blocks, 128, 0, s>>>(p); break;
-    case 2: packed_kernel<D, 2><<<blocks, 128, 0, s>>>(p); break;
-    case 4: packed_kernel<D, 4><<<blocks, 128, 0, s>>>(p); break;
-    case 8: packed_kernel<D, 8><<<blocks, 128, 0, s>>>(p); break;
-    case 16: packed_kernel<D, 16><<<blocks, 128, 0, s>>>(p); break;
-    case 32: packed_kernel<D, 32><<<blocks, 128, 0, s>>>(p); break;
-    case 64: packed_kernel<D, 64><<<blocks, 128, 0, s>>>(p); break;
+    case 1: return launch_packed<D, 1>(maps, p, grid, smem, s);
+    case 2: return launch_packed<D, 2>(maps, p, grid, smem, s);
+    case 4: return launch_packed<D, 4>(maps, p, grid, smem, s);
+    case 8: return launch_packed<D, 8>(maps, p, grid, smem, s);
+    case 16: return launch_packed<D, 16>(maps, p, grid, smem, s);
+    case 32: return launch_packed<D, 32>(maps, p, grid, smem, s);
+    case 64: return launch_packed<D, 64>(maps, p, grid, smem, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace mudg
 
 using namespace mudg;
 
-// q (batch, lq, heads, d), k and v (batch, lk, heads, d) bf16 with the given
-// element strides (the head dim contiguous, every stride a multiple of 8,
-// 16-byte aligned pointers); o (batch, lq, heads, d) bf16 contiguous.
-// d = 64 or 128, lq % 64 == 0, 1 <= lk.
-extern "C" int mudg_short_kv_attn(const void* q, const void* k, const void* v, void* o,
-                                  int batch, int lq, int lk, int heads, int d,
-                                  long long q_sb, long long q_sl, long long q_sh,
-                                  long long k_sb, long long k_sl, long long k_sh,
-                                  long long v_sb, long long v_sl, long long v_sh,
-                                  void* stream) {
-  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
-  ShortArgs p = short_args<bf16>(q, k, v, o, heads, d, st);
-  p.lq = lq;
-  p.lk = lk;
-  const dim3 grid(lq / SA_ROWS, heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) short_kv_kernel<64><<<grid, 128, 0, s>>>(p);
-  else if (d == 128) short_kv_kernel<128><<<grid, 128, 0, s>>>(p);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+// Shared memory of a packed launch: the ring and its barriers, 1024-aligned
+// (kernels/short_attention.packed_plan computes the same).
+static int packed_smem(int rows, int d, int stages) {
+  return 1024 + stages * 3 * rows * d * 2 + stages * 16;
 }
 
-// As mudg_short_kv_attn with fp32 q, k, v and o (strides a multiple of 4
-// elements, 16-byte aligned pointers).
-extern "C" int mudg_short_kv_attn_f32(const void* q, const void* k, const void* v, void* o,
-                                      int batch, int lq, int lk, int heads, int d,
-                                      long long q_sb, long long q_sl, long long q_sh,
-                                      long long k_sb, long long k_sl, long long k_sh,
-                                      long long v_sb, long long v_sl, long long v_sh,
-                                      void* stream) {
-  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
-  ShortArgsT<float> p = short_args<float>(q, k, v, o, heads, d, st);
-  p.lq = lq;
-  p.lk = lk;
-  const dim3 grid(lq / SA_ROWS, heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) short_kv_f32_kernel<64><<<grid, 256, 0, s>>>(p);
-  else if (d == 128) short_kv_f32_kernel<128><<<grid, 256, 0, s>>>(p);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
-
-// q, k, v (batch, t, heads, d) bf16 with strides as above; o (batch, t, heads,
-// d) bf16 contiguous. d = 64 or 128, t in {1, 2, 4, .., 64},
-// (batch * heads * t) % 64 == 0.
+// q, k, v (batch, t, heads, d) bf16 with the given element strides (the head
+// dim contiguous, every stride a multiple of 8, 16-byte aligned pointers);
+// o (batch, t, heads, d) bf16 contiguous. d = 64 or 128, t in {1, 2, 4, ..,
+// 64}. The launch plan (kernels/short_attention.packed_plan): items of hg
+// heads by bg batch rows (rows = bg * t * hg a multiple of 16, at most 8
+// tiles), `stages` items in flight, `grid` persistent blocks.
 extern "C" int mudg_packed_attn(const void* q, const void* k, const void* v, void* o,
-                                int batch, int t, int heads, int d,
-                                long long q_sb, long long q_sl, long long q_sh,
+                                int batch, int t, int heads, int d, int hg, int bg, int stages,
+                                int grid, long long q_sb, long long q_sl, long long q_sh,
                                 long long k_sb, long long k_sl, long long k_sh,
-                                long long v_sb, long long v_sl, long long v_sh,
-                                void* stream) {
-  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
-  const ShortArgs p = short_args<bf16>(q, k, v, o, heads, d, st);
-  const int blocks = batch * heads * t / SA_ROWS;
+                                long long v_sb, long long v_sl, long long v_sh, void* stream) {
+  const int rows = bg * t * hg;
+  if ((d != 64 && d != 128) || t < 1 || t > 64 || batch < 1 || heads < 1 || hg < 1 || bg < 1 ||
+      hg > 256 || bg > 256 || rows % 16 || rows > 128 || stages < 2 || grid < 1 ||
+      packed_smem(rows, d, stages) > 232448)
+    return cudaErrorInvalidValue;
+  const long long st[12] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                            (long long)t * heads * d, (long long)heads * d, d};
+  const void* base[4] = {q, k, v, o};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)t,
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)st[3 * i + 2] * 2, (cuuint64_t)st[3 * i + 1] * 2,
+                                   (cuuint64_t)st[3 * i] * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)hg, (cuuint32_t)t, (cuuint32_t)bg};
+    const cudaError_t e = mudg_host::bf16_map(&maps[i], base[i], 4, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  PackedArgs p;
+  p.hg = hg;
+  p.bg = bg;
+  p.hgroups = (heads + hg - 1) / hg;
+  p.items = p.hgroups * ((batch + bg - 1) / bg);
+  p.rows = rows;
+  p.stages = stages;
+  p.scale = 1.4426950408889634f / sqrtf((float)d);
+  const int smem = packed_smem(rows, d, stages);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_packed<64>(p, blocks, t, s);
-  if (d == 128) return launch_packed<128>(p, blocks, t, s);
-  return cudaErrorInvalidValue;
+  return d == 64 ? launch_packed_t<64>(t, maps, p, grid, smem, s)
+                 : launch_packed_t<128>(t, maps, p, grid, smem, s);
 }

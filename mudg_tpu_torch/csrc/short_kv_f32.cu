@@ -1,13 +1,15 @@
-// Kernel 12, short-KV form, fp32 at head dim 64 and Lk <= 128 (every MuDG
-// fp32 site: the text and image cross-attention of an fp32 UNet forward,
-// `sample`'s default dtype, under MUDG_SHORT_ATTN=1; Lk = 77 and 16):
-//   o = softmax(q k^T / 8) v,  q (B, Lq, H, 64) over k, v (B, Lk, H, 64),
+// Kernel 12, short-KV form, fp32: the whole-K/V kernel at head dim 64 and
+// Lk <= 128 (every MuDG fp32 site: the text and image cross-attention of an
+// fp32 UNet forward, `sample`'s default dtype, under MUDG_SHORT_ATTN=1; Lk
+// = 77 and 16), and the chunked kernel below for the rest the predicate
+// admits (head dim 128, Lk up to 1024: K and V^T in hi and lo copies would
+// take 256 KB of shared memory at D = 128, Lk = 128):
+//   o = softmax(q k^T / sqrt(D)) v,  q (B, Lq, H, D) over k, v (B, Lk, H, D),
 // fp32 logits scaled after the product (short_attention.py:168-170), keys
-// past Lk masked to -inf, fp32 softmax normalised before P V. Head dim 128
-// or Lk > 128 (no MuDG site) stay on short_attn.cu's FMA kernel: K and V^T
-// in hi and lo copies would take 256 KB of shared memory at D = 128, Lk =
-// 128, so that range needs key chunks with an online softmax (the wrapper
-// picks the route, kernels/short_attention.py:short_kv_route).
+// past Lk masked to -inf, an fp32 softmax (normalised before P V by the
+// whole-K/V kernel, online over key chunks by the chunked one: P stays fp32,
+// so the two orders agree to fp32 rounding). The wrapper picks the kernel
+// (kernels/short_attention.short_kv_plan).
 //
 // Replaces: mudg_tpu/kernels/short_attention.py:_short_kv_kernel
 // (short_kv_attention, pallas_call at :214) for fp32 operands.
@@ -342,14 +344,15 @@ static cudaError_t launch_short_kv_tf32(const CUtensorMap& tq, const CUtensorMap
 
 namespace mudg_host {
 
-// A tensor map over a (batch, seq, heads, 64) fp32 tensor with element
-// strides sb, sl, sh (head dim contiguous), as dims (64, heads, seq, batch)
+// A tensor map over a (batch, seq, heads, d) fp32 tensor with element
+// strides sb, sl, sh (head dim contiguous), as dims (d, heads, seq, batch)
 // with boxes of 32 head dims by `rows` sequence rows of one head; rows past
 // seq read as zeros.
 static inline cudaError_t f32_rows_map(CUtensorMap* map, const void* base, int batch, int seq,
                                        int heads, long long sb, long long sl, long long sh,
-                                       int rows) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)seq, (cuuint64_t)batch};
+                                       int rows, int d = 64) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)sl * 4, (cuuint64_t)sb * 4};
   const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
   return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box);
@@ -362,8 +365,7 @@ using namespace mudg;
 // q (batch, lq, heads, 64), k and v (batch, lk, heads, 64) fp32 with the
 // given element strides (the head dim contiguous, every stride a multiple
 // of 4, 16-byte aligned pointers); o (batch, lq, heads, 64) fp32
-// contiguous. lq % 64 == 0, 1 <= lk <= 128, d == 64 (the signature is
-// mudg_short_kv_attn's).
+// contiguous. lq % 64 == 0, 1 <= lk <= 128, d == 64.
 extern "C" int mudg_short_kv_tf32(const void* q, const void* k, const void* v, void* o,
                                   int batch, int lq, int lk, int heads, int d,
                                   long long q_sb, long long q_sl, long long q_sh,
@@ -405,4 +407,297 @@ extern "C" int mudg_short_kv_tf32(const void* q, const void* k, const void* v, v
     case 7: return launch_short_kv_tf32<112>(tq, tk, tv, p, grid, s);
     default: return launch_short_kv_tf32<128>(tq, tk, tv, p, grid, s);
   }
+}
+
+namespace mudg {
+
+// ---- chunked K/V: head dim 128, or Lk > 128 --------------------------------
+//
+// The same function and the same three tf32 products per product, for
+// what the layout above cannot hold (K and V^T in hi and lo copies take NK
+// * 1 KB at D 64 and twice that at D 128). One persistent block of two
+// warpgroups per SM walks items of two consecutive q tiles of one (batch,
+// head) pair, a tile a warpgroup, and both walk the pair's keys in chunks
+// of SC_KEYS(D) keys (64 at D 64, 32 at D 128):
+// - Each warpgroup splits its raw q tile (TMA, 32-column boxes) in place
+//   into hi, and lo into a copy of its own, once per item: at D 128 q's
+//   fragments in registers (128 a thread, hi and lo) would not fit beside
+//   O, so S takes both operands from shared memory (wgmma_tf32_ss).
+// - Per chunk, thread 0 has loaded the raw K and V chunk by TMA (rows past
+//   Lk arrive as zeros); all 256 threads split it, as it lands, into K hi
+//   and lo and V^T hi and lo (perm8 key order), and thread 0 loads the next
+//   chunk into the raw area. S = Q K^T is 3 x D / 8 wgmma m64nCk8, the
+//   logits scaled in fp32, keys past Lk masked, an online softmax in fp32
+//   (running max and sum), P split in registers, and each chunk's P V, 3 x
+//   C / 8 wgmma m64n64k8 per 64 head dims, goes to an accumulator of its own
+//   that is added to O in fp32 with O's rescaling (add_tile): one
+//   accumulator over many keys misses 1e-5 (flash_attn_f32.cu).
+// - O leaves from registers as float2 stores.
+// The split and the loads are not overlapped with the products beyond the
+// next chunk's raw load (shared memory holds no second split area at D 128:
+// q 128 KB, one split chunk 64 KB, one raw chunk 32 KB).
+
+constexpr int SC_THREADS = 256;  // two warpgroups
+__host__ __device__ constexpr int sc_keys(int d) { return d == 64 ? 64 : 32; }
+__host__ __device__ constexpr int sc_smem(int d) {
+  return 1024 + 4 * SF_ROWS * d * 4 + 6 * sc_keys(d) * d * 4 + 16;
+}
+
+struct ShortKvF32ChunkArgs {
+  float* o;    // (batch, lq, heads, d) contiguous
+  int items;   // (batch, head, tile pair) items in all
+  int lq, lk, heads;
+  int tiles;   // q tiles per (batch, head)
+  float scale; // d^-0.5 * log2(e)
+};
+
+// Split the raw chunk (C keys of K and V, D / 32 column boxes of C rows)
+// into K hi | K lo (the raw layout) and V^T hi | V^T lo (per 64 head dims,
+// C / 32 boxes of 64 rows by 32 keys in perm8 order), by the 256 threads.
+template <int D, int C>
+__device__ __forceinline__ void sc_split_kv(uint8_t* split, const uint8_t* rawk,
+                                            const uint8_t* rawv, int t) {
+  constexpr int KB = C * D * 4;  // bytes of one copy
+  uint8_t* khi = split;
+  uint8_t* vthi = split + 2 * KB;
+  for (int i = t; i < KB / 16; i += SC_THREADS) {
+    const float4 x = *reinterpret_cast<const float4*>(rawk + 16 * i);
+    uint32_t hi[4], lo[4];
+    tf32_split(x.x, hi[0], lo[0]);
+    tf32_split(x.y, hi[1], lo[1]);
+    tf32_split(x.z, hi[2], lo[2]);
+    tf32_split(x.w, hi[3], lo[3]);
+    *reinterpret_cast<uint4*>(khi + 16 * i) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(khi + KB + 16 * i) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  // item i: key i % C, head dims 4 (i / C) .. + 3; a warp's lanes take
+  // consecutive keys
+  for (int i = t; i < C * D / 4; i += SC_THREADS) {
+    const int key = i % C, d0 = 4 * (i / C);
+    const float4 x = *reinterpret_cast<const float4*>(rawv + sw128_f32_offset(key, d0, C));
+    const int col = (key & 24) | perm8_pos(key & 7);
+    const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t hi, lo;
+      tf32_split(e[j], hi, lo);
+      const int dd = d0 + j;
+      const uint32_t off = ((dd >> 6) * (C / 32) + (key >> 5)) * 8192 +
+                           sw128_f32_offset(dd & 63, col, 64);
+      *reinterpret_cast<uint32_t*>(vthi + off) = hi;
+      *reinterpret_cast<uint32_t*>(vthi + KB + off) = lo;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SC_THREADS, 1)
+    short_kv_tf32_chunk_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const ShortKvF32ChunkArgs p) {
+  constexpr int C = sc_keys(D), QB = SF_ROWS * D * 4, KB = C * D * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);  // per warpgroup: q hi (the raw tile, split in place), q lo
+  uint8_t* split = sq + 4 * QB;       // K hi, K lo, V^T hi, V^T lo
+  uint8_t* rawk = split + 4 * KB;
+  uint8_t* rawv = rawk + KB;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(rawv + KB);
+  uint64_t* rawbar = qbar + 1;
+  const int cw = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+  const int nch = (p.lk + C - 1) / C, pairs = p.tiles / 2;
+  const int n = p.items > (int)blockIdx.x ? (p.items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  auto load_q = [&](int i) {  // item i's two raw q tiles
+    const int it = blockIdx.x + i * gridDim.x, pr = it / pairs, tp = it % pairs;
+    mbar_expect_tx(qbar, 2 * QB);
+    for (int w = 0; w < 2; ++w)
+      for (int cb = 0; cb < D / 32; ++cb)
+        tma_load_4d(sq + 2 * w * QB + cb * SF_ROWS * 128, &tq, qbar, 32 * cb, pr % p.heads,
+                    (2 * tp + w) * SF_ROWS, pr / p.heads);
+  };
+  auto load_chunk = [&](int i, int c) {  // chunk c of item i's pair
+    const int pr = (blockIdx.x + i * gridDim.x) / pairs;
+    mbar_expect_tx(rawbar, 2 * KB);
+    for (int cb = 0; cb < D / 32; ++cb) {
+      tma_load_4d(rawk + cb * C * 128, &tk, rawbar, 32 * cb, pr % p.heads, C * c, pr / p.heads);
+      tma_load_4d(rawv + cb * C * 128, &tv, rawbar, 32 * cb, pr % p.heads, C * c, pr / p.heads);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(rawbar, 1);
+    mbar_init_fence();
+    if (n > 0) {
+      load_q(0);
+      load_chunk(0, 0);
+    }
+  }
+  __syncthreads();
+
+  uint8_t* qhi = sq + 2 * cw * QB;
+  uint8_t* qlo = qhi + QB;
+  const uint64_t dqh = sw128_desc(qhi), dql = sw128_desc(qlo);
+  const uint64_t dkh = sw128_desc(split), dkl = sw128_desc(split + KB);
+  const uint64_t dvh = sw128_desc(split + 2 * KB), dvl = sw128_desc(split + 3 * KB);
+  int rc = 0;  // chunks loaded so far (rawbar's phase)
+  for (int i = 0; i < n; ++i) {
+    const int it = blockIdx.x + i * gridDim.x, pr = it / pairs, tp = it % pairs;
+    mbar_wait(qbar, i & 1);
+    for (int j = tid; j < QB / 16; j += 128) {  // this warpgroup's tile: hi in place, lo
+      const float4 x = *reinterpret_cast<const float4*>(qhi + 16 * j);
+      uint32_t hi[4], lo[4];
+      tf32_split(x.x, hi[0], lo[0]);
+      tf32_split(x.y, hi[1], lo[1]);
+      tf32_split(x.z, hi[2], lo[2]);
+      tf32_split(x.w, hi[3], lo[3]);
+      *reinterpret_cast<uint4*>(qhi + 16 * j) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(qlo + 16 * j) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_proxy_async();  // read by wgmma
+    float o[D / 64][32];
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[hf][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int c = 0; c < nch; ++c, ++rc) {
+      mbar_wait(rawbar, rc & 1);
+      sc_split_kv<D, C>(split, rawk, rawv, threadIdx.x);
+      fence_proxy_async();  // the copies are read by wgmma, the raw area refilled by TMA
+      named_bar_sync(1, SC_THREADS);
+      if (threadIdx.x == 0) {  // the next chunk, of this item or the next
+        if (c + 1 < nch) load_chunk(i, c + 1);
+        else if (i + 1 < n) load_chunk(i + 1, 0);
+      }
+      float sc[C / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        wgmma_tf32_ss<C>(sc, dql + tf32_kstep<SF_ROWS>(kk), dkh + tf32_kstep<C>(kk), kk);
+        wgmma_tf32_ss<C>(sc, dqh + tf32_kstep<SF_ROWS>(kk), dkl + tf32_kstep<C>(kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_tf32_ss<C>(sc, dqh + tf32_kstep<SF_ROWS>(kk), dkh + tf32_kstep<C>(kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // online softmax of rows g and g + 8 over this chunk's keys, in fp32
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = m[hh];
+#pragma unroll
+        for (int jj = 0; jj < C / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[4 * jj + 2 * hh + e];
+            v = C * c + 8 * jj + 2 * qd + e < p.lk ? v * p.scale : -INFINITY;
+            mx = fmaxf(mx, v);
+          }
+        mx = quad_max(mx);
+        alpha[hh] = exp2f(m[hh] - mx);  // 0 on the first chunk
+        m[hh] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < C / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[4 * jj + 2 * hh + e];
+            v = exp2f(v - mx);
+            sum += v;
+          }
+        l[hh] = l[hh] * alpha[hh] + sum;
+      }
+      // O = alpha O + P V, P V per 64 head dims in an accumulator of its own
+      uint32_t ph[C / 8][4], pl[C / 8][4];
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) tf32_frag(ph[j], pl[j], sc, j);
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf) {
+        float pv[32];
+        fence_regs(ph);
+        fence_regs(pl);
+        wgmma_fence();
+        mma3_rs<C / 8>(pv, ph, pl, dvh + hf * ((C / 32) * 8192 >> 4),
+                       dvl + hf * ((C / 32) * 8192 >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_regs(ph);
+        fence_regs(pl);
+        add_tile(o[hf], pv, alpha);
+      }
+      named_bar_sync(1, SC_THREADS);  // both warpgroups are done with the split chunk
+    }
+    if (threadIdx.x == 0 && i + 1 < n) load_q(i + 1);  // every S of this item is done
+
+    // rows r and r + 8 of the tile, head dims 8 j + 2 qd, + 1 of each 64
+    const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+    const int q0 = (2 * tp + cw) * SF_ROWS + 16 * warp + g, b = pr / p.heads, h = pr % p.heads;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (q0 + 8 * hh >= p.lq) continue;
+      float* orow = p.o + (((size_t)b * p.lq + q0 + 8 * hh) * p.heads + h) * D;
+#pragma unroll
+      for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(orow + 64 * hf + 8 * j + 2 * qd) =
+              make_float2(o[hf][4 * j + 2 * hh] * inv[hh], o[hf][4 * j + 2 * hh + 1] * inv[hh]);
+    }
+  }
+}
+
+template <int D>
+static cudaError_t launch_tf32_chunks(const CUtensorMap* maps, const ShortKvF32ChunkArgs& p,
+                                      int grid, cudaStream_t s) {
+  thread_local bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        short_kv_tf32_chunk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, sc_smem(D));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  short_kv_tf32_chunk_kernel<D><<<grid, SC_THREADS, sc_smem(D), s>>>(maps[0], maps[1], maps[2],
+                                                                      p);
+  return cudaGetLastError();
+}
+
+}  // namespace mudg
+
+// As mudg_short_kv_tf32 at head dim 64 or 128 and 1 <= lk <= 1024 (lq %
+// 128 == 0): the chunked kernel, `grid` persistent blocks
+// (kernels/short_attention.short_kv_plan).
+extern "C" int mudg_short_kv_tf32_chunked(const void* q, const void* k, const void* v, void* o,
+                                          int batch, int lq, int lk, int heads, int d, int grid,
+                                          long long q_sb, long long q_sl, long long q_sh,
+                                          long long k_sb, long long k_sl, long long k_sh,
+                                          long long v_sb, long long v_sl, long long v_sh,
+                                          void* stream) {
+  if (lk < 1 || lk > 1024 || (d != 64 && d != 128) || lq < 2 * SF_ROWS || lq % (2 * SF_ROWS) ||
+      batch < 1 || heads < 1 || grid < 1 ||
+      (long long)batch * heads * (lq / SF_ROWS) > (1LL << 30))
+    return cudaErrorInvalidValue;
+  const int c = sc_keys(d);
+  using mudg_host::f32_rows_map;
+  CUtensorMap maps[3];
+  cudaError_t e = f32_rows_map(&maps[0], q, batch, lq, heads, q_sb, q_sl, q_sh, SF_ROWS, d);
+  if (e == cudaSuccess) e = f32_rows_map(&maps[1], k, batch, lk, heads, k_sb, k_sl, k_sh, c, d);
+  if (e == cudaSuccess) e = f32_rows_map(&maps[2], v, batch, lk, heads, v_sb, v_sl, v_sh, c, d);
+  if (e != cudaSuccess) return e;
+  ShortKvF32ChunkArgs p;
+  p.o = static_cast<float*>(o);
+  p.lq = lq;
+  p.lk = lk;
+  p.heads = heads;
+  p.tiles = lq / SF_ROWS;
+  p.items = batch * heads * (p.tiles / 2);
+  p.scale = 1.4426950408889634f / sqrtf((float)d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_tf32_chunks<64>(maps, p, grid, s)
+                 : launch_tf32_chunks<128>(maps, p, grid, s);
 }

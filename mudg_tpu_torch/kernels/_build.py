@@ -46,11 +46,10 @@ _SIGNATURES = {
     "mudg_gn_max_clusters": [_I] * 5 + [_P],
     "mudg_layer_norm_w": [_P] * 4 + [_I] * 5 + [_F] + [_P],
     "mudg_ln_plan": [_I] * 3 + [_P],
-    "mudg_short_kv_attn": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
-    "mudg_short_kv_attn_f32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
-    "mudg_short_kv_tma": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
+    "mudg_short_kv_tma": [_P] * 4 + [_I] * 8 + [_LL] * 9 + [_P],
     "mudg_short_kv_tf32": [_P] * 4 + [_I] * 5 + [_LL] * 9 + [_P],
-    "mudg_packed_attn": [_P] * 4 + [_I] * 4 + [_LL] * 9 + [_P],
+    "mudg_short_kv_tf32_chunked": [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_P],
+    "mudg_packed_attn": [_P] * 4 + [_I] * 8 + [_LL] * 9 + [_P],
 }
 # fp32 scratch for the backward kernels' split partials (elements); the split
 # counts shrink to fit it, so it bounds memory, never correctness

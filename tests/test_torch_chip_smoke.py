@@ -230,8 +230,12 @@ def test_chip_smoke_norm_short_checks_see_planted_faults():
         ln={"mdm512": {(2, 16, 64): 1}, "mdm512-f32": {(2, 16, 64): 0}},
         skv={"mdm512": {((2, 256, 2, 64), (2, 77, 2, 64)): 1,
                         ((2, 256, 2, 64), (2, 16, 2, 64)): 1},
-             "mdm512-f32": {((2, 256, 2, 64), (2, 77, 2, 64)): 0}},
-        packed=((8, 16, 2, 64), (16, 8, 2, 128)), offset_shape=(2, 4, 8, 64))
+             "mdm512-f32": {((2, 256, 2, 64), (2, 77, 2, 64)): 0},
+             "stream": {((2, 256, 2, 64), (2, 256, 2, 64)): 0,
+                        ((2, 256, 2, 128), (2, 77, 2, 128)): 0},
+             "stream-f32": {((2, 256, 2, 64), (2, 1024, 2, 64)): 0}},
+        packed=((8, 16, 2, 64), (16, 8, 2, 128)), offset_shape=(2, 4, 8, 64),
+        packed_extra=((128, 1, 1, 64), (4, 64, 2, 128)))
     for case in cases:
         chk = CS.compare(torch, case)
         assert chk.ok, (case.name, case.label, chk)

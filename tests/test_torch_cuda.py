@@ -1207,8 +1207,9 @@ def test_short_kv_attention_kernel(dev, b, lq, lk, h, d, dtype):
     tol = TOL if dtype == torch.bfloat16 else 1e-5
     assert torch.isfinite(got).all()
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
-    assert SA.short_kv_route(dtype, d, lk) == (
-        "stream" if d != 64 or lk > 128 else "tma" if dtype == torch.bfloat16 else "tf32")
+    assert SA.short_kv_route(dtype, d, lk) == ("tma" if dtype == torch.bfloat16 else "tf32")
+    assert SA.short_kv_plan(dtype, b, lq, lk, h, d).chunked == (lk > 128 or (
+        dtype == torch.float32 and d == 128))
     assert torch.equal(got, SA.short_kv_attention(q, k, v))
     if lk % 64:
         pad = (0, 0, 0, 0, 0, -lk % 64)

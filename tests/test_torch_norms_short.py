@@ -111,7 +111,7 @@ def _qkv(shapes, seed, dtype="f32"):
 
 
 @pytest.mark.parametrize("lq,lk,dtype", [(512, 93, "f32"), (256, 16, "f32"), (256, 640, "f32"),
-                                         (256, 77, "bf16")])
+                                         (256, 77, "bf16"), (256, 1024, "f32")])
 def test_short_kv_plain_matches_pallas(lq, lk, dtype):
     b, h, d = 2, 2, 64
     (qt, qj), (kt, kj), (vt, vj) = _qkv([(b, lq, h, d), (b, lk, h, d), (b, lk, h, d)], 2, dtype)
@@ -122,8 +122,22 @@ def test_short_kv_plain_matches_pallas(lq, lk, dtype):
     np.testing.assert_allclose(_np(got), _np(ref), atol=F32_ATOL if dtype == "f32" else BF16_ATOL)
 
 
+@pytest.mark.parametrize("lq,lk,dtype", [(256, 77, "bf16"), (256, 77, "f32")])
+def test_short_kv_plain_matches_pallas_head_dim_128(lq, lk, dtype):
+    """Head dim 128, which no MuDG site reaches: the predicate admits it."""
+    b, h, d = 2, 2, 128
+    (qt, qj), (kt, kj), (vt, vj) = _qkv([(b, lq, h, d), (b, lk, h, d), (b, lk, h, d)], 4, dtype)
+    assert SA.short_kv_attention_eligible(qt, kt)
+    ref = JSA.short_kv_attention(qj, kj, vj)
+    got = SA.short_kv_attention(qt, kt, vt)
+    assert got.dtype == qt.dtype
+    np.testing.assert_allclose(_np(got), _np(ref), atol=F32_ATOL if dtype == "f32" else BF16_ATOL)
+
+
 @pytest.mark.parametrize("b,tt,h,d,dtype", [(16, 16, 2, 64, "f32"), (8, 8, 4, 128, "f32"),
-                                            (8, 4, 4, 64, "f32"), (16, 16, 2, 64, "bf16")])
+                                            (8, 4, 4, 64, "f32"), (16, 16, 2, 64, "bf16"),
+                                            (64, 1, 2, 64, "bf16"), (4, 32, 1, 128, "bf16"),
+                                            (2, 64, 2, 64, "f32")])
 def test_packed_plain_matches_pallas(b, tt, h, d, dtype):
     (qt, qj), (kt, kj), (vt, vj) = _qkv([(b, tt, h, d)] * 3, 3, dtype)
     assert SA.packed_short_attention_eligible(qt)
