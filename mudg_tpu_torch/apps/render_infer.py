@@ -296,34 +296,39 @@ def render_windows(mdm, sample_fn, windows, *, tokens, null_tokens, video_length
     task's call drawing the same noise from `generator`."""
     import torch
 
+    from ..utils import profiling
+
     vl = video_length
     dev = tokens.device
     n = len(TASKS)
     carry_color = None  # generated frames spliced into the next window
     for win in windows:
-        sparse = win["sparse_frames"].copy()
-        if carry_color is not None:
-            # splice previous generated colors into the first half
-            sparse[0 : vl // 2] = carry_color[: vl // 2]
-            sparse[0] = win["frame0"]  # re-anchor GT
-        sparse_b = torch.from_numpy(np.stack([sparse] * n)).to(dev)
-        depth_b = torch.from_numpy(np.stack([win["sparse_depth"]] * n)).to(dev)
-        labels = torch.as_tensor(np.asarray(win["class_labels"]), device=dev).long()
-        if task_serial:
-            # the three calls share the window's noise, start and steps alike,
-            # as the JAX loop gives each of them the window's one key
-            state, outs = generator.get_state(), []
-            for ti in range(n):
-                generator.set_state(state)
-                outs.append(sample_fn(mdm, tokens[ti : ti + 1], null_tokens, generator,
-                                      sparse_b[ti : ti + 1], depth_b[ti : ti + 1],
-                                      labels[ti : ti + 1]))
-            out = torch.cat(outs)
-        else:
-            out = sample_fn(mdm, tokens, null_tokens, generator, sparse_b, depth_b, labels)
-        out = out.float().cpu().numpy()
-        # autoregressive carry: second half of the generated color window
-        carry_color = out[0, vl // 2 :].copy()
+        with profiling.span("render.upload"):
+            sparse = win["sparse_frames"].copy()
+            if carry_color is not None:
+                # splice previous generated colors into the first half
+                sparse[0 : vl // 2] = carry_color[: vl // 2]
+                sparse[0] = win["frame0"]  # re-anchor GT
+            sparse_b = torch.from_numpy(np.stack([sparse] * n)).to(dev)
+            depth_b = torch.from_numpy(np.stack([win["sparse_depth"]] * n)).to(dev)
+            labels = torch.as_tensor(np.asarray(win["class_labels"]), device=dev).long()
+        with profiling.span("render.sample"):
+            if task_serial:
+                # the three calls share the window's noise, start and steps alike,
+                # as the JAX loop gives each of them the window's one key
+                state, outs = generator.get_state(), []
+                for ti in range(n):
+                    generator.set_state(state)
+                    outs.append(sample_fn(mdm, tokens[ti : ti + 1], null_tokens, generator,
+                                          sparse_b[ti : ti + 1], depth_b[ti : ti + 1],
+                                          labels[ti : ti + 1]))
+                out = torch.cat(outs)
+            else:
+                out = sample_fn(mdm, tokens, null_tokens, generator, sparse_b, depth_b, labels)
+        with profiling.span("render.to_host"):
+            out = out.float().cpu().numpy()
+            # autoregressive carry: second half of the generated color window
+            carry_color = out[0, vl // 2 :].copy()
         yield win, sparse, out
 
 

@@ -40,6 +40,7 @@ processes exit with code 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -374,6 +375,7 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
     from ..parallel import mesh as PM
     from ..train import checkpoint as C
     from ..train import step as TS
+    from ..utils import profiling
 
     par = setup_parallel(args)
     if not par.active:
@@ -422,66 +424,61 @@ def train(args, loader, val_loader=None, *, tokenizer=None, on_step=None, sample
     artifacts, secs = {}, []
     want_ckpt = {"flag": False}
     prev_handler = signal.signal(signal.SIGUSR1, lambda *_: want_ckpt.update(flag=True))
-    prof = None
-    if args.profile_dir and par.root:
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
-                                      + ([torch.profiler.ProfilerActivity.CUDA]
-                                         if device.type == "cuda" else []))
-        prof.start()
-    if on_step is not None:
-        on_step(step_i, state, None)
-    t0 = time.time()
+    # --profile_dir: the loop under torch.profiler with the program's spans on
+    profiled = (profiling.trace(args.profile_dir) if args.profile_dir and par.root
+                else contextlib.nullcontext())
     try:
-        while step_i < args.max_steps:
-            n_batches = 0
-            for batch in loader:
-                n_batches += 1
-                tb = to_device(batch, device)
-                if mesh is not None:
-                    tb = PM.shard_batch(tb, mesh, "data", dim=1 if args.accum > 1 else 0)
-                state, metrics = step_fn(state, tb, gen)
-                step_i += 1
-                if step_i % args.log_every == 0:
-                    loss = float(metrics["loss"])
-                    dt = (time.time() - t0) / args.log_every
-                    t0 = time.time()
-                    secs.append(dt)
-                    emit({"step": step_i, "loss": loss,
-                          "grad_norm": float(metrics["grad_norm"]),
-                          "sec_per_step": round(dt, 3)})
-                if on_step is not None:
-                    on_step(step_i, state, metrics)
-                if val_loader is not None and step_i % args.val_every == 0:
-                    emit({"step": step_i, "val_loss": validate(mdm, val_loader, null_emb, device,
-                                                               par)})
-                if args.sample_every and step_i % args.sample_every == 0:
-                    log_samples(args, mdm, state, tb, tokenizer, step_i, sample_sink, par)
-                # SIGUSR1 (preemption) saves both artifacts; it reaches the
-                # ranks at different times, so every rank reads the sum
-                flag = want_ckpt["flag"]
-                if mesh is not None:
-                    f = torch.tensor(float(flag), device=device)
-                    torch.distributed.all_reduce(f, group=mesh.all)
-                    flag = bool(f > 0)
-                save_weights = flag or step_i % args.ckpt_every == 0
-                save_full = flag or (args.full_ckpt_every and step_i % args.full_ckpt_every == 0)
-                want_ckpt["flag"] = False
-                if save_weights:
-                    # with the frozen towers, so that render runs from it alone
-                    write(f"step_{step_i}", C.model_state_dict(mdm, layout))
-                if save_full:
-                    write(f"trainstate_{step_i}", C.train_state(state))
-                if step_i >= args.max_steps:
-                    break
-            if not n_batches:
-                raise ValueError("the loader yields no batch: fewer items than "
-                                 "batch_size x accum")
+        with profiled:
+            if on_step is not None:
+                on_step(step_i, state, None)
+            t0 = time.time()
+            while step_i < args.max_steps:
+                n_batches = 0
+                for batch in loader:
+                    n_batches += 1
+                    tb = to_device(batch, device)
+                    if mesh is not None:
+                        tb = PM.shard_batch(tb, mesh, "data", dim=1 if args.accum > 1 else 0)
+                    state, metrics = step_fn(state, tb, gen)
+                    step_i += 1
+                    if step_i % args.log_every == 0:
+                        loss = float(metrics["loss"])
+                        dt = (time.time() - t0) / args.log_every
+                        t0 = time.time()
+                        secs.append(dt)
+                        emit({"step": step_i, "loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "sec_per_step": round(dt, 3)})
+                    if on_step is not None:
+                        on_step(step_i, state, metrics)
+                    if val_loader is not None and step_i % args.val_every == 0:
+                        emit({"step": step_i,
+                              "val_loss": validate(mdm, val_loader, null_emb, device, par)})
+                    if args.sample_every and step_i % args.sample_every == 0:
+                        log_samples(args, mdm, state, tb, tokenizer, step_i, sample_sink, par)
+                    # SIGUSR1 (preemption) saves both artifacts; it reaches the
+                    # ranks at different times, so every rank reads the sum
+                    flag = want_ckpt["flag"]
+                    if mesh is not None:
+                        f = torch.tensor(float(flag), device=device)
+                        torch.distributed.all_reduce(f, group=mesh.all)
+                        flag = bool(f > 0)
+                    save_weights = flag or step_i % args.ckpt_every == 0
+                    save_full = flag or (args.full_ckpt_every
+                                         and step_i % args.full_ckpt_every == 0)
+                    want_ckpt["flag"] = False
+                    if save_weights:
+                        # with the frozen towers, so that render runs from it alone
+                        write(f"step_{step_i}", C.model_state_dict(mdm, layout))
+                    if save_full:
+                        write(f"trainstate_{step_i}", C.train_state(state))
+                    if step_i >= args.max_steps:
+                        break
+                if not n_batches:
+                    raise ValueError("the loader yields no batch: fewer items than "
+                                     "batch_size x accum")
     finally:
         signal.signal(signal.SIGUSR1, prev_handler)
-        if prof is not None:
-            prof.stop()
-            os.makedirs(args.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
     write("final", C.model_state_dict(mdm, layout))
     PM.print0("training done")
     return {"mdm": mdm, "state": state, "step": step_i, "artifacts": artifacts,

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core import schedules as S
+from ..utils import profiling
 
 
 class DDIMConstants(NamedTuple):
@@ -118,12 +119,13 @@ def ddim_sample(model_fn: Callable, generator: torch.Generator, shape, consts: D
         return torch.randn(x.shape, generator=generator, device=device, dtype=dtype)
 
     for i in range(consts.ts.shape[0]):
-        const = DDIMConstants(*(c[i] for c in consts))
-        if mask is not None:
-            x = masked_blend(x, mask, x0, (sa[const.ts], soma[const.ts]),
-                             randn("noise_q", i)).to(dtype)
-        v = model_fn(x, const.ts.expand(b))
-        x, _ = ddim_step(x, v, const, randn("noise", i), temperature=temperature)
+        with profiling.span("sampler.step"):
+            const = DDIMConstants(*(c[i] for c in consts))
+            if mask is not None:
+                x = masked_blend(x, mask, x0, (sa[const.ts], soma[const.ts]),
+                                 randn("noise_q", i)).to(dtype)
+            v = model_fn(x, const.ts.expand(b))
+            x, _ = ddim_step(x, v, const, randn("noise", i), temperature=temperature)
     return x
 
 

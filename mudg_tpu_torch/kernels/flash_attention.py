@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils import profiling
 from ..nn import remat as R
 
 D = 64          # head dim the kernel takes
@@ -117,14 +118,15 @@ def flash_attention(q, k, v):
     lse = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
     lib = _build.load()
     P = _build.ptr
-    if q.dtype == torch.bfloat16:
-        err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h, *_strides(q, k, v),
-                                  _build.stream())
-    else:
-        # the kernels' first pass writes tf32 hi and lo copies of q (scaled), k and v^T
-        work = torch.empty(3, 2, b * h, l, D, device=q.device, dtype=torch.float32)
-        err = lib.mudg_flash_attn_f32(P(q), P(k), P(v), P(o), P(lse), P(work), b, l, h,
+    with profiling.span("kernel.flash_attention"):
+        if q.dtype == torch.bfloat16:
+            err = lib.mudg_flash_attn(P(q), P(k), P(v), P(o), P(lse), b, l, h,
                                       *_strides(q, k, v), _build.stream())
+        else:
+            # the kernels' first pass writes tf32 hi and lo copies of q (scaled), k and v^T
+            work = torch.empty(3, 2, b * h, l, D, device=q.device, dtype=torch.float32)
+            err = lib.mudg_flash_attn_f32(P(q), P(k), P(v), P(o), P(lse), P(work), b, l, h,
+                                          *_strides(q, k, v), _build.stream())
     _build.check(err, "flash_attention")
     launches += 1
     return o, lse
@@ -157,16 +159,17 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     o = o.contiguous()
     _build.require(o, "o", q.dtype)
     delta = torch.empty(b * h, l, device=q.device, dtype=torch.float32)
-    if q.dtype == torch.bfloat16:
-        qs = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-        err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta), P(dq),
-                                      P(dk), P(dv), P(qs), b, l, h, *_strides(q, k, v),
-                                      _build.stream())
-    else:
-        work = torch.empty(7, 2, b * h, l, D, device=q.device, dtype=torch.float32)
-        err = lib.mudg_flash_attn_bwd_f32(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta),
-                                          P(dq), P(dk), P(dv), P(work), b, l, h,
+    with profiling.span("kernel.flash_attention_bwd"):
+        if q.dtype == torch.bfloat16:
+            qs = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+            err = lib.mudg_flash_attn_bwd(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta),
+                                          P(dq), P(dk), P(dv), P(qs), b, l, h,
                                           *_strides(q, k, v), _build.stream())
+        else:
+            work = torch.empty(7, 2, b * h, l, D, device=q.device, dtype=torch.float32)
+            err = lib.mudg_flash_attn_bwd_f32(P(q), P(k), P(v), P(o), P(do), P(lse), P(delta),
+                                              P(dq), P(dk), P(dv), P(work), b, l, h,
+                                              *_strides(q, k, v), _build.stream())
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

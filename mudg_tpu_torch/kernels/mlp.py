@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 from ..nn import remat as R
 
 launches = 0       # forward calls that launched kernel 3
@@ -138,11 +139,12 @@ def _launch(x, packed: PackedFF, block: bool):
     h = x.new_empty(rows, inner)
     xn = x.new_empty(rows, c) if block else None
     P = _build.ptr
-    err = lib.mudg_geglu_ff(P(x), P(out), P(h), P(xn),
-                            P(packed.ln_w) if block else None,
-                            P(packed.ln_b) if block else None,
-                            P(packed.w1), P(packed.b1), P(packed.w2), P(packed.b2),
-                            rows, c, inner, _build.stream())
+    with profiling.span("kernel.geglu_ff"):
+        err = lib.mudg_geglu_ff(P(x), P(out), P(h), P(xn),
+                                P(packed.ln_w) if block else None,
+                                P(packed.ln_b) if block else None,
+                                P(packed.w1), P(packed.b1), P(packed.w2), P(packed.b2),
+                                rows, c, inner, _build.stream())
     _build.check(err, "geglu_ff")
     launches += 1
     return out
@@ -223,10 +225,11 @@ def geglu_ff_bwd(x, dy, w1, b1, w2):
     db1, db2 = torch.empty(2 * inner, **f32), torch.empty(c, **f32)
     work = torch.empty(_build.WORK_ELEMS, **f32)
     P = _build.ptr
-    err = _build.load().mudg_geglu_ff_bwd(
-        P(x), P(dy), P(dx), P(w1b), P(b1f), P(w2t), P(w1t), P(h), P(dudg), P(slab),
-        P(dw1), P(db1), P(dw2), P(db2), P(work), _build.WORK_ELEMS, rows, c, inner,
-        _build.stream())
+    with profiling.span("kernel.geglu_ff_bwd"):
+        err = _build.load().mudg_geglu_ff_bwd(
+            P(x), P(dy), P(dx), P(w1b), P(b1f), P(w2t), P(w1t), P(h), P(dudg), P(slab),
+            P(dw1), P(db1), P(dw2), P(db2), P(work), _build.WORK_ELEMS, rows, c, inner,
+            _build.stream())
     _build.check(err, "geglu_ff_bwd")
     bwd_launches += 1
     return dx, dw1, db1, dw2, db2

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 from ..nn import remat as R
 
 # per-program VMEM working set cap of the TPU kernels (input + output + fp32
@@ -321,9 +322,10 @@ def fused_group_norm(x, w, b, groups: int = 32, eps: float = 1e-5):
     part = (None if plan.cluster else
             torch.empty(n * plan.chunks * groups * 2, device=x.device, dtype=torch.float32))
     P = _build.ptr
-    err = _build.load().mudg_group_norm(
-        P(x), P(y), P(w), P(b), P(part), wbf, n, rows, c, groups, plan.cluster, plan.per,
-        plan.keep, plan.chunks, int(x.dtype == torch.float32), eps, _build.stream(x.device))
+    with profiling.span("kernel.group_norm"):
+        err = _build.load().mudg_group_norm(
+            P(x), P(y), P(w), P(b), P(part), wbf, n, rows, c, groups, plan.cluster, plan.per,
+            plan.keep, plan.chunks, int(x.dtype == torch.float32), eps, _build.stream(x.device))
     _build.check(err, "fused_group_norm")
     launches += 1
     return y
@@ -340,9 +342,10 @@ def fused_layer_norm(x, w, b, eps: float = 1e-5):
     c = x.shape[-1]
     y = torch.empty_like(x)
     P = _build.ptr
-    err = _build.load().mudg_layer_norm_w(
-        P(x), P(y), P(w), P(b), wbf, x.numel() // c, c, int(x.dtype == torch.float32), -1,
-        eps, _build.stream(x.device))
+    with profiling.span("kernel.layer_norm"):
+        err = _build.load().mudg_layer_norm_w(
+            P(x), P(y), P(w), P(b), wbf, x.numel() // c, c, int(x.dtype == torch.float32), -1,
+            eps, _build.stream(x.device))
     _build.check(err, "fused_layer_norm")
     ln_launches += 1
     return y

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 from ..nn import remat as R
 
 launches = 0          # short-KV kernel launches
@@ -287,15 +288,16 @@ def short_kv_attention(q, k, v):
     lib = _build.load()
     P = _build.ptr
     plan = short_kv_plan(q.dtype, b, lq, lk, h, d, sm_count(q))
-    if plan.route == "tma":
-        err = lib.mudg_short_kv_tma(P(q), P(k), P(v), P(o), b, lq, lk, h, d, plan.span,
-                                    plan.stages, plan.grid, *strides, _build.stream())
-    elif plan.chunked:
-        err = lib.mudg_short_kv_tf32_chunked(P(q), P(k), P(v), P(o), b, lq, lk, h, d, plan.grid,
-                                             *strides, _build.stream())
-    else:
-        err = lib.mudg_short_kv_tf32(P(q), P(k), P(v), P(o), b, lq, lk, h, d,
-                                     *strides, _build.stream())
+    with profiling.span("kernel.short_kv_attention"):
+        if plan.route == "tma":
+            err = lib.mudg_short_kv_tma(P(q), P(k), P(v), P(o), b, lq, lk, h, d, plan.span,
+                                        plan.stages, plan.grid, *strides, _build.stream())
+        elif plan.chunked:
+            err = lib.mudg_short_kv_tf32_chunked(P(q), P(k), P(v), P(o), b, lq, lk, h, d,
+                                                 plan.grid, *strides, _build.stream())
+        else:
+            err = lib.mudg_short_kv_tf32(P(q), P(k), P(v), P(o), b, lq, lk, h, d,
+                                         *strides, _build.stream())
     _build.check(err, "short_kv_attention")
     launches += 1
     return o
@@ -315,8 +317,9 @@ def packed_short_attention(q, k, v):
     lib = _build.load()
     P = _build.ptr
     plan = packed_plan(b, t, h, d, sm_count(q))
-    err = lib.mudg_packed_attn(P(q), P(k), P(v), P(o), b, t, h, d, plan.hg, plan.bg,
-                               plan.stages, plan.grid, *strides, _build.stream())
+    with profiling.span("kernel.packed_short_attention"):
+        err = lib.mudg_packed_attn(P(q), P(k), P(v), P(o), b, t, h, d, plan.hg, plan.bg,
+                                   plan.stages, plan.grid, *strides, _build.stream())
     _build.check(err, "packed_short_attention")
     packed_launches += 1
     return o

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 
 LOG2E = 1.4426950408889634
 # The JAX dispatch sends C = 1280 (ds4 L=160 and the middle block) to XLA
@@ -203,9 +204,10 @@ def fused_self_attention(x, norm, attn, heads: int, packed: PackedStage | None =
     xn = x.new_empty(rows, c)        # LN(x), then the attention output
     qkv = x.new_empty(rows, 3 * c)
     P = _build.ptr
-    err = lib.mudg_spatial_attn(P(x), P(out), P(xn), P(qkv), P(packed.ln_w), P(packed.ln_b),
-                                P(packed.wqkv), P(packed.wo), P(packed.bo), b, l, c,
-                                _build.stream())
+    with profiling.span("kernel.spatial_attn"):
+        err = lib.mudg_spatial_attn(P(x), P(out), P(xn), P(qkv), P(packed.ln_w),
+                                    P(packed.ln_b), P(packed.wqkv), P(packed.wo), P(packed.bo),
+                                    b, l, c, _build.stream())
     _build.check(err, "spatial_attn")
     launches += 1
     return out

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 from .norms import gn_plan_card
 
 # The JAX dispatch admits c < 640 only (C = 640 measured slower than XLA on
@@ -112,9 +113,11 @@ def fused_gn_silu_tconv(x, norm, conv, packed: PackedTConv | None = None):
     part = (None if plan.cluster else
             torch.empty(b * plan.chunks * 32 * 2, device=x.device, dtype=torch.float32))
     P = _build.ptr
-    err = lib.mudg_gn_silu_tconv(P(x), P(out), P(hs), P(part), P(packed.gn_w), P(packed.gn_b),
-                                 P(packed.wcat), P(packed.bias), b, t, h * w, c, plan.cluster,
-                                 plan.per, plan.keep, plan.chunks, _build.stream())
+    with profiling.span("kernel.gn_silu_tconv"):
+        err = lib.mudg_gn_silu_tconv(P(x), P(out), P(hs), P(part), P(packed.gn_w),
+                                     P(packed.gn_b), P(packed.wcat), P(packed.bias), b, t, h * w,
+                                     c, plan.cluster, plan.per, plan.keep, plan.chunks,
+                                     _build.stream())
     _build.check(err, "gn_silu_tconv")
     launches += 1
     return out

@@ -30,6 +30,7 @@ import math
 import torch
 
 from . import _build
+from ..utils import profiling
 from ..nn import remat as R
 from . import spatial_attn as SP
 from .spatial_attn import LOG2E, PackedStage, check_packed
@@ -138,11 +139,12 @@ def _launch_double(tokens, packed):
     xn = tokens.new_empty(rows, c)   # LN(x)
     o = tokens.new_empty(rows, c)    # the heads' attention outputs
     P = _build.ptr
-    for src, dst, p in ((tokens, h1, packed[0]), (h1, out, packed[1])):
-        err = lib.mudg_temporal_attn_stage(
-            P(src), P(dst), P(xn), P(o), P(p.ln_w), P(p.ln_b), P(p.wqkv), P(p.wo), P(p.bo),
-            rows, c, _build.stream())
-        _build.check(err, "temporal_attn")
+    with profiling.span("kernel.temporal_attn"):
+        for src, dst, p in ((tokens, h1, packed[0]), (h1, out, packed[1])):
+            err = lib.mudg_temporal_attn_stage(
+                P(src), P(dst), P(xn), P(o), P(p.ln_w), P(p.ln_b), P(p.wqkv), P(p.wo), P(p.bo),
+                rows, c, _build.stream())
+            _build.check(err, "temporal_attn")
     launches += 1
     return out, h1
 
@@ -256,8 +258,9 @@ def double_self_attn_bwd(tokens, h1, dy, params1, params2, heads: int):
         dx, g1 = plain_temporal_stage_bwd(tokens, dh1, params1, heads)
         return dx, g1, g2
     _check_tokens(tokens, heads, "temporal_attn_bwd")
-    dh1, g2 = _launch_stage_bwd(h1, dy, params2, heads)
-    dx, g1 = _launch_stage_bwd(tokens, dh1, params1, heads)
+    with profiling.span("kernel.temporal_attn_bwd"):
+        dh1, g2 = _launch_stage_bwd(h1, dy, params2, heads)
+        dx, g1 = _launch_stage_bwd(tokens, dh1, params1, heads)
     bwd_launches += 1
     return dx, g1, g2
 

@@ -36,6 +36,7 @@ import torch
 
 from ..gs.rasterize import ALPHA_MIN, T_MIN, TILE, pixel_centers
 from . import _build
+from ..utils import profiling
 
 NPIX = TILE * TILE
 MAX_PAY = 26      # payload channels the kernel takes (rgb + depth + 22 extras)
@@ -221,8 +222,10 @@ def tile_composite(feats, bounds, tw: int, npay: int):
     last = torch.empty(n_tiles, NPIX, device=feats.device, dtype=torch.int32)
     order = torch.empty(n_tiles, device=feats.device, dtype=torch.int32)   # scratch
     P = _build.ptr
-    err = _build.load().mudg_tile_composite(P(feats), P(bounds), P(order), P(out), P(last),
-                                            n_tiles, tw, npay, feats.shape[0], _build.stream())
+    with profiling.span("kernel.tile_composite"):
+        err = _build.load().mudg_tile_composite(P(feats), P(bounds), P(order), P(out),
+                                                P(last), n_tiles, tw, npay, feats.shape[0],
+                                                _build.stream())
     _build.check(err, "tile_composite")
     launches += 1
     return out, last
@@ -247,9 +250,10 @@ def tile_composite_bwd(feats, bounds, out, last, gout, tw: int, npay: int):
     tmax = last.amax(1)
     order = torch.empty(n_tiles, device=feats.device, dtype=torch.int32)   # scratch
     P = _build.ptr
-    err = _build.load().mudg_tile_composite_bwd(P(feats), P(bounds), P(order), P(tmax), P(out),
-                                                P(last), P(gout), P(dfeats), n_tiles, tw, npay,
-                                                feats.shape[0], _build.stream())
+    with profiling.span("kernel.tile_composite_bwd"):
+        err = _build.load().mudg_tile_composite_bwd(P(feats), P(bounds), P(order), P(tmax),
+                                                    P(out), P(last), P(gout), P(dfeats), n_tiles,
+                                                    tw, npay, feats.shape[0], _build.stream())
     _build.check(err, "tile_composite_bwd")
     bwd_launches += 1
     return dfeats

@@ -35,6 +35,7 @@ from ..nn import resampler as R
 from ..nn import unet3d as U
 from ..nn import vae as V
 from ..parallel import sp as SP
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,13 +156,17 @@ def init_mdm(cfg: MDMConfig, generator: torch.Generator, device=None) -> MDM:
 
 def encode_text(mdm: MDM, tokens):
     """tokens (B, 77) -> (B, 77, 1024) (FrozenOpenCLIPEmbedder)."""
-    return mdm.clip_text(tokens)
+    with profiling.span("clip_text"):
+        return mdm.clip_text(tokens)
 
 
 def embed_image(mdm: MDM, images):
     """images (B, H, W, 3) in [-1, 1] -> resampled tokens (B, T*16, 1024)
     (ddpm3d.py:1107-1111: CLIP image embedder + image_proj_model)."""
-    return mdm.image_proj(mdm.clip_image(images))
+    with profiling.span("clip_image"):
+        feats = mdm.clip_image(images)
+    with profiling.span("image_proj"):
+        return mdm.image_proj(feats)
 
 
 def encode_conditions(mdm: MDM, sparse_frames, sparse_depth):

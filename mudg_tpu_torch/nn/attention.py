@@ -47,6 +47,7 @@ from ..kernels import short_attention as SA
 from ..kernels import spatial_attn as SP
 from ..kernels import temporal_attn as TA
 from ..parallel import sp as SP_
+from ..utils import profiling
 
 # Below this sequence length the JAX dispatch keeps attention dense
 # (mudg_tpu/nn/attention.py:28-32).
@@ -450,15 +451,16 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x, context=None, *, image_cross=False, ip_scale=1.0,
                 text_len=77, num_tasks=1, impl="auto"):
-        n, h, w, c = x.shape
-        x_in = x
-        x = F.group_norm(self.norm, x, eps=1e-6).reshape(n, h * w, c)
-        x = _proj(self.proj_in, x)
-        for block in self.transformer_blocks.values():
-            x = block(x, context, image_cross=image_cross, ip_scale=ip_scale,
-                      text_len=text_len, num_tasks=num_tasks, impl=impl)
-        x = _proj(self.proj_out, x)
-        return x.reshape(n, h, w, c) + x_in
+        with profiling.span("unet.spatial"):
+            n, h, w, c = x.shape
+            x_in = x
+            x = F.group_norm(self.norm, x, eps=1e-6).reshape(n, h * w, c)
+            x = _proj(self.proj_in, x)
+            for block in self.transformer_blocks.values():
+                x = block(x, context, image_cross=image_cross, ip_scale=ip_scale,
+                          text_len=text_len, num_tasks=num_tasks, impl=impl)
+            x = _proj(self.proj_out, x)
+            return x.reshape(n, h, w, c) + x_in
 
 
 class TemporalTransformer(nn.Module):
@@ -495,42 +497,43 @@ class TemporalTransformer(nn.Module):
         its blocks run without the causal mask or relative terms. sp: a
         sequence-parallel sharding whose ranks each hold a block of W; the
         norm's statistics are then summed over them."""
-        b, t, h, w, c = x.shape
-        x_in = x
-        x = F.group_norm(self.norm, x, eps=1e-6, **SP_.kw(sp))
-        x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-        x = _proj(self.proj_in, x)
-        n, t, c = x.shape
-        if context is not None:
-            hw = h * w
-            if hw % t:
-                raise ValueError(f"cross temporal transformer requires (h*w) % t == 0 "
-                                 f"(reference repeat semantics), got {hw} % {t}")
-            l, dc = context.shape[-2:]
-            ctx = context.reshape(b, t, l, dc).repeat_interleave(hw // t, dim=1)
-            ctx = ctx.reshape(b * hw, l, dc)
-            for blk in self.transformer_blocks.values():
-                x = blk(x, ctx, impl=impl)
-        else:
-            site = (impl in ("auto", "train") and not causal
-                    and os.environ.get("MUDG_FUSED_TEMPORAL", "1") == "1"
-                    and TA.eligible(x.shape, x.dtype, c, self.heads)
-                    and (impl == "auto" or TA.bwd_eligible(n * t, c)))
-            for blk in self.transformer_blocks.values():
-                if not (site and Q.is_float(blk.attn1.to_q) and Q.is_float(blk.attn2.to_q)
-                        and not hasattr(blk.attn1, "relative_position_k")):
-                    x = blk(x, None, causal=causal, temporal_length=temporal_length, impl=impl)
-                    continue
-                packs = blk.kernel_packs
-                stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
-                R.tag("blk_attn2")   # kernel 2's output
-                if impl == "train":
-                    x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
-                else:
-                    packed = None
-                    if "attn1" in packs and "attn2" in packs:
-                        packed = (packs["attn1"], packs["attn2"])
-                    x = TA.fused_double_self_attn(x.contiguous(), *stages, self.heads, packed)
-                x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl, packed=packs.get("ff"))
-        x = _proj(self.proj_out, x)
-        return x.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4) + x_in
+        with profiling.span("unet.temporal"):
+            b, t, h, w, c = x.shape
+            x_in = x
+            x = F.group_norm(self.norm, x, eps=1e-6, **SP_.kw(sp))
+            x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+            x = _proj(self.proj_in, x)
+            n, t, c = x.shape
+            if context is not None:
+                hw = h * w
+                if hw % t:
+                    raise ValueError(f"cross temporal transformer requires (h*w) % t == 0 "
+                                     f"(reference repeat semantics), got {hw} % {t}")
+                l, dc = context.shape[-2:]
+                ctx = context.reshape(b, t, l, dc).repeat_interleave(hw // t, dim=1)
+                ctx = ctx.reshape(b * hw, l, dc)
+                for blk in self.transformer_blocks.values():
+                    x = blk(x, ctx, impl=impl)
+            else:
+                site = (impl in ("auto", "train") and not causal
+                        and os.environ.get("MUDG_FUSED_TEMPORAL", "1") == "1"
+                        and TA.eligible(x.shape, x.dtype, c, self.heads)
+                        and (impl == "auto" or TA.bwd_eligible(n * t, c)))
+                for blk in self.transformer_blocks.values():
+                    if not (site and Q.is_float(blk.attn1.to_q) and Q.is_float(blk.attn2.to_q)
+                            and not hasattr(blk.attn1, "relative_position_k")):
+                        x = blk(x, None, causal=causal, temporal_length=temporal_length, impl=impl)
+                        continue
+                    packs = blk.kernel_packs
+                    stages = (blk.norm1, blk.attn1), (blk.norm2, blk.attn2)
+                    R.tag("blk_attn2")   # kernel 2's output
+                    if impl == "train":
+                        x = TA.double_self_attn_train(x.contiguous(), *stages, self.heads)
+                    else:
+                        packed = None
+                        if "attn1" in packs and "attn2" in packs:
+                            packed = (packs["attn1"], packs["attn2"])
+                        x = TA.fused_double_self_attn(x.contiguous(), *stages, self.heads, packed)
+                    x = feed_forward_block(blk.ff, blk.norm3, x, impl=impl, packed=packs.get("ff"))
+            x = _proj(self.proj_out, x)
+            return x.reshape(b, h, w, t, -1).permute(0, 3, 1, 2, 4) + x_in

@@ -147,7 +147,8 @@ class _Keep(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if _in_hooks:
+        if _in_hooks or func.namespace == "profiler":
+            # the profiler's ranges (the program's spans) open in the replay too
             return func(*args, **kwargs)
         if self.ops is None:
             keep = _no_alias(func) and "ff_inner" not in _scopes

@@ -48,6 +48,7 @@ from . import remat as R
 from ..core.schedules import timestep_embedding
 from ..kernels import tconv as TC
 from ..parallel import sp as SP
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,20 +219,21 @@ class ResBlock(nn.Module):
         applied before the output conv and in the temporal conv block; sp:
         x a block of the frame rows, the temporal conv block run on a block
         of W between two all-to-alls."""
-        h = F.conv2d(self.in_layers["2"], F.silu(F.group_norm(self.in_layers["0"], x)))
-        h = h + F.linear(self.emb_layers["1"], F.silu(emb)).to(h.dtype)[:, None, None, :]
-        h = F.silu(F.group_norm(self.out_layers["0"], h))
-        if drop is not None:
-            h = drop(h)
-        h = F.conv2d(self.out_layers["3"], h)
-        if hasattr(self, "skip_connection"):
-            x = F.conv2d(self.skip_connection, x)
-        h = x + h
-        if hasattr(self, "temopral_conv"):
-            ww = h.shape[2]
-            hv = SP.to_video(h, batch_size, sp)
-            h = SP.to_rows(self.temopral_conv(hv, impl=impl, drop=drop, **SP.kw(sp)), sp, ww)
-        return h
+        with profiling.span("unet.res"):
+            h = F.conv2d(self.in_layers["2"], F.silu(F.group_norm(self.in_layers["0"], x)))
+            h = h + F.linear(self.emb_layers["1"], F.silu(emb)).to(h.dtype)[:, None, None, :]
+            h = F.silu(F.group_norm(self.out_layers["0"], h))
+            if drop is not None:
+                h = drop(h)
+            h = F.conv2d(self.out_layers["3"], h)
+            if hasattr(self, "skip_connection"):
+                x = F.conv2d(self.skip_connection, x)
+            h = x + h
+            if hasattr(self, "temopral_conv"):
+                ww = h.shape[2]
+                hv = SP.to_video(h, batch_size, sp)
+                h = SP.to_rows(self.temopral_conv(hv, impl=impl, drop=drop, **SP.kw(sp)), sp, ww)
+            return h
 
 
 class Downsample(nn.Module):
@@ -241,7 +243,8 @@ class Downsample(nn.Module):
 
     def forward(self, x):
         # torch pad=1, stride 2 (openaimodel3d.py:51-77)
-        return F.conv2d(self.op, x, stride=2, padding=((1, 1), (1, 1)))
+        with profiling.span("unet.resample"):
+            return F.conv2d(self.op, x, stride=2, padding=((1, 1), (1, 1)))
 
 
 class Upsample(nn.Module):
@@ -250,7 +253,8 @@ class Upsample(nn.Module):
         self.conv = nn.Conv2d(ch, ch, 3)
 
     def forward(self, x):
-        return F.conv2d(self.conv, F.upsample_nearest_2x(x))
+        with profiling.span("unet.resample"):
+            return F.conv2d(self.conv, F.upsample_nearest_2x(x))
 
 
 def _embed_mlp(mc, tdim):
@@ -359,79 +363,80 @@ class UNet3D(nn.Module):
         its own generator seeded from this one; sp: a `parallel/sp.SeqSharding`
         (impl "plain" only, as JAX's requires "xla", unet3d.py:324-330): every
         rank passes the whole inputs and gets the whole output."""
-        cfg = self.cfg
-        if remat is not False:
-            R.policy_names(remat)   # raises for an unknown policy
-        if sp is not None and impl != "plain":
-            raise ValueError(f"sequence parallelism requires impl='plain', got {impl!r}")
-        if sp is not None and (cfg.domain_cross_attention or not cfg.temporal_selfatt_only):
-            raise ValueError("joint task and cross-context temporal attention do not run "
-                             "sequence-parallel")
-        b, t, hh, ww, _ = x.shape
-        mc = cfg.model_channels
-        dtype = x.dtype
-
-        def mlp(seq, v):
-            return F.linear(seq[2], F.silu(F.linear(seq[0], v)))
-
-        emb = mlp(self.time_embed, timestep_embedding(timesteps, mc).to(dtype))
-        if cfg.class_label_condition:
-            if c_label is None:
-                raise ValueError("class_label is required")
-            emb = emb + mlp(self.class_embed, timestep_embedding(c_label, mc).to(dtype))
-
-        # 77 text tokens broadcast over frames, 16 image tokens per frame to
-        # their frame (openaimodel3d.py:581-588)
-        if context.shape[1] == cfg.text_context_len + t * cfg.image_tokens_per_frame:
-            ctx_text = context[:, :cfg.text_context_len].repeat_interleave(t, dim=0)
-            ctx_img = context[:, cfg.text_context_len:].reshape(
-                b * t, cfg.image_tokens_per_frame, -1)
-            context = torch.cat([ctx_text, ctx_img], dim=1)
-        else:
-            context = context.repeat_interleave(t, dim=0)
-        emb = emb.repeat_interleave(t, dim=0)
-
-        if cfg.fs_condition:
-            if fs is None:
-                fs = torch.full((b,), cfg.default_fs, device=x.device, dtype=torch.int64)
-            fs_emb = mlp(self.fps_embedding, timestep_embedding(fs, mc).to(dtype))
-            emb = emb + fs_emb.repeat_interleave(t, dim=0)
-
-        h = x.reshape(b * t, hh, ww, x.shape[-1])
-        if sp is not None:
-            sp = sp.for_clip(t)
-            h, emb, context = SP.rows(h, sp), SP.rows(emb, sp), SP.rows(context, sp)
-        inp_plan, mid_plan, out_plan = block_plan(cfg)
-        n_blocks = len(inp_plan) + 1 + len(out_plan)
-        seeds = [None] * n_blocks
-        if generator is not None and cfg.dropout > 0.0:
-            seeds = torch.randint(0, 2**62, (n_blocks,), generator=generator,
-                                  device=generator.device).tolist()
-            seeds = [(s + self.dropout_rank * 0x9E3779B97F4A7C15) % 2**62 for s in seeds]
-        seeds = iter(seeds)
-
-        def run(block, plan, h):
-            args = (block, plan, h, emb, context, b, impl, next(seeds), sp)
+        with profiling.span("unet"):
+            cfg = self.cfg
             if remat is not False:
-                # dropout draws from per-block generators, so no global RNG
-                # state needs saving for the recompute
-                with R.block():
-                    return R.checkpoint(self._run_block, *args, remat=remat)
-            return self._run_block(*args)
+                R.policy_names(remat)   # raises for an unknown policy
+            if sp is not None and impl != "plain":
+                raise ValueError(f"sequence parallelism requires impl='plain', got {impl!r}")
+            if sp is not None and (cfg.domain_cross_attention or not cfg.temporal_selfatt_only):
+                raise ValueError("joint task and cross-context temporal attention do not run "
+                                 "sequence-parallel")
+            b, t, hh, ww, _ = x.shape
+            mc = cfg.model_channels
+            dtype = x.dtype
 
-        hs = []
-        for i, plan in enumerate(inp_plan):
-            h = run(self.input_blocks[str(i)], plan, h)
-            if i == 0 and cfg.addition_attention:
-                w_ = h.shape[2]
-                h = SP.to_rows(self.init_attn["0"](
-                    SP.to_video(h, b, sp), None if cfg.temporal_selfatt_only else context,
-                    temporal_length=cfg.temporal_length, impl=impl, **SP.kw(sp)), sp, w_)
-            hs.append(h)
-        h = run(self.middle_block, mid_plan, h)
-        for i, plan in enumerate(out_plan):
-            h = torch.cat([h, hs.pop()], dim=-1)
-            h = run(self.output_blocks[str(i)], plan, h)
-        h = F.silu(F.group_norm(self.out["0"], h))
-        y = SP.gather(F.conv2d(self.out["2"], h), 0, sp)
-        return y.reshape(b, t, hh, ww, cfg.out_channels)
+            def mlp(seq, v):
+                return F.linear(seq[2], F.silu(F.linear(seq[0], v)))
+
+            emb = mlp(self.time_embed, timestep_embedding(timesteps, mc).to(dtype))
+            if cfg.class_label_condition:
+                if c_label is None:
+                    raise ValueError("class_label is required")
+                emb = emb + mlp(self.class_embed, timestep_embedding(c_label, mc).to(dtype))
+
+            # 77 text tokens broadcast over frames, 16 image tokens per frame to
+            # their frame (openaimodel3d.py:581-588)
+            if context.shape[1] == cfg.text_context_len + t * cfg.image_tokens_per_frame:
+                ctx_text = context[:, :cfg.text_context_len].repeat_interleave(t, dim=0)
+                ctx_img = context[:, cfg.text_context_len:].reshape(
+                    b * t, cfg.image_tokens_per_frame, -1)
+                context = torch.cat([ctx_text, ctx_img], dim=1)
+            else:
+                context = context.repeat_interleave(t, dim=0)
+            emb = emb.repeat_interleave(t, dim=0)
+
+            if cfg.fs_condition:
+                if fs is None:
+                    fs = torch.full((b,), cfg.default_fs, device=x.device, dtype=torch.int64)
+                fs_emb = mlp(self.fps_embedding, timestep_embedding(fs, mc).to(dtype))
+                emb = emb + fs_emb.repeat_interleave(t, dim=0)
+
+            h = x.reshape(b * t, hh, ww, x.shape[-1])
+            if sp is not None:
+                sp = sp.for_clip(t)
+                h, emb, context = SP.rows(h, sp), SP.rows(emb, sp), SP.rows(context, sp)
+            inp_plan, mid_plan, out_plan = block_plan(cfg)
+            n_blocks = len(inp_plan) + 1 + len(out_plan)
+            seeds = [None] * n_blocks
+            if generator is not None and cfg.dropout > 0.0:
+                seeds = torch.randint(0, 2**62, (n_blocks,), generator=generator,
+                                      device=generator.device).tolist()
+                seeds = [(s + self.dropout_rank * 0x9E3779B97F4A7C15) % 2**62 for s in seeds]
+            seeds = iter(seeds)
+
+            def run(block, plan, h):
+                args = (block, plan, h, emb, context, b, impl, next(seeds), sp)
+                if remat is not False:
+                    # dropout draws from per-block generators, so no global RNG
+                    # state needs saving for the recompute
+                    with R.block():
+                        return R.checkpoint(self._run_block, *args, remat=remat)
+                return self._run_block(*args)
+
+            hs = []
+            for i, plan in enumerate(inp_plan):
+                h = run(self.input_blocks[str(i)], plan, h)
+                if i == 0 and cfg.addition_attention:
+                    w_ = h.shape[2]
+                    h = SP.to_rows(self.init_attn["0"](
+                        SP.to_video(h, b, sp), None if cfg.temporal_selfatt_only else context,
+                        temporal_length=cfg.temporal_length, impl=impl, **SP.kw(sp)), sp, w_)
+                hs.append(h)
+            h = run(self.middle_block, mid_plan, h)
+            for i, plan in enumerate(out_plan):
+                h = torch.cat([h, hs.pop()], dim=-1)
+                h = run(self.output_blocks[str(i)], plan, h)
+            h = F.silu(F.group_norm(self.out["0"], h))
+            y = SP.gather(F.conv2d(self.out["2"], h), 0, sp)
+            return y.reshape(b, t, hh, ww, cfg.out_channels)

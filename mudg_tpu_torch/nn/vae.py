@@ -19,6 +19,7 @@ from torch import nn
 from . import functional as F
 from .attention import attend
 from ..core.distributions import DiagonalGaussian
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +205,12 @@ def _chunked(fn, x, chunk: int):
 def encode_video(vae: AutoencoderKL, x, generator=None, chunk: int = 1):
     """x (B, T, H, W, 3) -> (B, T, H/8, W/8, z); chunk = frames per call."""
     b, t = x.shape[:2]
-    z = _chunked(lambda xc: vae.encode(xc, generator), x.reshape(b * t, *x.shape[2:]), chunk)
+
+    def encode(xc):
+        with profiling.span("vae.encode"):
+            return vae.encode(xc, generator)
+
+    z = _chunked(encode, x.reshape(b * t, *x.shape[2:]), chunk)
     return z.reshape(b, t, *z.shape[1:])
 
 
@@ -219,5 +225,10 @@ def encode_moments_video(vae: AutoencoderKL, x, chunk: int = 1):
 def decode_video(vae: AutoencoderKL, z, chunk: int = 1):
     """z (B, T, h, w, zc) -> (B, T, 8h, 8w, 3); chunk = frames per call."""
     b, t = z.shape[:2]
-    x = _chunked(vae.decode, z.reshape(b * t, *z.shape[2:]), chunk)
+
+    def decode(zc):
+        with profiling.span("vae.decode"):
+            return vae.decode(zc)
+
+    x = _chunked(decode, z.reshape(b * t, *z.shape[2:]), chunk)
     return x.reshape(b, t, *x.shape[1:])

@@ -1330,6 +1330,66 @@ def test_small_unet_switch_path_matches_fp32(dev, monkeypatch):
     assert e_k <= 1.5 * e_p + 5e-3, (e_k, e_p)
 
 
+def test_small_unet_kernel_spans_hold_every_port_kernel(dev, monkeypatch):
+    """The small UNet of test_small_unet_switch_path_matches_fp32 with the
+    program's spans on under the profiler: each kernel wrapper's span counts
+    its launches, and every `mudg::` device op was launched (by the runtime
+    or driver call that shares its correlation id) inside a `kernel.*`
+    range, which per-kernel device time rests on."""
+    import mudg_tpu_torch.kernels as K
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mudg_tpu_torch.nn import unet3d as U
+    from mudg_tpu_torch.utils import profiling as P
+
+    cfg = U.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                       attention_resolutions=(1,), context_dim=32)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    unet = _randomize(U.UNet3D(cfg).to(dev), gen).eval().bfloat16()
+    K.prepare_kernels(unet)
+    x = torch.randn(1, 16, 16, 16, 12, generator=gen, device=dev).bfloat16()
+    ctx = torch.randn(1, 77 + 256, 32, generator=gen, device=dev).bfloat16()
+    ts = torch.tensor([500], device=dev)
+    monkeypatch.setenv("MUDG_FUSED_NORMS", "1")
+    monkeypatch.setenv("MUDG_SHORT_ATTN", "1")
+    with torch.no_grad():
+        unet(x, ts, ctx, c_label=ts * 0)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        P.reset_spans()
+        P.enable_spans(True)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                unet(x, ts, ctx, c_label=ts * 0)
+                torch.cuda.synchronize()
+        finally:
+            P.enable_spans(False)
+    launched = {k: n for k, n in K.launch_counts().items() if n}
+    assert {"spatial_attn", "temporal_attn", "geglu_ff", "gn_silu_tconv"} <= set(launched)
+    spanned = {}
+    for path, t in P.span_totals().items():
+        name = path.rsplit("/", 1)[-1]
+        if name.startswith("kernel."):
+            spanned[name[len("kernel."):]] = spanned.get(name[len("kernel."):], 0) + t["count"]
+    P.reset_spans()
+    assert spanned == launched
+    ranges, calls, ops = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.is_user_annotation():
+            if e.name().startswith("mudg.kernel."):
+                ranges.append((e.start_ns(), e.end_ns()))
+        elif e.device_type() == DeviceType.CPU:
+            if e.name().startswith("cu") and "::" not in e.name():   # runtime or driver call
+                calls[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == DeviceType.CUDA and "mudg::" in e.name():
+            ops.append((e.name(), e.correlation_id()))
+    assert ops
+    unlinked = [n for n, corr in ops
+                if corr not in calls or not any(s <= calls[corr] <= e for s, e in ranges)]
+    assert not unlinked, unlinked[:5]
+
+
 def test_small_unet_fp32_switch_path_matches_plain(dev, monkeypatch):
     """The small UNet in fp32 with impl="auto" and both switches: kernels 11
     and 12 take fp32 (the Pallas kernels take any dtype, and the JAX

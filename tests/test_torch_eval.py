@@ -229,24 +229,17 @@ def test_decode_semantic_matches_jax(num_classes):
             np.testing.assert_array_equal(o, r)
 
 
-def test_profiling_helpers(tmp_path, monkeypatch):
-    """StepTimer's statistics equal JAX's over the same ticks; without CUDA
-    device_memory_stats is empty; trace writes a Chrome trace."""
-    from mudg_tpu.utils import profiling as JP
+def test_profiling_helpers(tmp_path):
+    """Without CUDA device_memory_stats is empty; trace writes a Chrome
+    trace that carries the program's spans, on inside it and off after."""
     from mudg_tpu_torch.utils import profiling as TP
 
-    clock = iter([0.0, 0.5, 1.25, 1.5, 3.0] * 2)
-    monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-    ours, theirs = TP.StepTimer(window=3), JP.StepTimer(window=3)
-    for timer in (ours, theirs):
-        assert timer.stats() == {}
-        for _ in range(5):
-            timer.tick()
-    assert ours.times == theirs.times == [0.75, 0.25, 1.5]
-    assert ours.stats() == theirs.stats()
-    monkeypatch.undo()
     if not torch.cuda.is_available():
         assert TP.device_memory_stats() == []
     with TP.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(4).sum()
-    assert prof is not None and (tmp_path / "trace" / "trace.json").exists()
+        with TP.span("unet"):
+            torch.ones(4).sum()
+    assert prof is not None
+    assert '"mudg.unet"' in (tmp_path / "trace" / "trace.json").read_text()
+    assert TP.span("unet") is TP.span("vae.decode")    # off again: the shared null context
+    TP.reset_spans()

@@ -266,6 +266,18 @@ def test_train_app_end_to_end(items, caches, tmp_path):
     assert all(torch.equal(v, final[k]) for k, v in mdm.state_dict().items())
 
 
+def test_train_app_profile_dir(items, caches, tmp_path):
+    """--profile_dir: one step under the profiler, its Chrome trace carrying
+    the program's spans, which are off again after the run."""
+    from mudg_tpu_torch.utils import profiling
+
+    prof = tmp_path / "prof"
+    assert _run(items, tmp_path / "run", "--max_steps", "1", "--profile_dir", str(prof)) == 0
+    trace = (prof / "trace.json").read_text()
+    assert '"mudg.unet"' in trace and '"mudg.unet.res"' in trace
+    assert profiling.span("unet") is profiling.span("unet.res")
+
+
 def test_train_app_auto_resume_and_sigusr1(items, caches, tmp_path, capsys):
     """SIGUSR1 at step 1 saves step_1 and trainstate_1; --auto_resume then
     restores trainstate_2 (newer than step_1) bit for bit and runs step 3;
